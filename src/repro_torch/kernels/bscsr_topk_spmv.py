@@ -1,0 +1,376 @@
+"""BS-CSR Top-K SpMV kernels for Hopper, with their plain PyTorch versions.
+
+Two kernels, each the port of one Pallas TPU kernel of
+``repro.kernels.bscsr_topk_spmv``:
+
+  bscsr_topk_spmv             one query per stream pass      -> (C, k)
+  bscsr_topk_spmv_multiquery  Q queries share one stream pass -> (C, Q, k)
+
+Both take the fused word stream ``(C, P, W)`` int32 (``flags | cols |
+vals`` per packet, see ``core/bscsr.py``).  Split-layout snapshots reach
+them as ``fused_words()``, which is bit-identical.  The CUDA source is
+``repro_torch/csrc/bscsr_topk_spmv.cu``: one CTA per core walks its packets
+in order, because the stage-3 row carry crosses packet boundaries.
+
+Each wrapper dispatches on where its tensors lie.  CPU tensors go to the
+plain version; CUDA tensors launch the kernel (and add one to the wrapper's
+``launches`` count) or raise.  Nothing falls back from one to the other.
+
+The plain versions are step-faithful to the Pallas kernels: the same tile
+walk of T packets per step, the same stages, vectorised over cores and
+queries with a Python loop over steps.
+
+  stage 1  decode the fused tile, gather x (out-of-range ids read 0), multiply
+  stage 2  segment sums as differences of an inclusive prefix sum
+  stage 3  add the carried open row; the last segment of a step stays open
+  stage 4  candidates strictly above the scratchpad minimum (taken at the
+           start of the step) are merged into the k-sized scratchpad
+
+Stage 4 ranks as ``lax.top_k`` does: float total order (-0.0 below +0.0),
+lower position first on ties, which puts scratchpad entries before
+candidates and lower slots first.  The admission test is an IEEE ``>``
+against the step-start minimum, so a +0.0 candidate never displaces a -0.0
+incumbent across steps but can within one step.  The kernel follows the same
+rule; ``torch.topk`` is neither stable nor ordered like ``lax.top_k`` and is
+not used.
+
+``gather_mode`` ("take" | "onehot") and ``inner_loop`` (the four reference
+loop variants) are accepted and served by one gather and one stage rule: on
+the TPU they work around MXU and Mosaic limits.  The rule is that of
+"linear" and "linear-topk", which these versions reproduce exactly.  Under
+"legacy" and "linear-seg" the reference admits with a k-pass argmax
+instead.  Its scores are the same, bit for bit: the two rules part only at
+a tie of +0.0 with -0.0, and no candidate scores -0.0 (stage 3 adds +0.0 or
+the carry, which is never -0.0, to every segment sum).  Its row ids are the
+same beside every score above NEG_INF; an unfilled scratchpad entry keeps
+``n_rows`` here but repeats an earlier row there.  The merge rewrites both
+to the sentinel, so the answers agree.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantization import STREAM_FORMATS, TaggedFormatClass, ValueFormat
+
+NEG_INF = float(np.finfo(np.float32).min)
+FLAG_WORD_BITS = 32
+INNER_LOOPS = ("linear", "legacy", "linear-seg", "linear-topk")
+GATHER_MODES = ("take", "onehot")
+_FMT_IDS = {"F32": 0, "BF16": 1, "Q15": 2, "Q7": 3}
+MAX_TILE_NNZ = 1024  # T*B: one CUDA thread per nnz of a step
+
+
+# ---------------------------------------------------------------------------
+# Shared argument checks
+# ---------------------------------------------------------------------------
+
+def _fused_geometry(width: int, block: int, fmt: ValueFormat) -> int:
+    """Validate a fused stream width and return its col-section word count."""
+    wf = block // FLAG_WORD_BITS
+    wv = block * int(fmt.bytes_per_value) // 4
+    col_words = width - wf - wv
+    if col_words not in (block // 2, block):
+        raise ValueError(
+            f"fused stream width {width} inconsistent with block={block}, "
+            f"fmt={fmt.name}: col section would be {col_words} words"
+        )
+    return col_words
+
+
+def _resolve(fmt_name: str, words: torch.Tensor, block_size: int,
+             packets_per_step: int, k: int, gather_mode: str, inner_loop: str):
+    """Checks shared by both kernels -> (fmt, col_words)."""
+    fmt = STREAM_FORMATS[fmt_name]
+    if isinstance(fmt, TaggedFormatClass):
+        raise NotImplementedError(
+            f"tagged width class {fmt_name!r} belongs to the mixed-precision "
+            "slice (ROADMAP Queue 1 item 8)"
+        )
+    if inner_loop not in INNER_LOOPS:
+        raise ValueError(f"inner_loop must be one of {INNER_LOOPS}, got {inner_loop!r}")
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be one of {GATHER_MODES}, got {gather_mode!r}")
+    if words.dim() != 3 or words.dtype != torch.int32:
+        raise ValueError(f"words must be a (C, P, W) int32 tensor, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if block_size % FLAG_WORD_BITS:
+        raise ValueError("block size must be a multiple of 32")
+    col_words = _fused_geometry(words.shape[2], block_size, fmt)
+    n_packets = words.shape[1]
+    if packets_per_step < 1 or n_packets % packets_per_step:
+        raise ValueError(
+            f"packet count {n_packets} is not a multiple of packets_per_step "
+            f"{packets_per_step}"
+        )
+    tb = packets_per_step * block_size
+    if not 1 <= k <= tb + 1:
+        raise ValueError(f"k={k} must lie in [1, T*B+1={tb + 1}]")
+    return fmt, col_words
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (step-faithful to the Pallas kernels)
+# ---------------------------------------------------------------------------
+
+def _total_order_key(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 key in float total order (-0.0 below +0.0)."""
+    b = v.view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _stable_topk(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: total order desc, lower index first."""
+    order = torch.sort(_total_order_key(v), dim=-1, descending=True, stable=True)
+    idx = order.indices[..., :k]
+    return torch.gather(v, -1, idx), idx
+
+
+def _decode_fused_tile(tile: torch.Tensor, block: int, fmt: ValueFormat, col_words: int):
+    """(C, T, W) words -> flag bits (C, TB) int32, cols (C, TB) int64, vals (C, TB) f32."""
+    c, t, _ = tile.shape
+    wf = block // FLAG_WORD_BITS
+    shifts = torch.arange(FLAG_WORD_BITS, dtype=torch.int32, device=tile.device)
+    f = ((tile[..., :wf].unsqueeze(-1) >> shifts) & 1).reshape(c, t * block)
+    cw = tile[..., wf : wf + col_words].contiguous()
+    if col_words == block:
+        cols = cw.reshape(c, -1)
+    else:
+        cols = cw.view(torch.int16).reshape(c, -1)
+    vw = tile[..., wf + col_words :].contiguous()
+    if fmt.storage_dtype == "float32":
+        v = vw.view(torch.float32)
+    elif fmt.storage_dtype == "bfloat16":
+        v = vw.view(torch.bfloat16).float()
+    elif fmt.storage_dtype == "int16":
+        v = vw.view(torch.int16).float() * fmt.scale
+    else:
+        v = vw.view(torch.int8).float() * fmt.scale
+    return f, cols.long(), v.reshape(c, -1)
+
+
+def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
+                packets_per_step: int, fmt: ValueFormat, block: int,
+                col_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas tile walk for a (Q, M) query batch -> (C, Q, k) each."""
+    dev = words.device
+    n_cores = words.shape[0]
+    nq, m = x.shape
+    t = packets_per_step
+    tb = t * block
+    x = x.float()
+    acc_v = torch.full((n_cores, nq, k), NEG_INF, dtype=torch.float32, device=dev)
+    acc_r = torch.full((n_cores, nq, k), n_rows, dtype=torch.int32, device=dev)
+    carry_row = torch.full((n_cores,), -1, dtype=torch.int32, device=dev)
+    carry_sum = torch.zeros((n_cores, nq), dtype=torch.float32, device=dev)
+    seg_ids = torch.arange(tb + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones((n_cores, 1), dtype=torch.int32, device=dev)
+    for step in range(words.shape[1] // t):
+        # ---- stage 1: decode, gather x (clip + mask), multiply ----
+        f, c, v = _decode_fused_tile(words[:, step * t : (step + 1) * t], block, fmt,
+                                     col_words)
+        oob = (c < 0) | (c >= m)
+        xv = x[:, torch.clamp(c, 0, m - 1)].permute(1, 0, 2)        # (C, Q, TB)
+        xv = torch.where(oob[:, None, :], 0.0, xv)
+        prods = v[:, None, :] * xv
+        # ---- stage 2: segment sums by prefix-sum differencing ----
+        seg = torch.cumsum(f, dim=-1, dtype=torch.int32)            # (C, TB)
+        s_last = seg[:, -1].long()
+        is_last = torch.cat([f[:, 1:], ones], dim=-1) == 1
+        slot = torch.where(is_last, seg, tb + 1).long()
+        ps = torch.cumsum(prods, dim=-1)
+        ends = torch.zeros((n_cores, nq, tb + 2), dtype=torch.float32, device=dev)
+        ends.scatter_(-1, slot[:, None, :].expand(-1, nq, -1), ps)
+        ends = ends[..., : tb + 1]
+        prev = torch.cat([ends.new_zeros((n_cores, nq, 1)), ends[..., :-1]], dim=-1)
+        seg_sums = ends - prev                                      # (C, Q, TB+1)
+        # ---- stage 3: cross-step carry of the open row ----
+        part = carry_sum
+        cand_v = seg_sums + torch.where(seg_ids == 0, part[..., None], 0.0)
+        cand_r = carry_row[:, None] + seg_ids                       # (C, TB+1)
+        complete = (seg_ids < s_last[:, None]) & (cand_r >= 0)
+        cand_v = torch.where(complete[:, None, :], cand_v, NEG_INF)
+        carry_row = carry_row + s_last.int()
+        last_sum = torch.gather(seg_sums, -1, s_last[:, None, None].expand(-1, nq, 1))
+        carry_sum = last_sum[..., 0] + torch.where(s_last[:, None] == 0, part, 0.0)
+        # ---- stage 4: threshold filter + one stable top-k merge ----
+        thr = acc_v.min(dim=-1, keepdim=True).values
+        fv = torch.where(cand_v > thr, cand_v, NEG_INF)
+        cv, ci = _stable_topk(fv, k)
+        cr = torch.gather(cand_r[:, None, :].expand(-1, nq, -1), -1, ci)
+        pool_v = torch.cat([acc_v, cv], dim=-1)
+        pool_r = torch.cat([acc_r, cr], dim=-1)
+        acc_v, mi = _stable_topk(pool_v, k)
+        acc_r = torch.gather(pool_r, -1, mi)
+    return acc_v, acc_r
+
+
+def bscsr_topk_spmv_plain(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
+                          block_size=256, gather_mode="take", inner_loop="linear"):
+    """Plain PyTorch version of :func:`bscsr_topk_spmv` -> (C, k) each."""
+    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                                 gather_mode, inner_loop)
+    v, r = _walk_plain(x.reshape(1, -1), words, k=k, n_rows=n_rows,
+                       packets_per_step=packets_per_step, fmt=fmt, block=block_size,
+                       col_words=col_words)
+    return v[:, 0], r[:, 0]
+
+
+def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
+                                     fmt_name="F32", block_size=256,
+                                     inner_loop="linear"):
+    """Plain PyTorch version of :func:`bscsr_topk_spmv_multiquery` -> (C, Q, k)."""
+    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                                 "take", inner_loop)
+    return _walk_plain(x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+                       fmt=fmt, block=block_size, col_words=col_words)
+
+
+# ---------------------------------------------------------------------------
+# CUDA build and binding (nvcc -> shared library with a C interface, ctypes)
+# ---------------------------------------------------------------------------
+
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bscsr_topk_spmv.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with nvcc")
+    return path
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile the kernel source (once per source content) and return the .so.
+
+    The library goes to ``build/kernels/`` at the repository root, named by
+    a hash of the source, and is written under a temporary name first so a
+    concurrent build never loads a half-written file.
+    """
+    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"libbscsr_topk_spmv_{digest}.so"
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library()))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # x, words, out_v, out_r, C, P, W, M, Q, q_chunk, B, T, col_words, fmt, k,
+    # n_rows, stream
+    for name in ("bscsr_topk_spmv_launch", "bscsr_topk_spmv_multiquery_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    return lib
+
+
+def _check_cuda_args(x: torch.Tensor, words: torch.Tensor) -> None:
+    if x.device != words.device:
+        raise ValueError(f"x on {x.device} but words on {words.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 tensor")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+
+
+def _launch(entry: str, x, words, k, n_rows, packets_per_step, fmt_name, block_size,
+            col_words, nq, q_chunk):
+    n_cores, n_packets, width = words.shape
+    tb = packets_per_step * block_size
+    if tb > MAX_TILE_NNZ:
+        raise ValueError(f"T*B={tb} exceeds the kernel's {MAX_TILE_NNZ} nnz per step")
+    out_v = torch.empty((n_cores, nq, k), dtype=torch.float32, device=words.device)
+    out_r = torch.empty((n_cores, nq, k), dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_library(), entry)(
+            x.data_ptr(), words.data_ptr(), out_v.data_ptr(), out_r.data_ptr(),
+            n_cores, n_packets, width, x.shape[-1], nq, q_chunk, block_size,
+            packets_per_step, col_words, _FMT_IDS[fmt_name], k, n_rows, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return out_v, out_r
+
+
+def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
+                    block_size=256, gather_mode="take", inner_loop="linear"):
+    """Per-core top-k of one query over the fused streams -> (C, k) vals, slots.
+
+    ``n_rows`` is the per-core slot budget; it only names the sentinel slot
+    of unfilled scratchpad entries.  CPU tensors run the plain version.
+    """
+    if words.device.type == "cpu" and x.device.type == "cpu":
+        return bscsr_topk_spmv_plain(
+            x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+            fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
+            inner_loop=inner_loop)
+    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                               gather_mode, inner_loop)
+    _check_cuda_args(x, words)
+    if x.dim() != 1:
+        raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
+    v, r = _launch("bscsr_topk_spmv_launch", x, words, k, n_rows, packets_per_step,
+                   fmt_name, block_size, col_words, 1, 1)
+    bscsr_topk_spmv.launches += 1
+    return v[:, 0], r[:, 0]
+
+
+bscsr_topk_spmv.launches = 0
+
+# Queries one CTA carries through the stream pass.  More queries per CTA
+# share each decoded tile but serialise their scans inside the CTA.
+MQ_QUERIES_PER_CTA = 8
+
+
+def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
+                               fmt_name="F32", block_size=256, inner_loop="linear"):
+    """Per-core top-k of a (Q, M) query batch in one stream pass -> (C, Q, k)."""
+    if words.device.type == "cpu" and x.device.type == "cpu":
+        return bscsr_topk_spmv_multiquery_plain(
+            x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+            fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop)
+    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                               "take", inner_loop)
+    _check_cuda_args(x, words)
+    if x.dim() != 2 or x.shape[0] == 0:
+        raise ValueError(f"x must be a non-empty (Q, M) batch, got {tuple(x.shape)}")
+    nq = x.shape[0]
+    v, r = _launch("bscsr_topk_spmv_multiquery_launch", x, words, k, n_rows,
+                   packets_per_step, fmt_name, block_size, col_words, nq,
+                   min(nq, MQ_QUERIES_PER_CTA))
+    bscsr_topk_spmv_multiquery.launches += 1
+    return v, r
+
+
+bscsr_topk_spmv_multiquery.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set both wrappers' ``launches`` counts to 0."""
+    bscsr_topk_spmv.launches = 0
+    bscsr_topk_spmv_multiquery.launches = 0

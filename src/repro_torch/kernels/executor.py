@@ -1,0 +1,261 @@
+"""Device-resident snapshot plane: pin streams once, dispatch with zero copies.
+
+    host plane                      device plane                  dispatch
+    ----------                      ------------                  --------
+    PackedPartitions --pin once--> DeviceSnapshot ---tensors--> query fn
+    (numpy arrays)     per (uid,    (fused words, or split        (kernel +
+                        layout,      streams for the oracle,       finalize;
+                        device)      + finalize tensors)           one per path,
+                                                                   Q bucket and
+                                                                   signature)
+
+* ``DeviceSnapshot`` uploads one immutable ``PackedPartitions``'s kernel
+  streams and finalize tensors to the device exactly once, keyed by the
+  snapshot's ``uid``; the entry dies with the host snapshot (weakref).
+* ``QueryExecutor`` keeps one query function per (path, Q bucket, shape
+  signature).  PyTorch runs eagerly, so a "build" is only the first touch of
+  a specialisation; ``fn_builds`` and ``retraces`` keep the reference's
+  names and meaning.  The power-of-two Q bucket is only the cache key: the
+  batch reaches the kernel unpadded (the kernel takes any Q, and padding
+  would add stream passes of work for no saved compile).
+* ``h2d_copies`` counts the tensors uploaded at the pin boundary: the
+  snapshot's kernel streams and finalize tensors (on a CPU executor the
+  same uploads are counted, so the rule is testable there).  The query
+  itself is per-call input, not snapshot state, and is not counted.  A
+  steady-state dispatch adds 0 to it.
+"""
+from __future__ import annotations
+
+import functools
+import weakref
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quantization import FORMATS
+from repro_torch.kernels import ops
+from repro_torch.kernels.bscsr_topk_spmv import (
+    bscsr_topk_spmv,
+    bscsr_topk_spmv_multiquery,
+)
+
+# (snapshot uid, stream layout, device) -> DeviceSnapshot; entries evicted
+# when the host PackedPartitions is garbage collected.
+_DEVICE_CACHE: dict = {}
+
+
+def device_cache_size() -> int:
+    return len(_DEVICE_CACHE)
+
+
+class DeviceSnapshot:
+    """Device-pinned tensors of one immutable ``PackedPartitions`` snapshot.
+
+    ``signature`` keys the executor's query functions: shapes, dtypes and
+    static geometry (two snapshots with equal signatures share one).
+    """
+
+    __slots__ = (
+        "uid", "stream_layout", "device", "streams", "finalize", "signature",
+        "max_slots", "block_size", "fmt_name", "uploads",
+    )
+
+    def __init__(self, packed: ops.PackedPartitions, stream_layout: str, device):
+        self.uid = packed.uid
+        self.stream_layout = stream_layout
+        self.device = torch.device(device)
+        if stream_layout == "fused":
+            self.streams = (ops.host_tensor(packed.fused_words(), device),)
+        else:
+            self.streams = ops.split_tensors(packed, device)
+        self.finalize = ops.finalize_tensors(packed, device)
+        pinned = list(self.streams) + [
+            t for t in self.finalize.values() if isinstance(t, torch.Tensor)
+        ]
+        self.uploads = len(pinned)
+        self.max_slots = packed.max_slots
+        self.block_size = packed.block_size
+        self.fmt_name = packed.value_format.name
+        self.signature = (
+            stream_layout,
+            tuple((tuple(t.shape), str(t.dtype)) for t in pinned),
+            tuple(sorted(k for k, v in self.finalize.items()
+                         if isinstance(v, torch.Tensor))),
+            self.max_slots, self.block_size, self.fmt_name,
+        )
+
+
+def device_snapshot(packed: ops.PackedPartitions, stream_layout: str, device
+                    ) -> DeviceSnapshot:
+    """The device-pinned form of ``packed``, uploading at most once per uid."""
+    key = (packed.uid, stream_layout, str(torch.device(device)))
+    snap = _DEVICE_CACHE.get(key)
+    if snap is None:
+        snap = DeviceSnapshot(packed, stream_layout, device)
+        _DEVICE_CACHE[key] = snap
+        weakref.finalize(packed, _DEVICE_CACHE.pop, key, None)
+    return snap
+
+
+def _q_bucket(q: int) -> int:
+    """Next power-of-two batch bucket: the cache key drifting Q shares."""
+    return 1 << max(q - 1, 0).bit_length()
+
+
+class QueryExecutor:
+    """Query dispatch over device-resident snapshots.
+
+    One executor per set of query knobs (big_k, k, T, gather, inner loop,
+    device); ``get_executor`` interns them process-wide.
+    ``path="reference"`` runs the torch oracle through the same plane.
+    """
+
+    def __init__(
+        self,
+        big_k: int,
+        k: int = 8,
+        packets_per_step: int = 2,
+        gather_mode: str = "auto",
+        inner_loop: str = "linear",
+        device="cuda",
+    ):
+        self.big_k = big_k
+        self.k = k
+        self.packets_per_step = packets_per_step
+        self.gather_mode = ops.resolve_gather_mode(gather_mode)
+        self.inner_loop = inner_loop
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._fns: dict = {}
+        self._pinned: set = set()
+        self._last_sig: dict = {}
+        self.fn_builds = 0
+        self.dispatches = 0
+        self.retraces = 0
+        self.q_bucket_hits = 0
+        self.q_exact_hits = 0
+        self.h2d_copies = 0
+
+    def prepare(self, packed: ops.PackedPartitions, q: Optional[int] = None,
+                path: str = "kernel"):
+        """Resolve (query fn, device snapshot) without running."""
+        if path not in ("kernel", "reference"):
+            raise ValueError(f"path must be 'kernel' or 'reference', got {path!r}")
+        layout = "split" if path == "reference" else "fused"
+        pin = (packed.uid, layout, str(self.device))
+        fresh = pin not in _DEVICE_CACHE
+        snap = device_snapshot(packed, layout, self.device)
+        if fresh:
+            self.h2d_copies += snap.uploads
+        if pin not in self._pinned:
+            self._pinned &= set(_DEVICE_CACHE.keys())
+            self._pinned.add(pin)
+        key = (path, q, snap.signature)
+        fn = self._fns.get(key)
+        if fn is None:
+            live = {s.signature for s in list(_DEVICE_CACHE.values())}
+            self._fns = {k: f for k, f in self._fns.items() if k[2] in live}
+            fn = self._build(path, q, snap)
+            self._fns[key] = fn
+            self.fn_builds += 1
+            prev = self._last_sig.get((path, q))
+            if prev is not None and prev != snap.signature and prev not in live:
+                self.retraces += 1
+            self._last_sig[(path, q)] = snap.signature
+        return fn, snap
+
+    def _on_device(self, x) -> torch.Tensor:
+        """The query as a float32 tensor on the executor's device."""
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x.to(torch.float32).contiguous()
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device).contiguous()
+
+    def query(self, x, packed: ops.PackedPartitions, path: str = "kernel"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-``big_k`` (values, global rows) for one (M,) query."""
+        x = self._on_device(x)
+        if x.dim() != 1:
+            raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
+        fn, snap = self.prepare(packed, None, path)
+        self.dispatches += 1
+        return fn(x, snap)
+
+    def query_batched(self, xs, packed: ops.PackedPartitions, path: str = "kernel"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(Q, big_k) answers for a (Q, M) batch, one pass over the stream."""
+        xs = self._on_device(xs)
+        if xs.dim() != 2 or xs.shape[0] == 0:
+            raise ValueError(f"xs must be a non-empty (Q, M) batch, got {tuple(xs.shape)}")
+        q = xs.shape[0]
+        bucket = _q_bucket(q)
+        builds_before = self.fn_builds
+        fn, snap = self.prepare(packed, bucket, path)
+        if self.fn_builds == builds_before:
+            if bucket != q:
+                self.q_bucket_hits += 1
+            else:
+                self.q_exact_hits += 1
+        self.dispatches += 1
+        return fn(xs, snap)
+
+    def cache_info(self) -> dict:
+        self._pinned &= set(_DEVICE_CACHE.keys())
+        return {
+            "compiled_fns": len(self._fns),
+            "fn_builds": self.fn_builds,
+            "retraces": self.retraces,
+            "dispatches": self.dispatches,
+            "q_bucket_hits": self.q_bucket_hits,
+            "q_exact_hits": self.q_exact_hits,
+            "device_snapshots": len(self._pinned),
+            "device_snapshots_process_wide": device_cache_size(),
+            "h2d_copies": self.h2d_copies,
+        }
+
+    def _build(self, path: str, q: Optional[int], snap: DeviceSnapshot):
+        """The query function for this (path, Q, signature)."""
+        big_k, k = self.big_k, self.k
+        fmt = FORMATS[snap.fmt_name]
+        finalize = (ops.finalize_candidates if q is None
+                    else ops.finalize_candidates_batched)
+        if path == "reference":
+
+            def run(x, s: DeviceSnapshot):
+                xs = x[None] if q is None else x
+                lv, lr = ops.reference_local_topk(
+                    xs, *s.streams, s.finalize["rows_per_part"], s.max_slots, k, fmt)
+                if q is None:
+                    lv, lr = lv[:, 0], lr[:, 0]
+                return finalize(lv, lr, big_k=big_k, **s.finalize)
+
+            return run
+
+        kwargs = dict(k=k, n_rows=snap.max_slots, packets_per_step=self.packets_per_step,
+                      fmt_name=snap.fmt_name, block_size=snap.block_size,
+                      inner_loop=self.inner_loop)
+        if q is None:
+            kwargs["gather_mode"] = self.gather_mode
+        kernel = bscsr_topk_spmv if q is None else bscsr_topk_spmv_multiquery
+
+        def run(x, s: DeviceSnapshot):
+            lv, lr = kernel(x, s.streams[0], **kwargs)
+            return finalize(lv, lr, big_k=big_k, **s.finalize)
+
+        return run
+
+
+def get_executor(big_k: int, k: int = 8, packets_per_step: int = 2,
+                 gather_mode: str = "auto", inner_loop: str = "linear",
+                 device="cuda") -> QueryExecutor:
+    """Process-wide interned executor for one set of query knobs."""
+    return _interned_executor(big_k, k, packets_per_step,
+                              ops.resolve_gather_mode(gather_mode), inner_loop,
+                              str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _interned_executor(big_k, k, packets_per_step, gather_mode, inner_loop, device
+                       ) -> QueryExecutor:
+    return QueryExecutor(big_k=big_k, k=k, packets_per_step=packets_per_step,
+                         gather_mode=gather_mode, inner_loop=inner_loop, device=device)

@@ -1,0 +1,405 @@
+"""Host-side packing + per-call dispatch around the BS-CSR Top-K SpMV kernels.
+
+``PackedPartitions`` is the host plane: numpy arrays, one stream per core,
+stacked to a common step-aligned packet count.  It may be *segmented*: two
+optional arrays translate kernel-local slot ids back to the logical index,
+
+  slot_to_row   (C, L) int32 — slot -> global row id; ``INVALID_ROW`` retires
+                a slot (dead sentinel between segments, replaced/deleted row)
+  tombstones    (n_rows_total,) bool — deleted global row ids
+
+and ``finalize_candidates`` applies both before the merge.  A pure-base
+snapshot (``pack_partitions``) leaves them ``None`` and uses the affine
+``row_starts`` mapping.  A snapshot built elsewhere (``repro_torch.convert``)
+may carry a slot budget ``L`` padded past the live slot counts; padded slots
+are only ever NEG_INF sentinels, so they never change an answer.
+
+The dispatch helpers here upload the snapshot on every call: the simple
+baseline.  Serving goes through ``kernels/executor.py``, which pins each
+snapshot on the device once.  Both ship only the fused word stream to the
+kernels; split-layout snapshots are fused on the fly, bit-identically.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bscsr as bscsr_lib
+from repro_torch.core import partition as partition_lib
+from repro_torch.core.quantization import FORMATS, ValueFormat
+from repro_torch.kernels import ref as ref_lib
+from repro_torch.kernels.bscsr_topk_spmv import (
+    GATHER_MODES,
+    bscsr_topk_spmv,
+    bscsr_topk_spmv_multiquery,
+)
+
+NEG_INF = ref_lib.NEG_INF
+INVALID_ROW = bscsr_lib.INVALID_ROW
+
+
+def pow2_bucket(n: int, minimum: int = 1) -> int:
+    """Next power-of-two >= max(n, minimum) — the churn-stable dim bucket."""
+    return 1 << (max(int(n), minimum, 1) - 1).bit_length()
+
+
+def bucket_packets(n: int, multiple: int) -> int:
+    """Power-of-two packet bucket, kept a multiple of ``packets_per_step``.
+
+    The padded tail is zero packets with no row-start flags, which the
+    kernels treat as a continuation of the open sentinel row.
+    """
+    return -(-pow2_bucket(n) // multiple) * multiple
+
+
+def host_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy host array as a tensor on ``device`` (bf16 uint16 bits -> int16).
+
+    torch has no general uint16 arithmetic, so 16-bit bit patterns travel as
+    int16; the bytes are unchanged.
+    """
+    a = np.ascontiguousarray(arr)
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.from_numpy(a).to(device)
+
+
+# Monotonic snapshot identities: the executor pins each snapshot's arrays on
+# the device once, keyed by this uid, and evicts when the snapshot is collected.
+_SNAPSHOT_UIDS = itertools.count()
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPartitions:
+    """All core partitions of one matrix, stacked for the one-block-per-core walk."""
+
+    vals: np.ndarray          # (C, P, B) base+delta concatenated streams
+    cols: np.ndarray          # (C, P, B)
+    flags: np.ndarray         # (C, P, B//32)
+    plan: partition_lib.PartitionPlan
+    n_cols: int
+    nnz: int                  # live nnz (tombstoned stream entries excluded)
+    block_size: int
+    value_format: ValueFormat
+    stream_layout: str = "split"               # "split" | "fused"
+    words: Optional[np.ndarray] = None         # (C, P, W) fused word streams
+    # --- segmented-extension fields (None for a pure-base index) ---
+    slot_to_row: Optional[np.ndarray] = None   # (C, L) int32 slot -> global row
+    num_slots: Optional[np.ndarray] = None     # (C,) candidate slots per core
+    n_rows_total: Optional[int] = None         # global row-id space size
+    tombstones: Optional[np.ndarray] = None    # (n_rows_total,) bool, deleted ids
+    uid: int = dataclasses.field(init=False, compare=False, repr=False, default=-1)
+    has_tombstones: bool = dataclasses.field(init=False, compare=False, default=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "uid", next(_SNAPSHOT_UIDS))
+        object.__setattr__(
+            self, "has_tombstones",
+            self.tombstones is not None and bool(self.tombstones.any()),
+        )
+
+    @property
+    def num_cores(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def row_starts(self) -> np.ndarray:
+        return np.asarray(self.plan.row_starts, dtype=np.int32)
+
+    @property
+    def rows_per_partition(self) -> np.ndarray:
+        return np.asarray(self.plan.rows_per_partition, dtype=np.int32)
+
+    @property
+    def candidate_slots(self) -> np.ndarray:
+        """(C,) number of kernel-local candidate slots per core."""
+        if self.num_slots is not None:
+            return np.asarray(self.num_slots, dtype=np.int32)
+        return self.rows_per_partition
+
+    @property
+    def max_slots(self) -> int:
+        """Per-core candidate-slot budget (the slot-map width when segmented)."""
+        if self.slot_to_row is not None:
+            return int(self.slot_to_row.shape[1])
+        return max(int(self.candidate_slots.max()), 1)
+
+    @property
+    def n_rows_logical(self) -> int:
+        """Size of the global row-id space (sentinel id for the merge mask)."""
+        return self.n_rows_total if self.n_rows_total is not None else self.plan.n_rows
+
+    def format_histogram(self) -> dict:
+        """{format name: partition count} of the served streams."""
+        return {self.value_format.name: self.num_cores}
+
+    @property
+    def stream_bytes(self) -> int:
+        return self.vals.nbytes + self.cols.nbytes + self.flags.nbytes
+
+    @property
+    def bytes_per_nnz(self) -> float:
+        """Effective bytes streamed per *live* nnz."""
+        return self.stream_bytes / max(self.nnz, 1)
+
+    def fused_words(self) -> np.ndarray:
+        """The (C, P, W) fused word streams; derived on the fly if not carried."""
+        if self.words is not None:
+            return self.words
+        return bscsr_lib.fuse_words(self.vals, self.cols, self.flags)
+
+    def signature_info(self) -> dict:
+        """The dims that key the executor's specialisations, bucket vs live."""
+        live_slots = (
+            int(np.max(self.num_slots)) if self.num_slots is not None
+            else int(np.max(self.rows_per_partition))
+        )
+        return {
+            "packets_bucket": int(self.vals.shape[1]),
+            "slot_bucket": self.max_slots,
+            "slots_live": live_slots,
+            "tombstone_bucket": (
+                int(self.tombstones.shape[0]) if self.tombstones is not None else 0
+            ),
+            "rows_live": self.n_rows_logical,
+            "value_formats": self.format_histogram(),
+        }
+
+
+def stack_padded_streams(
+    padded: Sequence[bscsr_lib.BSCSRMatrix],
+    plan: partition_lib.PartitionPlan,
+    n_cols: int,
+    nnz: int,
+    stream_layout: str = "split",
+) -> PackedPartitions:
+    """Stack already-padded per-partition streams into one snapshot."""
+    if stream_layout not in bscsr_lib.STREAM_LAYOUTS:
+        raise ValueError(
+            f"stream_layout must be one of {bscsr_lib.STREAM_LAYOUTS}, "
+            f"got {stream_layout!r}"
+        )
+    words = None
+    if stream_layout == "fused":
+        words = np.stack([bscsr_lib.fuse_stream(e) for e in padded])
+    return PackedPartitions(
+        vals=np.stack([e.vals for e in padded]),
+        cols=np.stack([e.cols for e in padded]),
+        flags=np.stack([e.flags for e in padded]),
+        plan=plan,
+        n_cols=n_cols,
+        nnz=nnz,
+        block_size=padded[0].block_size,
+        value_format=padded[0].value_format,
+        stream_layout=stream_layout,
+        words=words,
+    )
+
+
+def stack_streams(
+    streams: Sequence[bscsr_lib.BSCSRMatrix],
+    plan: partition_lib.PartitionPlan,
+    n_cols: int,
+    nnz: int,
+    packets_multiple: int = 2,
+    stream_layout: str = "split",
+) -> PackedPartitions:
+    """Pad per-partition streams to a common step-aligned packet count & stack."""
+    if not streams:
+        raise ValueError("need at least one partition stream")
+    max_p = max(e.num_packets for e in streams)
+    max_p = max(-(-max_p // packets_multiple) * packets_multiple, packets_multiple)
+    padded = [bscsr_lib.pad_packets(e, max_p) for e in streams]
+    return stack_padded_streams(padded, plan, n_cols, nnz, stream_layout=stream_layout)
+
+
+def pack_partitions(
+    csr: bscsr_lib.CSRMatrix,
+    num_partitions: int,
+    block_size: int = 256,
+    value_format: ValueFormat | str = "F32",
+    packets_multiple: int = 2,
+    stream_layout: str = "split",
+) -> PackedPartitions:
+    """Partition a CSR row-wise (§III-A) and BS-CSR encode each partition."""
+    plan = partition_lib.PartitionPlan.build(csr.shape[0], num_partitions)
+    parts = partition_lib.partition_csr(csr, plan)
+    fmt = FORMATS[value_format] if isinstance(value_format, str) else value_format
+    encoded = [bscsr_lib.encode_bscsr(p, block_size, fmt) for p in parts]
+    return stack_streams(
+        encoded, plan, csr.shape[1], csr.nnz,
+        packets_multiple=packets_multiple, stream_layout=stream_layout,
+    )
+
+
+def finalize_candidates_batched(
+    local_vals: torch.Tensor,    # (C, Q, k)
+    local_rows: torch.Tensor,    # (C, Q, k) partition-local slot ids
+    row_starts: torch.Tensor,    # (C,)
+    rows_per_part: torch.Tensor,  # (C,) candidate slots per core
+    big_k: int,
+    n_rows: int,
+    slot_to_row: Optional[torch.Tensor] = None,  # (C, L) slot -> global row id
+    tombstones: Optional[torch.Tensor] = None,   # (n_rows,) bool deleted ids
+    row_map: Optional[torch.Tensor] = None,      # (L2,) local -> global row id
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask sentinels/tombstones, globalize slot ids, merge per query -> (Q, big_k).
+
+    Pure-base snapshots use ``row_starts + local``; segmented ones look slots
+    up in ``slot_to_row``, whose ``INVALID_ROW`` entries retire dead slots.
+    ``tombstones`` masks deleted global ids, and ``row_map`` (a shard-local
+    to collection-wide id map) applies last, so ``n_rows`` is then the
+    collection's sentinel.
+    """
+    local_rows = local_rows.long()
+    valid = local_rows < rows_per_part[:, None, None]
+    if slot_to_row is None:
+        global_rows = local_rows + row_starts[:, None, None]
+    else:
+        c, q, k = local_rows.shape
+        idx = torch.clamp(local_rows, 0, slot_to_row.shape[1] - 1).reshape(c, q * k)
+        global_rows = torch.gather(slot_to_row, 1, idx).reshape(c, q, k).long()
+        valid = valid & (global_rows != int(INVALID_ROW))
+    if tombstones is not None:
+        safe = torch.clamp(global_rows, 0, tombstones.shape[0] - 1)
+        valid = valid & ~tombstones[safe]
+    if row_map is not None:
+        safe = torch.clamp(global_rows, 0, row_map.shape[0] - 1)
+        global_rows = row_map[safe].long()
+        valid = valid & (global_rows != int(INVALID_ROW))
+    vals = torch.where(valid, local_vals, NEG_INF)
+    rows = torch.where(valid, global_rows, n_rows)
+    nq = vals.shape[1]
+    return partition_lib.merge_rows_topk(
+        vals.permute(1, 0, 2).reshape(nq, -1),
+        rows.permute(1, 0, 2).reshape(nq, -1),
+        big_k, n_rows,
+    )
+
+
+def finalize_candidates(local_vals, local_rows, row_starts, rows_per_part, big_k: int,
+                        n_rows: int, slot_to_row=None, tombstones=None, row_map=None):
+    """Single-query finalize over the (C, k) candidates -> (big_k,) each."""
+    v, r = finalize_candidates_batched(
+        local_vals[:, None], local_rows[:, None], row_starts, rows_per_part, big_k,
+        n_rows, slot_to_row=slot_to_row, tombstones=tombstones, row_map=row_map,
+    )
+    return v[0], r[0]
+
+
+def finalize_tensors(packed: PackedPartitions, device) -> dict:
+    """The finalize inputs of a snapshot as tensors on ``device``."""
+    kw = dict(
+        row_starts=host_tensor(packed.row_starts.astype(np.int64), device),
+        rows_per_part=host_tensor(packed.candidate_slots.astype(np.int64), device),
+        n_rows=packed.n_rows_logical,
+    )
+    if packed.slot_to_row is not None:
+        kw["slot_to_row"] = host_tensor(packed.slot_to_row, device)
+    if packed.has_tombstones:
+        kw["tombstones"] = host_tensor(packed.tombstones, device)
+    return kw
+
+
+def resolve_gather_mode(gather_mode: str) -> str:
+    """"auto" -> "take"; the port serves every mode with the same gather."""
+    if gather_mode == "auto":
+        return "take"
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be 'auto' or one of {GATHER_MODES}, "
+                         f"got {gather_mode!r}")
+    return gather_mode
+
+
+def _query_tensor(x, device, ndim: int) -> torch.Tensor:
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if x.dim() != ndim or (ndim == 2 and x.shape[0] == 0):
+        want = "an (M,) query" if ndim == 1 else "a non-empty (Q, M) batch"
+        raise ValueError(f"x must be {want}, got {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def topk_spmv_blocked(
+    x,
+    packed: PackedPartitions,
+    big_k: int,
+    k: int = 8,
+    packets_per_step: int = 2,
+    gather_mode: str = "take",
+    inner_loop: str = "linear",
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query through the single-query kernel, uploading the snapshot."""
+    words = host_tensor(packed.fused_words(), device)
+    lv, lr = bscsr_topk_spmv(
+        _query_tensor(x, device, 1), words, k=k, n_rows=packed.max_slots,
+        packets_per_step=packets_per_step, fmt_name=packed.value_format.name,
+        block_size=packed.block_size, gather_mode=resolve_gather_mode(gather_mode),
+        inner_loop=inner_loop,
+    )
+    return finalize_candidates(lv, lr, big_k=big_k, **finalize_tensors(packed, device))
+
+
+def topk_spmv_batched(
+    xs,
+    packed: PackedPartitions,
+    big_k: int,
+    k: int = 8,
+    packets_per_step: int = 2,
+    inner_loop: str = "linear",
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Q queries in ONE pass over the stream via the multi-query kernel."""
+    words = host_tensor(packed.fused_words(), device)
+    lv, lr = bscsr_topk_spmv_multiquery(
+        _query_tensor(xs, device, 2), words, k=k, n_rows=packed.max_slots,
+        packets_per_step=packets_per_step, fmt_name=packed.value_format.name,
+        block_size=packed.block_size, inner_loop=inner_loop,
+    )
+    return finalize_candidates_batched(lv, lr, big_k=big_k,
+                                       **finalize_tensors(packed, device))
+
+
+def split_tensors(packed: PackedPartitions, device) -> Tuple[torch.Tensor, ...]:
+    """The split (vals, cols, flags) streams as tensors on ``device``."""
+    return tuple(host_tensor(a, device) for a in (packed.vals, packed.cols, packed.flags))
+
+
+def reference_local_topk(xs: torch.Tensor, vals, cols, flags, rows_per_part,
+                         max_slots: int, k: int, fmt: ValueFormat):
+    """The oracle's per-core top-k for a (Q, M) batch, one query at a time."""
+    outs = [
+        ref_lib.bscsr_topk_ref_stacked(vals, cols, flags, x, rows_per_part, max_slots,
+                                       k, fmt)
+        for x in xs
+    ]
+    return torch.stack([v for v, _ in outs], 1), torch.stack([r for _, r in outs], 1)
+
+
+def topk_spmv_reference_batched(
+    xs,
+    packed: PackedPartitions,
+    big_k: int,
+    k: int = 8,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same partitioned approximation for a (Q, M) batch, via the torch oracle."""
+    fin = finalize_tensors(packed, device)
+    lv, lr = reference_local_topk(
+        _query_tensor(xs, device, 2), *split_tensors(packed, device),
+        fin["rows_per_part"], packed.max_slots, k, packed.value_format,
+    )
+    return finalize_candidates_batched(lv, lr, big_k=big_k, **fin)
+
+
+def topk_spmv_reference(x, packed: PackedPartitions, big_k: int, k: int = 8,
+                        device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query via the torch oracle."""
+    v, r = topk_spmv_reference_batched(
+        _query_tensor(x, device, 1)[None], packed, big_k, k, device
+    )
+    return v[0], r[0]

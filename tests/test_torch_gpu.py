@@ -1,0 +1,98 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions.
+
+Run on a machine with a CUDA device:
+
+    python -m pytest -q tests/test_torch_gpu.py
+
+This file imports only ``repro_torch`` (no jax), so it runs where the
+reference package cannot.  Every test is marked ``gpu`` and skips, with the
+reason, where ``torch.cuda.is_available()`` is false.  Dyadic fixtures
+(values on a 2**-7 grid, queries on a 2**-3 grid) are exact in f32 in any
+summation order, so kernel and plain version must agree bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bscsr
+from repro_torch.core import topk_spmv as api
+from repro_torch.core.similarity import SparseEmbeddingIndex
+from repro_torch.kernels import bscsr_topk_spmv as K
+from repro_torch.kernels import ops
+
+FORMATS = ["F32", "BF16", "Q15", "Q7"]
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def dyadic_csr(n_rows, n_cols, seed, empty_every=9):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 13, size=n_rows)
+    lens[::empty_every] = 0
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate([np.sort(rng.choice(n_cols, n, replace=False))
+                          for n in lens if n]).astype(np.int32)
+    data = (rng.integers(-128, 128, int(lens.sum())) / 128.0).astype(np.float32)
+    return bscsr.CSRMatrix(indptr, idx, data, (n_rows, n_cols))
+
+
+def to_np(pair):
+    return tuple(t.cpu().numpy() for t in pair)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 64), (256, 2, 512), (64, 2, 40_000)])
+def test_kernels_match_plain_bitwise(cuda, fmt, block, t, n_cols):
+    csr = dyadic_csr(400, n_cols, seed=block + t)
+    packed = ops.pack_partitions(csr, 4, block, fmt, packets_multiple=t,
+                                 stream_layout="fused")
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=fmt,
+              block_size=block)
+    w = torch.from_numpy(packed.words)
+    rng = np.random.default_rng(t)
+    for q in (1, 3, 64):
+        xs = torch.from_numpy((rng.integers(-16, 17, (q, n_cols)) / 8.0).astype(np.float32))
+        if q == 1:
+            want = K.bscsr_topk_spmv(xs[0], w, **kw)
+            got = K.bscsr_topk_spmv(xs[0].to(cuda), w.to(cuda), **kw)
+        else:
+            want = K.bscsr_topk_spmv_multiquery(xs, w, **kw)
+            got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), **kw)
+        torch.cuda.synchronize()
+        (gv, gr), (wv, wr) = to_np(got), to_np(want)
+        np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
+        np.testing.assert_array_equal(gr, wr)
+
+
+def test_main_path_on_the_card(cuda):
+    csr = bscsr.synthetic_embedding_csr(20_000, 128, 12, "gamma", seed=3)
+    svc = SparseEmbeddingIndex(csr, api.TopKSpMVConfig(
+        big_k=20, k=8, value_format="BF16", num_partitions=8, device="cuda"))
+    xs = np.random.default_rng(4).standard_normal((8, 128)).astype(np.float32)
+    svc.query(xs[0])
+    api.topk_spmv(svc.index, torch.from_numpy(xs[0]).to(cuda))
+    copies = svc.dispatch_info()["h2d_copies"]
+    K.reset_launch_counts()
+    v, r = svc.query_batch(xs)
+    one = api.topk_spmv(svc.index, torch.from_numpy(xs[0]).to(cuda))
+    assert K.bscsr_topk_spmv.launches == 1
+    assert K.bscsr_topk_spmv_multiquery.launches == 1
+    assert svc.dispatch_info()["h2d_copies"] == copies
+    ov, orow = svc.query_batch(xs, use_kernel=False)
+    np.testing.assert_allclose(v, ov, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(r, orow)
+    np.testing.assert_array_equal(one[1].cpu().numpy(), r[0])
+
+
+def test_kernel_route_never_takes_host_queries(cuda):
+    csr = dyadic_csr(50, 64, seed=5)
+    packed = ops.pack_partitions(csr, 2, 32, "F32", stream_layout="fused")
+    with pytest.raises(ValueError, match="cpu"):
+        K.bscsr_topk_spmv(torch.zeros(64), torch.from_numpy(packed.words).to(cuda), k=8,
+                          n_rows=packed.max_slots, fmt_name="F32", block_size=32)

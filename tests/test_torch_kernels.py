@@ -1,0 +1,340 @@
+"""The port's kernels against the reference's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; here that version is
+held against ``repro``'s Pallas kernel run with ``interpret=True`` on the
+same fused words, made from a seed with numpy.
+
+* Dyadic fixtures (values on a 2**-7 grid, queries on a 2**-3 grid) keep
+  every product and partial sum exact in f32, so summation order cannot
+  matter: the outputs must be bit-identical, sign bits included.
+* Random fixtures agree within rtol = atol = 1e-5, the reference's own
+  tolerance between its inner loops, which differ in summation order; row
+  ids are equal wherever scores are not within 1e-5 of a tie.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.core import bscsr as jbscsr
+from repro.kernels import bscsr_topk_spmv as jkern
+from repro.kernels import ops as jops
+from repro_torch.core import bscsr as tbscsr
+from repro_torch.kernels import bscsr_topk_spmv as tkern
+from repro_torch.kernels import ops as tops
+
+FORMATS = ["F32", "BF16", "Q15", "Q7"]
+TOL = 1e-5
+
+
+def dyadic_csr(n_rows=120, n_cols=64, seed=0, max_len=12, empty_every=0, sign=0):
+    """Values k/128 (exact in every stream format); ``sign`` forces a sign."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, max_len + 1, size=n_rows)
+    if empty_every:
+        lens[::empty_every] = 0
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate(
+        [np.sort(rng.choice(n_cols, size=n, replace=False)) for n in lens if n]
+    ).astype(np.int32)
+    data = rng.integers(-128, 128, size=int(lens.sum())) / 128.0
+    if sign:
+        data = sign * np.maximum(np.abs(data), 1 / 128)
+    return jbscsr.CSRMatrix(indptr, idx, data.astype(np.float32), (n_rows, n_cols))
+
+
+def dyadic_queries(q, n_cols, seed=1, positive=False):
+    rng = np.random.default_rng(seed)
+    lo = 1 if positive else -16
+    return (rng.integers(lo, 17, size=(q, n_cols)) / 8.0).astype(np.float32)
+
+
+def random_queries(q, n_cols, seed=1):
+    return np.random.default_rng(seed).standard_normal((q, n_cols)).astype(np.float32)
+
+
+def fused_words(csr, cores, block, fmt, t):
+    """The same fused words from both packages (asserted byte-equal)."""
+    jp = jops.pack_partitions(csr, cores, block, fmt, packets_multiple=t,
+                              stream_layout="fused")
+    tp = tops.pack_partitions(
+        tbscsr.CSRMatrix(csr.indptr, csr.indices, csr.data, csr.shape), cores, block,
+        fmt, packets_multiple=t, stream_layout="fused")
+    assert jp.words.tobytes() == tp.words.tobytes()
+    return tp.words, tp.max_slots
+
+
+def pallas(xs, words, multi, **kw):
+    fn = jkern.bscsr_topk_spmv_multiquery if multi else jkern.bscsr_topk_spmv
+    x = jnp.asarray(xs if multi else xs[0])
+    v, r = fn(x, jnp.asarray(words), stream_layout="fused", interpret=True, **kw)
+    return np.asarray(v), np.asarray(r)
+
+
+def plain(xs, words, multi, **kw):
+    fn = tkern.bscsr_topk_spmv_multiquery if multi else tkern.bscsr_topk_spmv
+    x = torch.from_numpy(xs if multi else xs[0])
+    v, r = fn(x, torch.from_numpy(words), **kw)
+    return v.numpy(), r.numpy()
+
+
+def assert_bitwise(a, b):
+    np.testing.assert_array_equal(a[0].view(np.int32), b[0].view(np.int32))
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def assert_close_rows(a, b, tol=TOL):
+    """Values within tol; row ids equal except inside a near-tie of scores."""
+    np.testing.assert_allclose(a[0], b[0], rtol=tol, atol=tol)
+    va = a[0].reshape(-1, a[0].shape[-1])
+    diff = np.nonzero(a[1].reshape(va.shape) != b[1].reshape(va.shape))
+    for i, j in zip(*diff):
+        gaps = np.abs(va[i] - va[i, j])
+        gaps[j] = np.inf
+        assert gaps.min() <= 2 * tol, f"row ids differ outside a tie at {(i, j)}"
+
+
+def both(xs, words, multi, **kw):
+    return pallas(xs, words, multi, **kw), plain(xs, words, multi, **kw)
+
+
+def poison_padding(words, block, fmt, rows_per_core):
+    """Garbage col ids (far out of range, and negative) in sentinel/padding nnz."""
+    out = words.copy()
+    for c in range(words.shape[0]):
+        vals, cols, flags = tbscsr.defuse_stream(words[c], block, fmt, np.int16)
+        row_ids = np.cumsum(tbscsr.unpack_bits(flags, block).reshape(-1)) - 1
+        pad = (row_ids >= rows_per_core[c]).reshape(cols.shape)
+        cols = cols.copy()
+        cols[pad] = 30_000
+        half = pad.copy()
+        half[::2] = False
+        cols[half] = -7
+        out[c] = tbscsr.fuse_words(vals, cols, flags)
+    return out
+
+
+class TestDyadicBitIdentical:
+    @pytest.mark.parametrize("fmt", FORMATS)
+    @pytest.mark.parametrize("block,t", [(32, 1), (64, 2)])
+    @pytest.mark.parametrize("multi", [False, True])
+    def test_formats(self, fmt, block, t, multi):
+        csr = dyadic_csr(seed=block, empty_every=7)
+        words, slots = fused_words(csr, 3, block, fmt, t)
+        xs = dyadic_queries(3 if multi else 1, 64, seed=t)
+        a, b = both(xs, words, multi, k=8, n_rows=slots, packets_per_step=t,
+                    fmt_name=fmt, block_size=block)
+        assert_bitwise(a, b)
+
+    @pytest.mark.parametrize("multi", [False, True])
+    def test_all_negative_padded_budget(self, multi):
+        """Every score < 0 and a slot budget past the live count, with extra
+        flag-free packets: phantom slots must never enter the scratchpad."""
+        csr = dyadic_csr(n_rows=40, seed=3, sign=-1)
+        words, slots = fused_words(csr, 2, 32, "Q7", 2)
+        words = np.concatenate([words, np.zeros((2, 4, words.shape[2]), np.int32)], 1)
+        xs = dyadic_queries(3 if multi else 1, 64, seed=4, positive=True)
+        a, b = both(xs, words, multi, k=8, n_rows=4 * slots, packets_per_step=2,
+                    fmt_name="Q7", block_size=32)
+        assert_bitwise(a, b)
+        assert (a[0] < 0).all() and (a[1] < slots).all()
+
+    @pytest.mark.parametrize("t", [1, 2])
+    def test_row_spanning_packets_and_short_cores(self, t):
+        """One row of 150 nnz spans five 32-nnz packets; some cores hold
+        fewer than k rows, so their scratchpads keep (NEG_INF, n_rows)."""
+        rng = np.random.default_rng(6)
+        lens = np.array([3, 150, 2, 0, 5, 1, 4])
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(200, n, replace=False))
+                              for n in lens if n]).astype(np.int32)
+        data = (rng.integers(-128, 128, int(lens.sum())) / 128.0).astype(np.float32)
+        csr = jbscsr.CSRMatrix(indptr, idx, data, (7, 200))
+        words, slots = fused_words(csr, 3, 32, "Q15", t)
+        for multi in (False, True):
+            xs = dyadic_queries(3 if multi else 1, 200, seed=7)
+            a, b = both(xs, words, multi, k=8, n_rows=slots, packets_per_step=t,
+                        fmt_name="Q15", block_size=32)
+            assert_bitwise(a, b)
+        assert (a[1] == slots).any()
+
+    @staticmethod
+    def signed_zero_fixture():
+        """Q7 rows whose entries quantise to 0 score zero against a negative
+        query; they compete with negative rows under the stage-4 rule."""
+        rng = np.random.default_rng(8)
+        n_rows, n_cols = 48, 32
+        lens = rng.integers(1, 6, size=n_rows)
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(n_cols, n, replace=False))
+                              for n in lens]).astype(np.int32)
+        data = (rng.integers(1, 64, int(lens.sum())) / 128.0).astype(np.float32)
+        zero_rows = np.repeat(rng.random(n_rows) < 0.5, lens)
+        data[zero_rows] = 0.001                       # rounds to a stored 0
+        csr = jbscsr.CSRMatrix(indptr, idx, data, (n_rows, n_cols))
+        words, slots = fused_words(csr, 2, 32, "Q7", 1)
+        xs = -np.abs(dyadic_queries(3, n_cols, seed=9, positive=True))
+        return words, slots, xs
+
+    def test_signed_zero_scores(self):
+        words, slots, xs = self.signed_zero_fixture()
+        for multi in (False, True):
+            a, b = both(xs, words, multi, k=12, n_rows=slots, packets_per_step=1,
+                        fmt_name="Q7", block_size=32)
+            assert_bitwise(a, b)
+            assert (a[0] == 0).any()
+
+    @pytest.mark.parametrize("loop", ["legacy", "linear-seg"])
+    def test_k_pass_loops_differ_only_beside_neg_inf(self, loop):
+        """The reference's k-pass admission is served by the threshold rule:
+        scores bit-identical (no candidate scores -0.0), row ids equal beside
+        every score above NEG_INF.  Unfilled entries of short cores keep
+        ``n_rows`` here; the reference repeats an earlier row there."""
+        words, slots, xs = self.signed_zero_fixture()
+        short = dyadic_csr(n_rows=5, n_cols=64, seed=24)
+        short_words, short_slots = fused_words(short, 2, 32, "Q15", 1)
+        cases = [(words, slots, xs, 12, "Q7"),
+                 (short_words, short_slots, dyadic_queries(3, 64, seed=25), 8, "Q15")]
+        for w, n_rows, q, k, fmt in cases:
+            for multi in (False, True):
+                a, b = both(q if multi else q[:1], w, multi, k=k, n_rows=n_rows,
+                            packets_per_step=1, fmt_name=fmt, block_size=32,
+                            inner_loop=loop)
+                np.testing.assert_array_equal(a[0].view(np.int32), b[0].view(np.int32))
+                filled = a[0] > tkern.NEG_INF
+                np.testing.assert_array_equal(a[1][filled], b[1][filled])
+                assert (b[1][~filled] == n_rows).all()
+        assert not np.signbit(a[0][a[0] == 0]).any()
+        assert (~filled).any()
+
+    def test_poisoned_padding_and_int32_cols(self):
+        """Garbage padding ids read 0; n_cols >= 32768 selects int32 ids."""
+        csr = dyadic_csr(n_rows=30, seed=10)
+        words, slots = fused_words(csr, 2, 32, "BF16", 2)
+        rows = np.asarray([15, 15])
+        dirty = poison_padding(words, 32, "BF16", rows)
+        assert not np.array_equal(dirty, words)
+        xs = dyadic_queries(3, 64, seed=11)
+        for multi in (False, True):
+            assert_bitwise(*both(xs, dirty, multi, k=8, n_rows=slots, packets_per_step=2,
+                                 fmt_name="BF16", block_size=32))
+            clean = plain(xs, words, multi, k=8, n_rows=slots, packets_per_step=2,
+                          fmt_name="BF16", block_size=32)
+            assert_bitwise(clean, plain(xs, dirty, multi, k=8, n_rows=slots,
+                                        packets_per_step=2, fmt_name="BF16",
+                                        block_size=32))
+        wide = dyadic_csr(n_rows=40, n_cols=40_000, seed=12)
+        words, slots = fused_words(wide, 2, 32, "F32", 2)
+        assert words.shape[2] == 1 + 32 + 32
+        xs = dyadic_queries(3, 40_000, seed=13)
+        assert_bitwise(*both(xs, words, True, k=8, n_rows=slots, packets_per_step=2,
+                             fmt_name="F32", block_size=32))
+
+
+class TestRandomWithinTolerance:
+    @pytest.mark.parametrize("fmt", FORMATS)
+    @pytest.mark.parametrize("multi", [False, True])
+    def test_formats(self, fmt, multi):
+        csr = jbscsr.synthetic_embedding_csr(300, 64, 9, "gamma", seed=14)
+        words, slots = fused_words(csr, 3, 64, fmt, 2)
+        xs = random_queries(3 if multi else 1, 64, seed=15)
+        a, b = both(xs, words, multi, k=8, n_rows=slots, packets_per_step=2,
+                    fmt_name=fmt, block_size=64)
+        assert_close_rows(a, b)
+
+
+class TestWrapperRules:
+    def test_inner_loops_and_gather_modes_share_one_rule(self):
+        csr = dyadic_csr(seed=16)
+        words, slots = fused_words(csr, 2, 32, "Q7", 2)
+        xs = dyadic_queries(1, 64, seed=17)
+        kw = dict(k=8, n_rows=slots, packets_per_step=2, fmt_name="Q7", block_size=32)
+        base = plain(xs, words, False, **kw)
+        for loop in tkern.INNER_LOOPS:
+            for gather in tkern.GATHER_MODES:
+                assert_bitwise(base, plain(xs, words, False, inner_loop=loop,
+                                           gather_mode=gather, **kw))
+        with pytest.raises(ValueError):
+            plain(xs, words, False, inner_loop="quadratic", **kw)
+
+    def test_cpu_tensors_never_launch(self):
+        csr = dyadic_csr(seed=18)
+        words, slots = fused_words(csr, 2, 32, "F32", 2)
+        xs = dyadic_queries(2, 64, seed=19)
+        tkern.reset_launch_counts()
+        kw = dict(k=8, n_rows=slots, packets_per_step=2, fmt_name="F32", block_size=32)
+        plain(xs, words, False, **kw)
+        plain(xs, words, True, **kw)
+        assert tkern.bscsr_topk_spmv.launches == 0
+        assert tkern.bscsr_topk_spmv_multiquery.launches == 0
+
+    def test_non_cpu_tensors_take_the_kernel_route_or_raise(self):
+        """A query off the CPU never drops to the plain version."""
+        csr = dyadic_csr(seed=20)
+        words, slots = fused_words(csr, 2, 32, "F32", 2)
+        x = torch.zeros(64, device="meta")
+        with pytest.raises(ValueError, match="meta"):
+            tkern.bscsr_topk_spmv(x, torch.from_numpy(words), k=8, n_rows=slots,
+                                  packets_per_step=2, fmt_name="F32", block_size=32)
+        assert tkern.bscsr_topk_spmv.launches == 0
+
+    def test_tagged_classes_belong_to_a_later_slice(self):
+        words = np.zeros((1, 2, 1 + 1 + 16 + 16), np.int32)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tkern.bscsr_topk_spmv(torch.zeros(8), torch.from_numpy(words), k=2,
+                                  n_rows=1, fmt_name="TAG2", block_size=32)
+
+    def test_rejects_bad_geometry(self):
+        words = torch.zeros((1, 3, 1 + 16 + 32), dtype=torch.int32)
+        with pytest.raises(ValueError, match="multiple of packets_per_step"):
+            tkern.bscsr_topk_spmv(torch.zeros(8), words, k=2, n_rows=1,
+                                  packets_per_step=2, fmt_name="F32", block_size=32)
+        with pytest.raises(ValueError, match="width"):
+            tkern.bscsr_topk_spmv(torch.zeros(8), words[..., :-1].contiguous(), k=2,
+                                  n_rows=1, packets_per_step=1, fmt_name="F32",
+                                  block_size=32)
+
+
+class TestOracles:
+    """The port's torch oracles against ``repro.kernels.ref``."""
+
+    def test_row_scores_and_stacked_topk(self):
+        from repro.kernels import ref as jref
+        from repro_torch.kernels import ref as tref
+
+        csr = dyadic_csr(n_rows=60, seed=22, empty_every=5, sign=-1)
+        jp = jops.pack_partitions(csr, 3, 32, "Q15", packets_multiple=2)
+        tp = tops.pack_partitions(
+            tbscsr.CSRMatrix(csr.indptr, csr.indices, csr.data, csr.shape), 3, 32, "Q15",
+            packets_multiple=2)
+        x = dyadic_queries(1, 64, seed=23, positive=True)[0]
+        vals, cols, flags = (tops.host_tensor(a, "cpu") for a in (tp.vals, tp.cols,
+                                                                   tp.flags))
+        a = jref.bscsr_row_scores(jnp.asarray(jp.vals[0]), jnp.asarray(jp.cols[0]),
+                                  jnp.asarray(jp.flags[0]), jnp.asarray(x), 20, "Q15")
+        b = tref.bscsr_row_scores(vals[0], cols[0], flags[0], torch.from_numpy(x), 20,
+                                  "Q15")
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32), b.numpy().view(np.int32))
+        budget = 2 * tp.max_slots                      # phantom slots past the live count
+        rows = np.asarray(tp.candidate_slots)
+        a = jref.bscsr_topk_ref_stacked(jnp.asarray(jp.vals), jnp.asarray(jp.cols),
+                                        jnp.asarray(jp.flags), jnp.asarray(x),
+                                        jnp.asarray(rows), budget, 8, "Q15")
+        b = tref.bscsr_topk_ref_stacked(vals, cols, flags, torch.from_numpy(x),
+                                        torch.from_numpy(rows), budget, 8, "Q15")
+        assert_bitwise(tuple(np.asarray(t) for t in a), tuple(t.numpy() for t in b))
+        assert (np.asarray(a[1]) < rows[:, None]).all()   # no phantom slot admitted
+
+    @pytest.mark.parametrize("n,big_k", [(30, 8), (5, 8)])
+    def test_topk_sorted_ties(self, n, big_k):
+        from repro.kernels import ref as jref
+        from repro_torch.kernels import ref as tref
+
+        scores = (np.random.default_rng(n).integers(-2, 3, size=n) / 2).astype(np.float32)
+        scores[::4] = -0.0
+        a = jref.topk_sorted(jnp.asarray(scores), big_k)
+        b = tref.topk_sorted(torch.from_numpy(scores), big_k)
+        assert_bitwise(tuple(np.asarray(t) for t in a), tuple(t.numpy() for t in b))
