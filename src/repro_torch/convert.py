@@ -18,6 +18,8 @@ from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels.ops import PackedPartitions
 
 _OPTIONAL_ARRAYS = ("words", "slot_to_row", "num_slots", "tombstones")
+_OPTIONAL_COUNTS = ("n_rows_total", "base_packets", "delta_nnz", "dead_nnz",
+                    "tombstone_count")
 
 
 def packed_from_arrays(fields: Mapping) -> PackedPartitions:
@@ -28,7 +30,9 @@ def packed_from_arrays(fields: Mapping) -> PackedPartitions:
     ``rows_per_partition``, which must then match the even split),
     ``n_cols``, ``nnz``, ``block_size`` and ``value_format`` (a format
     name).  Optional: ``stream_layout``, ``words``, and the segmented fields
-    ``slot_to_row``, ``num_slots``, ``n_rows_total`` and ``tombstones``.
+    ``slot_to_row``, ``num_slots``, ``n_rows_total``, ``tombstones``,
+    ``base_packets``, ``delta_nnz``, ``dead_nnz`` and ``tombstone_count``
+    (the churn counters ``stats()`` reports).
     """
     fmt = FORMATS[str(fields["value_format"])]
     vals = np.asarray(fields["vals"])
@@ -44,8 +48,9 @@ def packed_from_arrays(fields: Mapping) -> PackedPartitions:
         raise ValueError(f"{vals.shape[0]} streams for {plan.num_partitions} partitions")
     kw = {name: np.asarray(fields[name]) for name in _OPTIONAL_ARRAYS
           if fields.get(name) is not None}
-    if fields.get("n_rows_total") is not None:
-        kw["n_rows_total"] = int(fields["n_rows_total"])
+    for name in _OPTIONAL_COUNTS:
+        if fields.get(name) is not None:
+            kw[name] = int(fields[name])
     return PackedPartitions(
         vals=vals,
         cols=np.asarray(fields["cols"]),

@@ -28,11 +28,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.quantization import FORMATS, ValueFormat, quantize
+from repro_torch.core.quantization import FORMATS, ValueFormat, host_dequantize, quantize
 
 FLAG_WORD_BITS = 32
 
@@ -49,6 +49,13 @@ class CSRMatrix:
     @property
     def nnz(self) -> int:
         return int(self.indices.shape[0])
+
+    def to_dense(self) -> np.ndarray:
+        n, m = self.shape
+        out = np.zeros((n, m), dtype=np.float32)
+        rows = np.repeat(np.arange(n), np.diff(self.indptr))
+        out[rows, self.indices] = self.data
+        return out
 
     def row_slice(self, start: int, stop: int) -> "CSRMatrix":
         """Rows [start, stop) as a new CSR — used by the partitioner (§III-A)."""
@@ -281,6 +288,124 @@ def defuse_stream(
 
 INVALID_ROW = np.int32(np.iinfo(np.int32).max)
 """Slot-map entry for a dead candidate slot (sentinel / tombstoned row)."""
+
+
+# ---------------------------------------------------------------------------
+# Base / delta / tombstone layout of a mutable index.  Global row ids are
+# never stored, so a stream grows by appending a delta segment's packets:
+# the delta's first row-start closes the base's open sentinel row, which
+# becomes a dead slot, and the appended rows take the slots after it.
+# ---------------------------------------------------------------------------
+
+def encode_delta_rows(
+    rows: Sequence[Tuple[np.ndarray, np.ndarray]],
+    n_cols: int,
+    block_size: int = 256,
+    value_format: ValueFormat | str = "F32",
+) -> BSCSRMatrix:
+    """Encode appended ``(indices, data)`` rows as a delta BS-CSR stream."""
+    lens = np.array([len(idx) for idx, _ in rows], dtype=np.int64)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    if len(rows):
+        indices = np.concatenate([np.asarray(i, np.int32) for i, _ in rows])
+        data = np.concatenate([np.asarray(d, np.float32) for _, d in rows])
+    else:
+        indices = np.zeros(0, np.int32)
+        data = np.zeros(0, np.float32)
+    csr = CSRMatrix(indptr=indptr, indices=indices, data=data,
+                    shape=(len(rows), n_cols))
+    return encode_bscsr(csr, block_size=block_size, value_format=value_format)
+
+
+def append_packets(
+    base: BSCSRMatrix, delta: BSCSRMatrix, pad_packets_to: Optional[int] = None
+) -> BSCSRMatrix:
+    """Concatenate a delta segment's packets after ``base`` — no re-encode.
+
+    ``n_rows`` of the result counts slots: base rows, the dead sentinel
+    slot, then the delta rows.
+    """
+    if base.block_size != delta.block_size:
+        raise ValueError(
+            f"block size mismatch: base {base.block_size}, delta {delta.block_size}"
+        )
+    if base.value_format != delta.value_format:
+        raise ValueError(
+            f"value format mismatch: base {base.value_format.name}, "
+            f"delta {delta.value_format.name}"
+        )
+    if base.cols.dtype != delta.cols.dtype:
+        raise ValueError("column index dtype mismatch between segments")
+    out = BSCSRMatrix(
+        vals=np.concatenate([base.vals, delta.vals]),
+        cols=np.concatenate([base.cols, delta.cols]),
+        flags=np.concatenate([base.flags, delta.flags]),
+        n_rows=base.n_rows + 1 + delta.n_rows,
+        n_cols=max(base.n_cols, delta.n_cols),
+        nnz=base.nnz + delta.nnz,
+        block_size=base.block_size,
+        value_format=base.value_format,
+    )
+    if pad_packets_to is not None:
+        out = pad_packets(out, pad_packets_to)
+    return out
+
+
+@dataclasses.dataclass
+class TombstoneBitmap:
+    """Deleted global row ids, as a grow-only host-side bitmap.
+
+    Marked ids are masked out of every merge until an upsert resurrects
+    them; the bitmap survives compaction.
+    """
+
+    bits: np.ndarray  # (n,) bool
+
+    @classmethod
+    def empty(cls, n_rows: int) -> "TombstoneBitmap":
+        return cls(bits=np.zeros(max(n_rows, 1), dtype=bool))
+
+    def grow(self, n_rows: int) -> None:
+        if n_rows > self.bits.shape[0]:
+            self.bits = np.concatenate(
+                [self.bits, np.zeros(n_rows - self.bits.shape[0], dtype=bool)]
+            )
+
+    def mark(self, row_ids) -> None:
+        self.grow(int(np.max(row_ids)) + 1)
+        self.bits[np.asarray(row_ids, np.int64)] = True
+
+    def clear(self, row_ids) -> None:
+        ids = np.asarray(row_ids, np.int64)
+        ids = ids[ids < self.bits.shape[0]]
+        self.bits[ids] = False
+
+    def __contains__(self, row_id: int) -> bool:
+        return 0 <= row_id < self.bits.shape[0] and bool(self.bits[row_id])
+
+    @property
+    def count(self) -> int:
+        return int(self.bits.sum())
+
+
+def decode_bscsr(bs: BSCSRMatrix) -> CSRMatrix:
+    """Stream -> CSR (host; the row-recovery semantics, for tests)."""
+    flags = unpack_bits(bs.flags, bs.block_size).reshape(-1)
+    vals = host_dequantize(bs.vals.reshape(-1), bs.value_format)
+    cols = bs.cols.reshape(-1).astype(np.int64)
+    row_ids = np.cumsum(flags) - 1
+    keep = row_ids < bs.n_rows  # drop sentinel + padding
+    vals, cols, row_ids = vals[keep], cols[keep], row_ids[keep]
+    # Drop placeholder zeros that were inserted for empty rows.
+    real = vals != 0.0
+    counts = np.bincount(row_ids[real], minlength=bs.n_rows)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return CSRMatrix(
+        indptr=indptr,
+        indices=cols[real].astype(np.int32),
+        data=vals[real].astype(np.float32),
+        shape=(bs.n_rows, bs.n_cols),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,20 @@ a machine without a card raises; nothing falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import bscsr as bscsr_lib
+from repro_torch.core import partition as partition_lib
 from repro_torch.core.precision_model import expected_precision, min_partitions_for_precision
 from repro_torch.kernels import executor as executor_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.core.quantization import FORMATS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +40,18 @@ class TopKSpMVConfig:
     gather_mode: str = "auto"      # take | onehot | auto: all served by one gather
     inner_loop: str = "linear"     # linear | legacy | linear-seg | linear-topk
     stream_layout: str = "fused"   # fused | split (the kernels read fused words)
+    incremental_snapshots: bool = True  # mutable index: re-pad only mutated parts
     use_executor: bool = True      # device-resident snapshot plane
                                    # (False: per-call upload dispatch)
+    cow_snapshots: bool = True     # mutable index: copy-on-write stacked buffers
+                                   # (False: np.stack per refresh)
+    parallel_compaction: bool = True  # compact(): re-encode partitions in a pool
+    parallel_compaction_min_nnz: int = 100_000  # per-partition nnz below which
+                                   # compact() stays serial
+    churn_stable: bool = True      # mutable index: pad the churn-varying dims
+                                   # (packets, slot-map width, tombstone length)
+                                   # to power-of-two buckets, so ingest reuses
+                                   # one executor signature per bucket
     device: str = "cuda"           # cuda (kernels) | cpu (plain versions)
 
     def resolve_partitions(self, n_rows: int) -> int:
@@ -64,6 +78,12 @@ class TopKSpMVConfig:
         return dev
 
 
+_NOT_PORTED_RECALL = (
+    "recall_target (per-partition mixed precision) is not ported yet: "
+    "ROADMAP Queue 1 item 8"
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class TopKSpMVIndex:
     """An immutable, queryable packed index over one embedding collection."""
@@ -84,10 +104,7 @@ class TopKSpMVIndex:
 
 def build_index(csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig) -> TopKSpMVIndex:
     if config.recall_target is not None:
-        raise NotImplementedError(
-            "recall_target (per-partition mixed precision) is not ported yet: "
-            "ROADMAP Queue 1 item 8"
-        )
+        raise NotImplementedError(_NOT_PORTED_RECALL)
     packed = kernel_ops.pack_partitions(
         csr,
         num_partitions=config.resolve_partitions(csr.shape[0]),
@@ -97,6 +114,405 @@ def build_index(csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig) -> TopKSpMVInd
         stream_layout=config.stream_layout,
     )
     return TopKSpMVIndex(packed=packed, config=config)
+
+
+class MutableTopKSpMVIndex:
+    """A live, serve-while-ingest index: base + per-partition delta segments.
+
+    ``add_rows`` appends, ``replace_rows`` tombstones the old copy and
+    appends the new one, ``delete_rows`` tombstones.  Updates are encoded as
+    delta packets (``bscsr.encode_delta_rows``) and appended after the
+    owning partition's stream (``bscsr.append_packets``); retired slots and
+    deleted ids are masked in finalize (and in the accumulate scatter).  The
+    kernels are untouched.  Every update batch swaps in a fresh immutable
+    ``PackedPartitions`` under a ``version`` counter, so a query holding the
+    previous snapshot keeps answering from it.
+
+    Duck-types ``TopKSpMVIndex`` (``.packed`` / ``.config``).  With
+    ``config.incremental_snapshots`` a refresh re-pads (and re-fuses) only
+    the partitions that mutated; with ``config.cow_snapshots`` the stacking
+    is copy-on-write (``kernel_ops.SnapshotBufferPool``).  With
+    ``config.churn_stable`` the padded packet count, the slot-map width and
+    the tombstone length are power-of-two buckets, so refreshes reuse one
+    executor signature until a bucket doubles.  Uniform value formats only:
+    ``recall_target`` is ROADMAP Queue 1 item 8, and ``export_state`` /
+    ``from_state`` with the fault hooks are item 10.
+    """
+
+    def __init__(self, csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig):
+        if config.recall_target is not None:
+            raise NotImplementedError(_NOT_PORTED_RECALL)
+        self.config = config
+        self._n_cols = csr.shape[1]
+        self._fmt = FORMATS[config.value_format]
+        c = config.resolve_partitions(csr.shape[0])
+        self._plan = partition_lib.PartitionPlan.build(csr.shape[0], c)
+        parts = partition_lib.partition_csr(csr, self._plan)
+        self._streams = [
+            bscsr_lib.encode_bscsr(p, config.block_size, self._fmt) for p in parts
+        ]
+        self._base_packets = max(e.num_packets for e in self._streams)
+        self._slots = [
+            list(range(start, start + size))
+            for start, size in zip(self._plan.row_starts, self._plan.rows_per_partition)
+        ]
+        self._loc = {
+            gid: (ci, si)
+            for ci, slots in enumerate(self._slots)
+            for si, gid in enumerate(slots)
+        }
+        cols_split = np.split(csr.indices, csr.indptr[1:-1])
+        data_split = np.split(csr.data, csr.indptr[1:-1])
+        self._rows = {
+            gid: (cols_split[gid].astype(np.int32), data_split[gid])
+            for gid in range(csr.shape[0])
+        }
+        self._deleted = bscsr_lib.TombstoneBitmap.empty(csr.shape[0])
+        self._next_gid = csr.shape[0]
+        self._live_nnz = csr.nnz
+        self._delta_nnz = 0
+        self._dead_nnz = 0
+        self._tombstone_slots = 0
+        self._version = -1
+        self._packed: Optional[kernel_ops.PackedPartitions] = None
+        self._live_csr_cache = None  # (version, (csr, gids))
+        self._buffer_pool = kernel_ops.SnapshotBufferPool()
+        self._stamp_counter = 0
+        self._reset_padded_cache()
+        self.last_refresh_repadded = 0   # partitions re-padded by the last refresh
+        self.total_repadded = 0
+        self.last_refresh_copied = 0     # partitions copied into the COW stack
+        self.total_copied = 0
+        self.last_compact_parallel = False
+        self._refresh()
+
+    def _reset_padded_cache(self) -> None:
+        """Invalidate the per-partition padded-stream (+ fused words) cache."""
+        c = len(self._streams)
+        self._dirty = set(range(c))
+        self._padded_streams = [None] * c
+        self._padded_words = [None] * c
+        self._padded_max_p = -1
+        # Churn-stable packet cap: anchored at the exact (step-aligned) count
+        # on build/compact, bumped to power-of-two buckets by growth.
+        self._packet_cap = -1
+        # All partitions' content is new: stamp them past every COW buffer.
+        self._stamp_counter += 1
+        self._part_stamps = np.full(c, self._stamp_counter, np.int64)
+
+    def _mark_dirty(self, ci: int) -> None:
+        """Record that partition ``ci``'s stream content changed."""
+        self._dirty.add(ci)
+        self._stamp_counter += 1
+        self._part_stamps[ci] = self._stamp_counter
+
+    # -- snapshot bookkeeping ------------------------------------------------
+
+    def _refresh(self) -> None:
+        """Swap in a fresh immutable snapshot (bumps the version counter).
+
+        Everything builds into locals; the served ``self._packed`` is
+        replaced by one assignment at the end.  Only partitions whose stream
+        mutated since the last snapshot are re-padded, unless the common
+        packet count changed.  With ``churn_stable`` the packet cap is the
+        exact step-aligned count at build/compact and jumps to the
+        power-of-two bucket at the first mutation, so steady ingest after it
+        changes the padded shapes only when a bucket doubles.  The padded
+        tail is flag-free zero packets, which the kernels stream as a
+        continuation of the open sentinel row.
+        """
+        fused = self.config.stream_layout == "fused"
+        mult = self.config.packets_per_step
+        max_p = max(e.num_packets for e in self._streams)
+        max_p = max(-(-max_p // mult) * mult, mult)
+        if self.config.churn_stable:
+            if self._packet_cap < 0:
+                self._packet_cap = max_p          # anchor refresh: exact
+            else:                                 # mutation refresh: bucket
+                self._packet_cap = max(
+                    self._packet_cap, kernel_ops.bucket_packets(max_p, mult)
+                )
+            max_p = self._packet_cap
+        if not self.config.incremental_snapshots or max_p != self._padded_max_p:
+            dirty = set(range(len(self._streams)))
+        else:
+            dirty = self._dirty
+        for ci in sorted(dirty):
+            padded = bscsr_lib.pad_packets(self._streams[ci], max_p)
+            self._padded_streams[ci] = padded
+            self._padded_words[ci] = bscsr_lib.fuse_stream(padded) if fused else None
+        self._padded_max_p = max_p
+        self._dirty = set()
+        self.last_refresh_repadded = len(dirty)
+        self.total_repadded += len(dirty)
+
+        num_slots = np.array([len(s) for s in self._slots], dtype=np.int32)
+        width = max(int(num_slots.max()) if num_slots.size else 0, 1)
+        tomb_len = max(self._next_gid, 1)
+        if self.config.churn_stable:
+            # Padded slot entries are INVALID_ROW and padded tombstone bits
+            # are False: finalize masks the former and never reads the latter.
+            width = kernel_ops.pow2_bucket(width)
+            tomb_len = kernel_ops.pow2_bucket(tomb_len)
+        slot_map = np.full((len(self._slots), width), bscsr_lib.INVALID_ROW,
+                           dtype=np.int32)
+        for ci, slots in enumerate(self._slots):
+            if slots:
+                slot_map[ci, : len(slots)] = np.asarray(slots, dtype=np.int32)
+        self._deleted.grow(self._next_gid)
+        tombs = np.zeros(tomb_len, dtype=bool)
+        tombs[: self._next_gid] = self._deleted.bits[: self._next_gid]
+        segment_fields = dict(
+            slot_to_row=slot_map,
+            num_slots=num_slots,
+            n_rows_total=self._next_gid,
+            tombstones=tombs,
+            base_packets=self._base_packets,
+            delta_nnz=self._delta_nnz,
+            dead_nnz=self._dead_nnz,
+            tombstone_count=self._tombstone_slots,
+        )
+        if self.config.cow_snapshots:
+            buf, copied = self._buffer_pool.lease(
+                self._padded_streams, self._padded_words if fused else None,
+                self._part_stamps, max_p, packets_multiple=mult,
+            )
+            new_packed = kernel_ops.PackedPartitions(
+                vals=buf.view("vals"),
+                cols=buf.view("cols"),
+                flags=buf.view("flags"),
+                plan=self._plan,
+                n_cols=self._n_cols,
+                nnz=self._live_nnz,
+                block_size=self._padded_streams[0].block_size,
+                value_format=self._fmt,
+                stream_layout=self.config.stream_layout,
+                words=buf.view("words") if fused else None,
+                **segment_fields,
+            )
+            buf.attach(new_packed)
+        else:
+            copied = len(self._padded_streams)  # np.stack copies everything
+            new_packed = kernel_ops.stack_padded_streams(
+                self._padded_streams, self._plan, self._n_cols, self._live_nnz,
+                stream_layout=self.config.stream_layout,
+                words=self._padded_words if fused else None,
+                **segment_fields,
+            )
+        self._packed = new_packed
+        self.last_refresh_copied = copied
+        self.total_copied += copied
+        self._version += 1
+
+    def refresh(self) -> None:
+        """Rebuild and swap the serving snapshot."""
+        self._refresh()
+
+    @property
+    def packed(self) -> kernel_ops.PackedPartitions:
+        return self._packed
+
+    @property
+    def n_cols(self) -> int:
+        """Feature dimensionality of the indexed collection."""
+        return self._n_cols
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    @property
+    def n_rows(self) -> int:
+        """Live (queryable) rows."""
+        return len(self._loc)
+
+    @property
+    def n_rows_total(self) -> int:
+        """Size of the global row-id space (live + deleted ids)."""
+        return self._next_gid
+
+    @property
+    def num_cores(self) -> int:
+        return self._plan.num_partitions
+
+    @property
+    def deleted_rows(self) -> int:
+        return self._deleted.count
+
+    @property
+    def snapshot_buffers(self) -> int:
+        """COW stacked buffers currently pooled (leased + free)."""
+        return len(self._buffer_pool)
+
+    @property
+    def expected_precision(self) -> float:
+        return expected_precision(
+            max(self.n_rows, 1), self.num_cores, self.config.k, self.config.big_k
+        )
+
+    # -- mutation ------------------------------------------------------------
+
+    @staticmethod
+    def _normalize_row(cols, vals) -> Tuple[np.ndarray, np.ndarray]:
+        cols = np.asarray(cols, dtype=np.int32)
+        vals = np.asarray(vals, dtype=np.float32)
+        if cols.shape != vals.shape:
+            raise ValueError(f"row cols/vals mismatch: {cols.shape} vs {vals.shape}")
+        order = np.argsort(cols, kind="stable")
+        return cols[order], vals[order]
+
+    def _append_rows(self, items) -> None:
+        """Append (gid, (cols, vals)) items as delta packets, least-loaded first."""
+        groups: dict = {}
+        sizes = [len(s) for s in self._slots]
+        for gid, row in items:
+            ci = int(np.argmin(sizes))
+            groups.setdefault(ci, []).append((gid, row))
+            sizes[ci] += 1
+        for ci in sorted(groups):
+            rows = [row for _, row in groups[ci]]
+            delta = bscsr_lib.encode_delta_rows(
+                rows, self._n_cols, self.config.block_size, self._fmt
+            )
+            self._streams[ci] = bscsr_lib.append_packets(self._streams[ci], delta)
+            self._mark_dirty(ci)
+            slots = self._slots[ci]
+            # The previously-open sentinel becomes a dead candidate slot.
+            slots.append(int(bscsr_lib.INVALID_ROW))
+            for gid, (cols, vals) in groups[ci]:
+                self._loc[gid] = (ci, len(slots))
+                slots.append(gid)
+                self._rows[gid] = (cols, vals)
+                self._live_nnz += len(cols)
+                self._delta_nnz += len(cols)
+
+    def _tombstone_slot(self, gid: int) -> None:
+        ci, si = self._loc.pop(gid)
+        self._slots[ci][si] = int(bscsr_lib.INVALID_ROW)
+        self._tombstone_slots += 1
+        cols, _ = self._rows.pop(gid)
+        self._live_nnz -= len(cols)
+        if si >= self._plan.rows_per_partition[ci]:  # slot lives in a delta segment
+            self._delta_nnz -= len(cols)
+        self._dead_nnz += len(cols)
+
+    def add_rows(self, rows: Sequence[Tuple[np.ndarray, np.ndarray]]) -> list:
+        """Append new rows; returns their freshly assigned global row ids."""
+        if not rows:
+            return []
+        normalized = [self._normalize_row(c, v) for c, v in rows]
+        gids = list(range(self._next_gid, self._next_gid + len(rows)))
+        self._next_gid += len(rows)
+        self._append_rows(list(zip(gids, normalized)))
+        self._refresh()
+        return gids
+
+    def replace_rows(self, row_ids: Sequence[int],
+                     rows: Sequence[Tuple[np.ndarray, np.ndarray]]) -> None:
+        """Replace rows in place of their ids: tombstone old copy, append new.
+
+        A previously deleted id is resurrected (its tombstone bit clears).
+        """
+        if len(row_ids) != len(rows):
+            raise ValueError("row_ids and rows must be the same length")
+        row_ids = self._validate_ids(row_ids)
+        normalized = [self._normalize_row(c, v) for c, v in rows]
+        for gid in row_ids:
+            if gid in self._loc:
+                self._tombstone_slot(gid)
+        self._deleted.clear(row_ids)
+        self._append_rows(list(zip(row_ids, normalized)))
+        self._refresh()
+
+    def delete_rows(self, row_ids: Sequence[int]) -> None:
+        """Tombstone rows: their slots retire and their ids stay unreturnable."""
+        row_ids = self._validate_ids(row_ids, allow_duplicates=True)
+        for gid in row_ids:
+            if gid in self._loc:
+                self._tombstone_slot(gid)
+            self._deleted.mark([gid])
+        self._refresh()
+
+    def _validate_ids(self, row_ids: Sequence[int], allow_duplicates=False) -> list:
+        out = [int(g) for g in row_ids]
+        for gid in out:
+            if gid < 0 or gid >= self._next_gid:
+                raise KeyError(f"row id {gid} was never assigned")
+        if not allow_duplicates and len(set(out)) != len(out):
+            # a duplicate would append two live slots for one id (ghost copy)
+            raise ValueError("duplicate row ids in one replace batch")
+        return out
+
+    # -- compaction ----------------------------------------------------------
+
+    def live_csr(self) -> Tuple[bscsr_lib.CSRMatrix, np.ndarray]:
+        """Live rows (gid-ascending) as a CSR plus the gid of each CSR row.
+
+        Cached per snapshot version.
+        """
+        if self._live_csr_cache is not None and self._live_csr_cache[0] == self._version:
+            return self._live_csr_cache[1]
+        gids = np.asarray(sorted(self._loc), dtype=np.int64)
+        lens = np.asarray([len(self._rows[g][0]) for g in gids], dtype=np.int64)
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        if gids.size:
+            indices = np.concatenate([self._rows[g][0] for g in gids])
+            data = np.concatenate([self._rows[g][1] for g in gids])
+        else:
+            indices = np.zeros(0, np.int32)
+            data = np.zeros(0, np.float32)
+        csr = bscsr_lib.CSRMatrix(indptr=indptr, indices=indices, data=data,
+                                  shape=(int(gids.size), self._n_cols))
+        self._live_csr_cache = (self._version, (csr, gids))
+        return csr, gids
+
+    def compact(self) -> None:
+        """Re-encode live rows into a fresh base segment.
+
+        Reclaims delta packets, dead slots and tombstoned stream bytes.
+        With ``config.parallel_compaction`` partitions re-encode in a thread
+        pool once per-partition work clears ``parallel_compaction_min_nnz``
+        (numpy releases the GIL on large-array work); tiny indexes stay
+        serial.  The previous snapshot serves until the one swap; deleted
+        ids stay masked through the tombstone bitmap.
+        """
+        csr, gids = self.live_csr()
+        c = max(1, self.config.resolve_partitions(max(csr.shape[0], 1)))
+        plan = partition_lib.PartitionPlan.build(csr.shape[0], c)
+        parts = partition_lib.partition_csr(csr, plan)
+
+        def encode(p):
+            return bscsr_lib.encode_bscsr(p, self.config.block_size, self._fmt)
+
+        parallel = (
+            self.config.parallel_compaction
+            and len(parts) > 1
+            and csr.nnz / len(parts) >= self.config.parallel_compaction_min_nnz
+        )
+        if parallel:
+            workers = min(len(parts), os.cpu_count() or 1)
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                streams = list(pool.map(encode, parts))
+        else:
+            streams = [encode(p) for p in parts]
+        self.last_compact_parallel = parallel
+        self._streams = streams
+        self._base_packets = max(e.num_packets for e in streams)
+        self._plan = plan
+        self._reset_padded_cache()
+        self._slots = [
+            [int(g) for g in gids[start : start + size]]
+            for start, size in zip(plan.row_starts, plan.rows_per_partition)
+        ]
+        self._loc = {
+            gid: (ci, si)
+            for ci, slots in enumerate(self._slots)
+            for si, gid in enumerate(slots)
+        }
+        self._delta_nnz = 0
+        self._dead_nnz = 0
+        self._tombstone_slots = 0
+        self._refresh()
 
 
 def query_executor(config: TopKSpMVConfig) -> executor_lib.QueryExecutor:

@@ -1,10 +1,16 @@
 // BS-CSR Top-K SpMV for Hopper (sm_90a): one query, or Q queries, per
-// stream pass over the fused tile-packet words of every core.
+// stream pass over the fused tile-packet words of every core, and the
+// accumulate mode y = A x that keeps every row's sum.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/bscsr_topk_spmv.py:
 //   bscsr_topk_spmv_launch            -> bscsr_topk_spmv (_topk_spmv_kernel)
 //   bscsr_topk_spmv_multiquery_launch -> bscsr_topk_spmv_multiquery
 //                                        (_topk_spmv_mq_kernel)
+//   bscsr_spmv_launch                 -> bscsr_spmv (_spmv_accum_kernel)
+//
+// The accumulate kernel reads the same stream and writes one f32 per slot
+// (C x n_rows), so it is bound by bytes; for a graph operator x is too wide
+// for shared memory and is gathered from global memory (through L2).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
 // one pass must read every stream word once, ~4.1 bytes per stored nnz in
@@ -25,12 +31,15 @@
 //            reference's _segment_sums_linear
 //   stage 3  the open row of the previous step is added to segment 0; the
 //            last segment of the step stays open and is carried on
-//   stage 4  a completed row whose score is strictly above the scratchpad
+//   stage 4  (top-k) a completed row whose score is strictly above the scratchpad
 //            minimum at the start of the step is appended to a candidate
 //            list; one thread per query then inserts the list into its
 //            k-entry scratchpad, ordered by (float total order desc, slot
 //            asc), which is lax.top_k's order.  The result is independent of
 //            the order of the list, so the append may race.
+//   stage 4' (accumulate) a completed row's sum is stored at its slot.
+// Stages 1-3 are one template (walk) shared by the three kernels; the
+// stage-4 structs plug into it.
 // The next step's words are loaded into registers before the current step's
 // scans, hiding part of the load latency.  Known limits, for later work: with
 // c = 32 cores only 32 of 132 SMs stream (a core's stream is not yet split
@@ -46,8 +55,8 @@ constexpr float kNegInf = -3.40282347e+38f;  // np.finfo(np.float32).min
 struct Params {
   const float* x;        // (Q, M) f32, queries of one pass
   const int32_t* words;  // (C, P, W) fused packet words
-  float* out_v;          // (C, Q, k)
-  int32_t* out_r;        // (C, Q, k) per-core slot ids
+  float* out_v;          // (C, Q, k); accumulate mode: (C, n_rows) slot sums
+  int32_t* out_r;        // (C, Q, k) per-core slot ids (top-k kernels only)
   int n_cores;
   long long n_packets;
   int width;             // W
@@ -212,21 +221,90 @@ __device__ inline void decode(const Params& p, const Raw& r, int j, int* flag, i
   }
 }
 
-__device__ void walk(const Params& p, int core, int q0, int nq) {
+// Stage 4 of the top-k kernels: a k-entry scratchpad per query.
+struct TopkStage {
+  __device__ void init(const Params& p, Smem& s, int tid, int tb, int nq) const {
+    for (int i = tid; i < nq * p.k; i += tb) {
+      s.acc_v[i] = kNegInf;
+      s.acc_r[i] = p.n_rows;
+    }
+  }
+  // A row that completed in this step: appended to the query's candidate
+  // list when strictly above the scratchpad minimum at the start of the step
+  // (the scratchpad changes only in end_step).
+  __device__ void row_done(const Params& p, Smem& s, int core, int q, int r,
+                           float c, int tb) const {
+    if (c > s.acc_v[q * p.k + p.k - 1]) {
+      const int at = atomicAdd(s.cand_n + q, 1);
+      s.cand_v[q * (tb + 1) + at] = c;
+      s.cand_r[q * (tb + 1) + at] = r;
+    }
+  }
+  // Each query's candidate list into its sorted scratchpad.
+  __device__ void end_step(const Params& p, Smem& s, int tid, int tb, int nq) const {
+    if (tid >= nq) return;
+    const int k = p.k;
+    float* av = s.acc_v + tid * k;
+    int* ar = s.acc_r + tid * k;
+    const float* cv = s.cand_v + tid * (tb + 1);
+    const int* cr = s.cand_r + tid * (tb + 1);
+    const int n = s.cand_n[tid];
+    for (int i = 0; i < n; ++i) {
+      const float c = cv[i];
+      const int r = cr[i];
+      const int kc = total_key(c);
+      if (!ranks_before(kc, r, total_key(av[k - 1]), ar[k - 1])) continue;
+      int pos = k - 1;
+      while (pos > 0 && ranks_before(kc, r, total_key(av[pos - 1]), ar[pos - 1])) {
+        av[pos] = av[pos - 1];
+        ar[pos] = ar[pos - 1];
+        --pos;
+      }
+      av[pos] = c;
+      ar[pos] = r;
+    }
+    s.cand_n[tid] = 0;
+  }
+  __device__ void finish(const Params& p, Smem& s, int core, int q0, int tid, int tb,
+                         int nq) const {
+    for (int i = tid; i < nq * p.k; i += tb) {
+      const int q = i / p.k;
+      const long long o = (static_cast<long long>(core) * p.nq + q0 + q) * p.k + i % p.k;
+      p.out_v[o] = s.acc_v[i];
+      p.out_r[o] = s.acc_r[i];
+    }
+  }
+};
+
+// Stage 4' of the accumulate kernel: each completed row is stored at its
+// slot of the zero-filled (C, n_rows) output.  Completed slot ids never
+// repeat, so plain stores suffice.  0.0f + c gives the bits the reference's
+// scatter-add onto zeros gives (-0.0 becomes +0.0).
+struct AccumStage {
+  __device__ void init(const Params&, Smem&, int, int, int) const {}
+  __device__ void row_done(const Params& p, Smem&, int core, int, int r, float c,
+                           int) const {
+    if (r < p.n_rows) p.out_v[static_cast<long long>(core) * p.n_rows + r] = __fadd_rn(0.0f, c);
+  }
+  __device__ void end_step(const Params&, Smem&, int, int, int) const {}
+  __device__ void finish(const Params&, Smem&, int, int, int, int, int) const {}
+};
+
+// Stages 1-3, shared by every kernel: one block walks core `core`'s packets
+// in order for queries q0 .. q0+nq-1 and hands each completed row to the
+// stage.
+template <typename Stage>
+__device__ void walk(const Params& p, int core, int q0, int nq, const Stage& stage) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tb = blockDim.x;
   const int tid = threadIdx.x;
-  const int k = p.k;
-  Smem s = carve(smem_raw, tb, p.q_chunk, k, p.m, p.x_in_smem);
+  Smem s = carve(smem_raw, tb, p.q_chunk, p.k, p.m, p.x_in_smem);
 
   if (p.x_in_smem) {
     const float* xs = p.x + static_cast<long long>(q0) * p.m;
     for (int i = tid; i < nq * p.m; i += tb) s.x[i] = xs[i];
   }
-  for (int i = tid; i < nq * k; i += tb) {
-    s.acc_v[i] = kNegInf;
-    s.acc_r[i] = p.n_rows;
-  }
+  stage.init(p, s, tid, tb, nq);
   if (tid < nq) {
     s.carry[tid] = 0.0f;
     s.cand_n[tid] = 0;
@@ -264,17 +342,9 @@ __device__ void walk(const Params& p, int core, int q0, int nq) {
       if (f) s.start[seg] = tid > 0 ? s.ps[tid - 1] : 0.0f;
       __syncthreads();
       const float part = s.carry[q];
-      const float thr = s.acc_v[q * k + k - 1];
-      float* cv = s.cand_v + q * (tb + 1);
-      int* cr = s.cand_r + q * (tb + 1);
       if (tid == 0 && f && row0 >= 0) {
         // Segment 0 is empty: the carried row completes with its partial sum.
-        const float c = __fadd_rn(0.0f, part);
-        if (c > thr) {
-          const int at = atomicAdd(s.cand_n + q, 1);
-          cv[at] = c;
-          cr[at] = row0;
-        }
+        stage.row_done(p, s, core, q, row0, __fadd_rn(0.0f, part), tb);
       }
       float carry_out = 0.0f;  // set by the last thread: its segment is s_last
       if (is_last) {
@@ -282,11 +352,7 @@ __device__ void walk(const Params& p, int core, int q0, int nq) {
         const float c = __fadd_rn(__fsub_rn(ps, base), seg == 0 ? part : 0.0f);
         if (seg < s_last) {
           const int r = row0 + seg;
-          if (r >= 0 && c > thr) {
-            const int at = atomicAdd(s.cand_n + q, 1);
-            cv[at] = c;
-            cr[at] = r;
-          }
+          if (r >= 0) stage.row_done(p, s, core, q, r, c, tb);
         } else {
           carry_out = c;
         }
@@ -295,49 +361,25 @@ __device__ void walk(const Params& p, int core, int q0, int nq) {
       if (tid == tb - 1) s.carry[q] = carry_out;
     }
 
-    // Stage 4: each query's candidate list into its sorted scratchpad.
-    if (tid < nq) {
-      float* av = s.acc_v + tid * k;
-      int* ar = s.acc_r + tid * k;
-      const float* cv = s.cand_v + tid * (tb + 1);
-      const int* cr = s.cand_r + tid * (tb + 1);
-      const int n = s.cand_n[tid];
-      for (int i = 0; i < n; ++i) {
-        const float c = cv[i];
-        const int r = cr[i];
-        const int kc = total_key(c);
-        if (!ranks_before(kc, r, total_key(av[k - 1]), ar[k - 1])) continue;
-        int pos = k - 1;
-        while (pos > 0 && ranks_before(kc, r, total_key(av[pos - 1]), ar[pos - 1])) {
-          av[pos] = av[pos - 1];
-          ar[pos] = ar[pos - 1];
-          --pos;
-        }
-        av[pos] = c;
-        ar[pos] = r;
-      }
-      s.cand_n[tid] = 0;
-    }
+    stage.end_step(p, s, tid, tb, nq);
     if (tid == 0) s.misc[0] = row0 + s_last;
     __syncthreads();
   }
-
-  for (int i = tid; i < nq * k; i += tb) {
-    const int q = i / k;
-    const long long o = (static_cast<long long>(core) * p.nq + q0 + q) * k + i % k;
-    p.out_v[o] = s.acc_v[i];
-    p.out_r[o] = s.acc_r[i];
-  }
+  stage.finish(p, s, core, q0, tid, tb, nq);
 }
 
-__global__ void topk_spmv_kernel(Params p) { walk(p, blockIdx.x, 0, 1); }
+__global__ void topk_spmv_kernel(Params p) { walk(p, blockIdx.x, 0, 1, TopkStage{}); }
 
 __global__ void topk_spmv_mq_kernel(Params p) {
   const int q0 = blockIdx.y * p.q_chunk;
-  walk(p, blockIdx.x, q0, min(p.q_chunk, p.nq - q0));
+  walk(p, blockIdx.x, q0, min(p.q_chunk, p.nq - q0), TopkStage{});
 }
 
-int launch(bool multi, const float* x, const int32_t* words, float* out_v, int32_t* out_r,
+__global__ void spmv_accum_kernel(Params p) { walk(p, blockIdx.x, 0, 1, AccumStage{}); }
+
+enum class Kind { kTopk, kMultiquery, kAccumulate };
+
+int launch(Kind kind, const float* x, const int32_t* words, float* out_v, int32_t* out_r,
            int n_cores, long long n_packets, int width, int m, int nq, int q_chunk,
            int block, int per_step, int col_words, int fmt, int k, int n_rows,
            cudaStream_t stream) {
@@ -355,16 +397,20 @@ int launch(bool multi, const float* x, const int32_t* words, float* out_v, int32
     bytes = smem_bytes(tb, q_chunk, k, m, 0);
     if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* fn = multi ? reinterpret_cast<const void*>(topk_spmv_mq_kernel)
-                         : reinterpret_cast<const void*>(topk_spmv_kernel);
+  const void* fn = kind == Kind::kMultiquery
+                       ? reinterpret_cast<const void*>(topk_spmv_mq_kernel)
+                   : kind == Kind::kTopk ? reinterpret_cast<const void*>(topk_spmv_kernel)
+                                         : reinterpret_cast<const void*>(spmv_accum_kernel);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (multi) {
+  if (kind == Kind::kMultiquery) {
     dim3 grid(n_cores, (nq + q_chunk - 1) / q_chunk);
     topk_spmv_mq_kernel<<<grid, tb, bytes, stream>>>(p);
-  } else {
+  } else if (kind == Kind::kTopk) {
     topk_spmv_kernel<<<n_cores, tb, bytes, stream>>>(p);
+  } else {
+    spmv_accum_kernel<<<n_cores, tb, bytes, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -376,8 +422,9 @@ extern "C" int bscsr_topk_spmv_launch(const float* x, const int32_t* words, floa
                                       int width, int m, int nq, int q_chunk, int block,
                                       int per_step, int col_words, int fmt, int k,
                                       int n_rows, void* stream) {
-  return launch(false, x, words, out_v, out_r, n_cores, n_packets, width, m, 1, 1, block,
-                per_step, col_words, fmt, k, n_rows, static_cast<cudaStream_t>(stream));
+  return launch(Kind::kTopk, x, words, out_v, out_r, n_cores, n_packets, width, m, 1, 1,
+                block, per_step, col_words, fmt, k, n_rows,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bscsr_topk_spmv_multiquery_launch(const float* x, const int32_t* words,
@@ -386,7 +433,17 @@ extern "C" int bscsr_topk_spmv_multiquery_launch(const float* x, const int32_t* 
                                                  int nq, int q_chunk, int block,
                                                  int per_step, int col_words, int fmt,
                                                  int k, int n_rows, void* stream) {
-  return launch(true, x, words, out_v, out_r, n_cores, n_packets, width, m, nq, q_chunk,
-                block, per_step, col_words, fmt, k, n_rows,
+  return launch(Kind::kMultiquery, x, words, out_v, out_r, n_cores, n_packets, width, m,
+                nq, q_chunk, block, per_step, col_words, fmt, k, n_rows,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Accumulate mode: out (C, n_rows) f32, zero-filled by the caller.
+extern "C" int bscsr_spmv_launch(const float* x, const int32_t* words, float* out,
+                                 int n_cores, long long n_packets, int width, int m,
+                                 int block, int per_step, int col_words, int fmt,
+                                 int n_rows, void* stream) {
+  return launch(Kind::kAccumulate, x, words, out, nullptr, n_cores, n_packets, width, m,
+                1, 1, block, per_step, col_words, fmt, 1, n_rows,
                 static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,13 @@
 """BS-CSR Top-K SpMV kernels for Hopper, with their plain PyTorch versions.
 
-Two kernels, each the port of one Pallas TPU kernel of
+Three kernels, each the port of one Pallas TPU kernel of
 ``repro.kernels.bscsr_topk_spmv``:
 
   bscsr_topk_spmv             one query per stream pass      -> (C, k)
   bscsr_topk_spmv_multiquery  Q queries share one stream pass -> (C, Q, k)
+  bscsr_spmv                  accumulate mode, every slot sum -> (C, n_rows)
 
-Both take the fused word stream ``(C, P, W)`` int32 (``flags | cols |
+All three take the fused word stream ``(C, P, W)`` int32 (``flags | cols |
 vals`` per packet, see ``core/bscsr.py``).  Split-layout snapshots reach
 them as ``fused_words()``, which is bit-identical.  The CUDA source is
 ``repro_torch/csrc/bscsr_topk_spmv.cu``: one CTA per core walks its packets
@@ -25,6 +26,10 @@ queries with a Python loop over steps.
   stage 3  add the carried open row; the last segment of a step stays open
   stage 4  candidates strictly above the scratchpad minimum (taken at the
            start of the step) are merged into the k-sized scratchpad
+  stage 4' (accumulate mode) each completed row is stored at its slot
+
+Stages 1-3 are shared by all three (``_plain_steps`` here, ``walk`` in the
+CUDA source).
 
 Stage 4 ranks as ``lax.top_k`` does: float total order (-0.0 below +0.0),
 lower position first on ties, which puts scratchpad entries before
@@ -158,18 +163,20 @@ def _decode_fused_tile(tile: torch.Tensor, block: int, fmt: ValueFormat, col_wor
     return f, cols.long(), v.reshape(c, -1)
 
 
-def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
-                packets_per_step: int, fmt: ValueFormat, block: int,
-                col_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Pallas tile walk for a (Q, M) query batch -> (C, Q, k) each."""
+def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
+                 fmt: ValueFormat, block: int, col_words: int):
+    """Stages 1-3 of the Pallas tile walk for a (Q, M) batch, step by step.
+
+    Yields ``(cand_v, cand_r, complete)`` per step: (C, Q, TB+1) segment sums
+    with the carried open row added to segment 0, (C, TB+1) int32 slot ids,
+    and the (C, TB+1) mask of segments that complete in this step.
+    """
     dev = words.device
     n_cores = words.shape[0]
     nq, m = x.shape
     t = packets_per_step
     tb = t * block
     x = x.float()
-    acc_v = torch.full((n_cores, nq, k), NEG_INF, dtype=torch.float32, device=dev)
-    acc_r = torch.full((n_cores, nq, k), n_rows, dtype=torch.int32, device=dev)
     carry_row = torch.full((n_cores,), -1, dtype=torch.int32, device=dev)
     carry_sum = torch.zeros((n_cores, nq), dtype=torch.float32, device=dev)
     seg_ids = torch.arange(tb + 1, dtype=torch.int32, device=dev)
@@ -198,10 +205,24 @@ def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
         cand_v = seg_sums + torch.where(seg_ids == 0, part[..., None], 0.0)
         cand_r = carry_row[:, None] + seg_ids                       # (C, TB+1)
         complete = (seg_ids < s_last[:, None]) & (cand_r >= 0)
-        cand_v = torch.where(complete[:, None, :], cand_v, NEG_INF)
         carry_row = carry_row + s_last.int()
         last_sum = torch.gather(seg_sums, -1, s_last[:, None, None].expand(-1, nq, 1))
         carry_sum = last_sum[..., 0] + torch.where(s_last[:, None] == 0, part, 0.0)
+        yield cand_v, cand_r, complete
+
+
+def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
+                packets_per_step: int, fmt: ValueFormat, block: int,
+                col_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas top-k tile walk for a (Q, M) query batch -> (C, Q, k) each."""
+    dev = words.device
+    n_cores, nq = words.shape[0], x.shape[0]
+    acc_v = torch.full((n_cores, nq, k), NEG_INF, dtype=torch.float32, device=dev)
+    acc_r = torch.full((n_cores, nq, k), n_rows, dtype=torch.int32, device=dev)
+    for cand_v, cand_r, complete in _plain_steps(
+            x, words, packets_per_step=packets_per_step, fmt=fmt, block=block,
+            col_words=col_words):
+        cand_v = torch.where(complete[:, None, :], cand_v, NEG_INF)
         # ---- stage 4: threshold filter + one stable top-k merge ----
         thr = acc_v.min(dim=-1, keepdim=True).values
         fv = torch.where(cand_v > thr, cand_v, NEG_INF)
@@ -233,6 +254,27 @@ def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
                                  "take", inner_loop)
     return _walk_plain(x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
                        fmt=fmt, block=block_size, col_words=col_words)
+
+
+def bscsr_spmv_plain(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
+                     block_size=256, gather_mode="take", inner_loop="linear"):
+    """Plain PyTorch version of :func:`bscsr_spmv` -> (C, n_rows) slot sums.
+
+    Stage 4': every segment that completes in a step lands at its slot as
+    ``0.0 + sum``; slots that never complete (the open trailing sentinel,
+    phantom slots of a padded budget) stay 0.0.
+    """
+    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
+                              gather_mode, inner_loop)
+    n_cores = words.shape[0]
+    out = torch.zeros((n_cores, n_rows + 1), dtype=torch.float32, device=words.device)
+    for cand_v, cand_r, complete in _plain_steps(
+            x.reshape(1, -1), words, packets_per_step=packets_per_step, fmt=fmt,
+            block=block_size, col_words=col_words):
+        keep = complete & (cand_r < n_rows)
+        slot = torch.where(keep, cand_r, n_rows).long()
+        out.scatter_add_(-1, slot, torch.where(keep, cand_v[:, 0], 0.0))
+    return out[:, :n_rows]
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +327,9 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
+    # x, words, out, C, P, W, M, B, T, col_words, fmt, n_rows, stream
+    lib.bscsr_spmv_launch.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i, p]
+    lib.bscsr_spmv_launch.restype = i
     return lib
 
 
@@ -370,7 +415,53 @@ def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
 bscsr_topk_spmv_multiquery.launches = 0
 
 
+def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
+               block_size=256, gather_mode="take", inner_loop="linear"):
+    """Accumulate mode: every core's raw per-slot row sums -> (C, n_rows) f32.
+
+    The top-k scratchpad never runs; each row that completes is stored at
+    its slot as ``0.0 + sum`` and every other slot reads exactly 0.0.
+    ``n_rows`` is the per-core slot budget (possibly a power-of-two pad).
+    Callers map slots to rows, mask tombstones and apply alpha/beta with
+    ``ops.scatter_slot_sums``.  Under "linear" and "linear-seg" the reference
+    sums segments by prefix differences, as this does; under "legacy" and
+    "linear-topk" it uses a one-hot matmul there, so the sums agree only
+    within f32 tolerance (bit for bit on dyadic fixtures).  ``gather_mode``
+    is served by one gather.  CPU tensors run the plain version.
+    """
+    if words.device.type == "cpu" and x.device.type == "cpu":
+        return bscsr_spmv_plain(
+            x, words, n_rows=n_rows, packets_per_step=packets_per_step,
+            fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
+            inner_loop=inner_loop)
+    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
+                            gather_mode, inner_loop)
+    _check_cuda_args(x, words)
+    if x.dim() != 1:
+        raise ValueError(f"x must be an (M,) vector, got {tuple(x.shape)}")
+    tb = packets_per_step * block_size
+    if tb > MAX_TILE_NNZ:
+        raise ValueError(f"T*B={tb} exceeds the kernel's {MAX_TILE_NNZ} nnz per step")
+    n_cores, n_packets, width = words.shape
+    out = torch.zeros((n_cores, n_rows), dtype=torch.float32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().bscsr_spmv_launch(
+            x.data_ptr(), words.data_ptr(), out.data_ptr(), n_cores, n_packets, width,
+            x.shape[0], block_size, packets_per_step, col_words, _FMT_IDS[fmt_name],
+            n_rows, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bscsr_spmv_launch failed: CUDA error {err}")
+    bscsr_spmv.launches += 1
+    return out
+
+
+bscsr_spmv.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Set both wrappers' ``launches`` counts to 0."""
+    """Set every wrapper's ``launches`` count to 0."""
     bscsr_topk_spmv.launches = 0
     bscsr_topk_spmv_multiquery.launches = 0
+    bscsr_spmv.launches = 0

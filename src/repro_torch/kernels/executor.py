@@ -12,12 +12,15 @@
 * ``DeviceSnapshot`` uploads one immutable ``PackedPartitions``'s kernel
   streams and finalize tensors to the device exactly once, keyed by the
   snapshot's ``uid``; the entry dies with the host snapshot (weakref).
-* ``QueryExecutor`` keeps one query function per (path, Q bucket, shape
-  signature).  PyTorch runs eagerly, so a "build" is only the first touch of
-  a specialisation; ``fn_builds`` and ``retraces`` keep the reference's
-  names and meaning.  The power-of-two Q bucket is only the cache key: the
-  batch reaches the kernel unpadded (the kernel takes any Q, and padding
-  would add stream passes of work for no saved compile).
+* ``QueryExecutor`` keeps one function per (path, Q bucket or
+  ``("spmv", n_out)``, shape signature): the top-k query paths ("kernel",
+  "reference") and the accumulate paths ("accumulate", "accumulate_ref")
+  that the graph workloads step with.  PyTorch runs eagerly, so a "build"
+  is only the first touch of a specialisation; ``fn_builds`` and
+  ``retraces`` keep the reference's names and meaning.  The power-of-two Q
+  bucket is only the cache key: the batch reaches the kernel unpadded (the
+  kernel takes any Q, and padding would add stream passes of work for no
+  saved compile).
 * ``h2d_copies`` counts the tensors uploaded at the pin boundary: the
   snapshot's kernel streams and finalize tensors (on a CPU executor the
   same uploads are counted, so the rule is testable there).  The query
@@ -28,16 +31,20 @@ from __future__ import annotations
 
 import functools
 import weakref
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.bscsr_topk_spmv import (
+    bscsr_spmv,
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
 )
+
+PATHS = ("kernel", "reference", "accumulate", "accumulate_ref")
 
 # (snapshot uid, stream layout, device) -> DeviceSnapshot; entries evicted
 # when the host PackedPartitions is garbage collected.
@@ -137,12 +144,15 @@ class QueryExecutor:
         self.q_exact_hits = 0
         self.h2d_copies = 0
 
-    def prepare(self, packed: ops.PackedPartitions, q: Optional[int] = None,
-                path: str = "kernel"):
-        """Resolve (query fn, device snapshot) without running."""
-        if path not in ("kernel", "reference"):
-            raise ValueError(f"path must be 'kernel' or 'reference', got {path!r}")
-        layout = "split" if path == "reference" else "fused"
+    def prepare(self, packed: ops.PackedPartitions, q=None, path: str = "kernel"):
+        """Resolve (query fn, device snapshot) without running.
+
+        ``q`` is None for the single-query fn, the Q bucket for a batch, or
+        ``("spmv", n_out)`` for the accumulate paths.
+        """
+        if path not in PATHS:
+            raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+        layout = "split" if path in ("reference", "accumulate_ref") else "fused"
         pin = (packed.uid, layout, str(self.device))
         fresh = pin not in _DEVICE_CACHE
         snap = device_snapshot(packed, layout, self.device)
@@ -199,6 +209,38 @@ class QueryExecutor:
         self.dispatches += 1
         return fn(xs, snap)
 
+    def spmv(self, x, packed: ops.PackedPartitions, *, alpha, beta, y,
+             path: str = "accumulate", resident: bool = False) -> torch.Tensor:
+        """``alpha * A @ x + beta * y`` with the top-k select stage skipped.
+
+        The iterative-workload dispatch: one accumulate launch plus the
+        scatter epilogue per step.  ``y``'s length fixes the output row
+        space and keys the function cache.  With ``resident`` every operand
+        (x, alpha, beta, y) must already be a tensor on the executor's
+        device, or the call raises instead of uploading it: the port's
+        stand-in for the reference's host-to-device transfer guard.
+        ``path="accumulate_ref"`` runs the torch oracle through the same plane.
+        """
+        if path not in ("accumulate", "accumulate_ref"):
+            raise ValueError(f"spmv path must be 'accumulate' or 'accumulate_ref', "
+                             f"got {path!r}")
+        operands = {"x": x, "alpha": alpha, "beta": beta, "y": y}
+        if resident:
+            for name, t in operands.items():
+                if not (isinstance(t, torch.Tensor) and t.device == self.device):
+                    where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+                    raise RuntimeError(
+                        f"spmv operand {name} is not resident on {self.device} "
+                        f"(got {where}); a guarded loop uploads nothing")
+        else:
+            x, y = self._on_device(x), self._on_device(y)
+        if x.dim() != 1 or y.dim() != 1:
+            raise ValueError(f"x and y must be vectors, got {tuple(x.shape)} and "
+                             f"{tuple(y.shape)}")
+        fn, snap = self.prepare(packed, ("spmv", int(y.shape[0])), path)
+        self.dispatches += 1
+        return fn(x, alpha, beta, y, snap)
+
     def cache_info(self) -> dict:
         self._pinned &= set(_DEVICE_CACHE.keys())
         return {
@@ -213,10 +255,12 @@ class QueryExecutor:
             "h2d_copies": self.h2d_copies,
         }
 
-    def _build(self, path: str, q: Optional[int], snap: DeviceSnapshot):
-        """The query function for this (path, Q, signature)."""
+    def _build(self, path: str, q, snap: DeviceSnapshot):
+        """The function for this (path, Q or spmv key, signature)."""
         big_k, k = self.big_k, self.k
         fmt = FORMATS[snap.fmt_name]
+        if path in ("accumulate", "accumulate_ref"):
+            return self._build_spmv(path, q[1], snap, fmt)
         finalize = (ops.finalize_candidates if q is None
                     else ops.finalize_candidates_batched)
         if path == "reference":
@@ -241,6 +285,34 @@ class QueryExecutor:
         def run(x, s: DeviceSnapshot):
             lv, lr = kernel(x, s.streams[0], **kwargs)
             return finalize(lv, lr, big_k=big_k, **s.finalize)
+
+        return run
+
+    def _build_spmv(self, path: str, n_out: int, snap: DeviceSnapshot, fmt):
+        """An accumulate step: slot sums, the masked scatter, alpha/beta.
+
+        ``finalize_candidates`` never runs here; the masking lives in
+        ``ops.scatter_slot_sums``.
+        """
+        def scatter(sums, s: DeviceSnapshot):
+            kw = {key: v for key, v in s.finalize.items() if key != "n_rows"}
+            return ops.scatter_slot_sums(sums, n_out=n_out, **kw)
+
+        if path == "accumulate_ref":
+
+            def run(x, alpha, beta, y, s: DeviceSnapshot):
+                sums = ref_lib.bscsr_slot_sums_stacked(*s.streams, x, s.max_slots, fmt)
+                return alpha * scatter(sums, s) + beta * y
+
+            return run
+
+        kwargs = dict(n_rows=snap.max_slots, packets_per_step=self.packets_per_step,
+                      fmt_name=snap.fmt_name, block_size=snap.block_size,
+                      gather_mode=self.gather_mode, inner_loop=self.inner_loop)
+
+        def run(x, alpha, beta, y, s: DeviceSnapshot):
+            sums = bscsr_spmv(x, s.streams[0], **kwargs)
+            return alpha * scatter(sums, s) + beta * y
 
         return run
 

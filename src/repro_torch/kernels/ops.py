@@ -14,15 +14,22 @@ snapshot (``pack_partitions``) leaves them ``None`` and uses the affine
 may carry a slot budget ``L`` padded past the live slot counts; padded slots
 are only ever NEG_INF sentinels, so they never change an answer.
 
+A mutable index stacks its snapshots copy-on-write through a
+``SnapshotBufferPool`` and carries its churn counters (``base_packets``,
+``delta_nnz``, ``dead_nnz``, ``tombstone_count``) on the snapshot.
+
 The dispatch helpers here upload the snapshot on every call: the simple
 baseline.  Serving goes through ``kernels/executor.py``, which pins each
 snapshot on the device once.  Both ship only the fused word stream to the
-kernels; split-layout snapshots are fused on the fly, bit-identically.
+kernels; split-layout snapshots are fused on the fly, bit-identically.  The
+accumulate mode (``bscsr_spmv_blocked``, ``bscsr_spmv_reference``) replaces
+finalize with the masked dense scatter ``scatter_slot_sums``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +41,7 @@ from repro_torch.core.quantization import FORMATS, ValueFormat
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.bscsr_topk_spmv import (
     GATHER_MODES,
+    bscsr_spmv,
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
 )
@@ -60,11 +68,15 @@ def host_tensor(arr: np.ndarray, device) -> torch.Tensor:
     """A numpy host array as a tensor on ``device`` (bf16 uint16 bits -> int16).
 
     torch has no general uint16 arithmetic, so 16-bit bit patterns travel as
-    int16; the bytes are unchanged.
+    int16; the bytes are unchanged.  The tensor never aliases ``arr``: a
+    mutable index recycles the host buffers its snapshots view.
     """
     a = np.ascontiguousarray(arr)
     if a.dtype == np.uint16:
         a = a.view(np.int16)
+    if np.may_share_memory(a, arr) and (torch.device(device).type == "cpu"
+                                     or not a.flags.writeable):
+        a = a.copy()
     return torch.from_numpy(a).to(device)
 
 
@@ -92,6 +104,10 @@ class PackedPartitions:
     num_slots: Optional[np.ndarray] = None     # (C,) candidate slots per core
     n_rows_total: Optional[int] = None         # global row-id space size
     tombstones: Optional[np.ndarray] = None    # (n_rows_total,) bool, deleted ids
+    base_packets: Optional[int] = None         # packets in the base segment
+    delta_nnz: int = 0                         # live nnz held in delta segments
+    dead_nnz: int = 0                          # stream nnz under retired slots
+    tombstone_count: int = 0                   # retired (tombstoned) slots
     uid: int = dataclasses.field(init=False, compare=False, repr=False, default=-1)
     has_tombstones: bool = dataclasses.field(init=False, compare=False, default=False)
 
@@ -113,6 +129,14 @@ class PackedPartitions:
     @property
     def rows_per_partition(self) -> np.ndarray:
         return np.asarray(self.plan.rows_per_partition, dtype=np.int32)
+
+    @property
+    def is_segmented(self) -> bool:
+        return self.slot_to_row is not None
+
+    @property
+    def delta_fraction(self) -> float:
+        return self.delta_nnz / max(self.nnz, 1)
 
     @property
     def candidate_slots(self) -> np.ndarray:
@@ -146,6 +170,16 @@ class PackedPartitions:
         """Effective bytes streamed per *live* nnz."""
         return self.stream_bytes / max(self.nnz, 1)
 
+    @property
+    def value_stream_bytes(self) -> int:
+        """Bytes of the streamed value sections alone (padding included)."""
+        c, p, _ = self.vals.shape
+        return c * p * self.block_size * int(self.value_format.bytes_per_value)
+
+    @property
+    def value_bytes_per_nnz(self) -> float:
+        return self.value_stream_bytes / max(self.nnz, 1)
+
     def fused_words(self) -> np.ndarray:
         """The (C, P, W) fused word streams; derived on the fly if not carried."""
         if self.words is not None:
@@ -176,16 +210,24 @@ def stack_padded_streams(
     n_cols: int,
     nnz: int,
     stream_layout: str = "split",
+    words: Optional[Sequence[np.ndarray]] = None,
+    **segment_fields,
 ) -> PackedPartitions:
-    """Stack already-padded per-partition streams into one snapshot."""
+    """Stack already-padded per-partition streams into one snapshot.
+
+    A mutable index passes its cached per-partition fused ``words`` and the
+    segmented fields; otherwise the fused layout fuses each partition here.
+    """
     if stream_layout not in bscsr_lib.STREAM_LAYOUTS:
         raise ValueError(
             f"stream_layout must be one of {bscsr_lib.STREAM_LAYOUTS}, "
             f"got {stream_layout!r}"
         )
-    words = None
+    words_arr = None
     if stream_layout == "fused":
-        words = np.stack([bscsr_lib.fuse_stream(e) for e in padded])
+        if words is None:
+            words = [bscsr_lib.fuse_stream(e) for e in padded]
+        words_arr = np.stack(list(words))
     return PackedPartitions(
         vals=np.stack([e.vals for e in padded]),
         cols=np.stack([e.cols for e in padded]),
@@ -196,7 +238,8 @@ def stack_padded_streams(
         block_size=padded[0].block_size,
         value_format=padded[0].value_format,
         stream_layout=stream_layout,
-        words=words,
+        words=words_arr,
+        **segment_fields,
     )
 
 
@@ -234,6 +277,128 @@ def pack_partitions(
         encoded, plan, csr.shape[1], csr.nnz,
         packets_multiple=packets_multiple, stream_layout=stream_layout,
     )
+
+
+class _StackBuffer:
+    """One preallocated (C, capacity, ·) stacked stream buffer, leased out.
+
+    ``stamps`` records, per partition, the mutation stamp of the data the
+    buffer holds; ``sync`` copies in only partitions whose stamp (or the
+    common padded packet count) went stale.  ``attach`` registers a snapshot
+    viewing the buffer, which may be re-leased only once every attached
+    snapshot has been garbage collected: that keeps frozen snapshots
+    bit-identical while later refreshes write elsewhere.
+    """
+
+    def __init__(self, geometry: tuple, capacity: int):
+        c, block, vdtype, cdtype, flag_words, word_width = geometry
+        self.geometry = geometry
+        self.capacity = capacity      # packet capacity, including headroom
+        self.pad_to = -1              # packet count the contents pad to
+        self.stamps = np.full(c, -1, np.int64)
+        self.vals = np.zeros((c, capacity, block), vdtype)
+        self.cols = np.zeros((c, capacity, block), cdtype)
+        self.flags = np.zeros((c, capacity, flag_words), np.int32)
+        self.words = (
+            np.zeros((c, capacity, word_width), np.int32) if word_width else None
+        )
+        self._leases: list = []
+
+    def is_free(self) -> bool:
+        """True when no live snapshot views this buffer."""
+        self._leases = [r for r in self._leases if r() is not None]
+        return not self._leases
+
+    def attach(self, snapshot) -> None:
+        self._leases.append(weakref.ref(snapshot))
+
+    def sync(self, padded: Sequence[bscsr_lib.BSCSRMatrix],
+             words: Optional[Sequence[np.ndarray]], stamps: np.ndarray,
+             pad_to: int) -> int:
+        """Copy in stale partitions; returns how many were copied."""
+        stale_all = pad_to != self.pad_to
+        copied = 0
+        for ci, e in enumerate(padded):
+            if not stale_all and self.stamps[ci] == stamps[ci]:
+                continue
+            self.vals[ci, :pad_to] = e.vals
+            self.cols[ci, :pad_to] = e.cols
+            self.flags[ci, :pad_to] = e.flags
+            if self.words is not None:
+                self.words[ci, :pad_to] = words[ci]
+            copied += 1
+        self.stamps[:] = stamps
+        self.pad_to = pad_to
+        return copied
+
+    def view(self, name: str) -> np.ndarray:
+        """Read-only (C, pad_to, ·) view of one stream for a snapshot.
+
+        Capacity strictly exceeds ``pad_to``, so for C > 1 the view is not
+        contiguous and every upload must copy; a single-core view would be
+        contiguous (and aliasable by ``torch.from_numpy``), so it is copied.
+        """
+        if self.capacity <= self.pad_to:
+            raise RuntimeError("stack buffer leased without packet headroom")
+        v = getattr(self, name)[:, : self.pad_to]
+        if v.flags.c_contiguous:
+            v = v.copy()
+        v.setflags(write=False)
+        return v
+
+
+class SnapshotBufferPool:
+    """Copy-on-write stacked snapshot buffers for a mutable index.
+
+    Each refresh leases a buffer that no live snapshot views (tracked by
+    weakref), copies in only the partitions whose mutation stamp differs
+    from what the buffer holds, and hands the snapshot read-only views.
+    Steady-state serving ping-pongs between two buffers, so a refresh costs
+    O(mutated partitions), not O(index bytes).  Liveness is tracked on the
+    ``PackedPartitions`` object: keep the snapshot alive, not bare
+    references to its arrays.
+    """
+
+    def __init__(self, headroom: float = 0.5, max_free: int = 2):
+        self.headroom = headroom
+        self.max_free = max_free
+        self._buffers: list = []
+
+    def __len__(self) -> int:
+        return len(self._buffers)
+
+    def lease(self, padded: Sequence[bscsr_lib.BSCSRMatrix],
+              words: Optional[Sequence[np.ndarray]], stamps: np.ndarray,
+              pad_to: int, packets_multiple: int = 2) -> Tuple[_StackBuffer, int]:
+        """A free, synced buffer for these streams -> (buffer, copied count)."""
+        word_width = words[0].shape[1] if words is not None else 0
+        geometry = (
+            len(padded), padded[0].vals.shape[1], padded[0].vals.dtype,
+            padded[0].cols.dtype, padded[0].flags.shape[1], word_width,
+        )
+        buf, keep, free_kept = None, [], 0
+        for b in self._buffers:
+            if b.is_free():
+                if (b.geometry != geometry or b.capacity <= pad_to
+                        or free_kept >= self.max_free):
+                    continue              # unusable and unreferenced: drop
+                free_kept += 1
+                if buf is None:
+                    buf = b
+            keep.append(b)
+        if buf is None:
+            extra = -(-int(pad_to * self.headroom) // packets_multiple)
+            cap = pad_to + max(packets_multiple, extra * packets_multiple)
+            buf = _StackBuffer(geometry, cap)
+            keep.append(buf)
+        self._buffers = keep
+        return buf, buf.sync(padded, words, stamps, pad_to)
+
+    def lease_group(self, *args, **kwargs):
+        raise NotImplementedError(
+            "width-class group stacks belong to mixed precision: "
+            "ROADMAP Queue 1 item 8"
+        )
 
 
 def finalize_candidates_batched(
@@ -292,7 +457,13 @@ def finalize_candidates(local_vals, local_rows, row_starts, rows_per_part, big_k
 
 
 def finalize_tensors(packed: PackedPartitions, device) -> dict:
-    """The finalize inputs of a snapshot as tensors on ``device``."""
+    """The finalize inputs of a snapshot as tensors on ``device``.
+
+    The tombstone bitmap goes along whenever the snapshot carries one (a
+    mutable index always does, bucket-padded with False), not only when a
+    bit is set: the first delete then changes a tensor's contents, not the
+    executor signature.
+    """
     kw = dict(
         row_starts=host_tensor(packed.row_starts.astype(np.int64), device),
         rows_per_part=host_tensor(packed.candidate_slots.astype(np.int64), device),
@@ -300,7 +471,7 @@ def finalize_tensors(packed: PackedPartitions, device) -> dict:
     )
     if packed.slot_to_row is not None:
         kw["slot_to_row"] = host_tensor(packed.slot_to_row, device)
-    if packed.has_tombstones:
+    if packed.tombstones is not None:
         kw["tombstones"] = host_tensor(packed.tombstones, device)
     return kw
 
@@ -403,3 +574,108 @@ def topk_spmv_reference(x, packed: PackedPartitions, big_k: int, k: int = 8,
         _query_tensor(x, device, 1)[None], packed, big_k, k, device
     )
     return v[0], r[0]
+
+
+# ---------------------------------------------------------------------------
+# Accumulate mode: y = alpha * A @ x + beta * y.  The kernel (or the torch
+# oracle) emits raw per-core slot sums, and the masking finalize would apply
+# to candidates (live-slot counts, retired slots, tombstoned ids, a row map)
+# moves into the dense scatter below.  finalize_candidates never sees this
+# output: its NEG_INF sentinel algebra is top-k specific.
+# ---------------------------------------------------------------------------
+
+def scatter_slot_sums(
+    slot_sums: torch.Tensor,       # (C, L) raw per-core slot sums
+    row_starts: torch.Tensor,      # (C,)
+    rows_per_part: torch.Tensor,   # (C,) live candidate slots per core
+    n_out: int,                    # output length (global row space)
+    slot_to_row: Optional[torch.Tensor] = None,  # (C, L) slot -> global row
+    tombstones: Optional[torch.Tensor] = None,   # bool bitmap over global ids
+    row_map: Optional[torch.Tensor] = None,      # (L2,) local -> global row id
+) -> torch.Tensor:
+    """Scatter per-core slot sums into one dense (n_out,) vector.
+
+    Invalid lanes (padded slots past a core's live count, retired slots,
+    tombstoned rows, rows the ``row_map`` marks invalid) leave their output
+    at exactly 0.0.  Each live row holds exactly one slot on one core, so
+    the store is a masked scatter with unique indices: every output element
+    holds the bits of ``0.0 + slot_sum``, as the reference's ``.at[].add``
+    onto zeros gives it (no float atomics, whose order varies).
+    """
+    c, l = slot_sums.shape
+    dev = slot_sums.device
+    slots = torch.arange(l, device=dev).expand(c, l)
+    valid = slots < rows_per_part[:, None]
+    if slot_to_row is None:
+        rows = slots + row_starts[:, None]
+    else:
+        rows = slot_to_row.long()
+        valid = valid & (rows != int(INVALID_ROW))
+    if tombstones is not None:
+        valid = valid & ~tombstones[torch.clamp(rows, 0, tombstones.shape[0] - 1)]
+    if row_map is not None:
+        rows = row_map[torch.clamp(rows, 0, row_map.shape[0] - 1)].long()
+        valid = valid & (rows != int(INVALID_ROW))
+    valid = valid & (rows >= 0) & (rows < n_out)
+    out = torch.zeros(n_out, dtype=torch.float32, device=dev)
+    out[rows[valid]] = slot_sums[valid] + 0.0
+    return out
+
+
+def scatter_tensors(packed: PackedPartitions, device) -> dict:
+    """The scatter inputs of a snapshot as tensors on ``device``."""
+    fin = finalize_tensors(packed, device)
+    fin.pop("n_rows")
+    return fin
+
+
+def bscsr_spmv_blocked(
+    x,
+    packed: PackedPartitions,
+    *,
+    alpha=1.0,
+    beta=0.0,
+    y=None,
+    n_out: Optional[int] = None,
+    packets_per_step: int = 2,
+    gather_mode: str = "take",
+    inner_loop: str = "linear",
+    device="cuda",
+) -> torch.Tensor:
+    """``y = alpha * A @ x + beta * y`` via the accumulate kernel, uploading
+    the snapshot.  Iterative workloads go through ``QueryExecutor.spmv``."""
+    if n_out is None:
+        n_out = int(y.shape[0]) if y is not None else packed.n_rows_logical
+    sums = bscsr_spmv(
+        _query_tensor(x, device, 1), host_tensor(packed.fused_words(), device),
+        n_rows=packed.max_slots, packets_per_step=packets_per_step,
+        fmt_name=packed.value_format.name, block_size=packed.block_size,
+        gather_mode=resolve_gather_mode(gather_mode), inner_loop=inner_loop,
+    )
+    ax = scatter_slot_sums(sums, n_out=n_out, **scatter_tensors(packed, device))
+    if y is None:
+        return alpha * ax
+    return alpha * ax + beta * torch.as_tensor(y, dtype=torch.float32, device=device)
+
+
+def bscsr_spmv_reference(
+    x,
+    packed: PackedPartitions,
+    *,
+    alpha=1.0,
+    beta=0.0,
+    y=None,
+    n_out: Optional[int] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Accumulate mode via the torch oracle (same masking epilogue)."""
+    if n_out is None:
+        n_out = int(y.shape[0]) if y is not None else packed.n_rows_logical
+    sums = ref_lib.bscsr_slot_sums_stacked(
+        *split_tensors(packed, device), _query_tensor(x, device, 1),
+        packed.max_slots, packed.value_format,
+    )
+    ax = scatter_slot_sums(sums, n_out=n_out, **scatter_tensors(packed, device))
+    if y is None:
+        return alpha * ax
+    return alpha * ax + beta * torch.as_tensor(y, dtype=torch.float32, device=device)

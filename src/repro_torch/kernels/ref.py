@@ -99,14 +99,31 @@ def bscsr_topk_ref_stacked(
     never let a phantom zero-score slot displace a real negative score.
     Returns (C, k) values and partition-local row ids.
     """
+    scores = bscsr_slot_sums_stacked(vals, cols, flags, x, max_rows, fmt)
+    live = torch.arange(max_rows, device=vals.device)[None, :] < rows_per_core[:, None]
+    return topk_sorted(torch.where(live, scores, NEG_INF), k)
+
+
+def bscsr_slot_sums_stacked(
+    vals: torch.Tensor,          # (C, P, B) storage dtype (bf16 as int16 bits)
+    cols: torch.Tensor,          # (C, P, B)
+    flags: torch.Tensor,         # (C, P, B//32)
+    x: torch.Tensor,             # (M,) f32
+    max_rows: int,
+    fmt: ValueFormat | str = "F32",
+) -> torch.Tensor:
+    """Accumulate-mode oracle: every core's raw per-slot row sums, (C, max_rows).
+
+    No top-k and no NEG_INF masking: phantom and padded slots stay 0.0, as
+    the accumulate kernel leaves them; the caller's slot->row scatter drops
+    them.
+    """
     fmt = FORMATS[fmt] if isinstance(fmt, str) else fmt
     c = vals.shape[0]
     seg = _stream_row_ids(flags, vals.shape[-1], max_rows).reshape(-1)
     prods = dequantize(vals.reshape(-1), fmt) * _gather_x(x.float(), cols.reshape(-1))
     sums = torch.zeros(c * (max_rows + 1), dtype=torch.float32, device=vals.device)
-    scores = sums.index_add_(0, seg, prods).reshape(c, max_rows + 1)[:, :max_rows]
-    live = torch.arange(max_rows, device=vals.device)[None, :] < rows_per_core[:, None]
-    return topk_sorted(torch.where(live, scores, NEG_INF), k)
+    return sums.index_add_(0, seg, prods).reshape(c, max_rows + 1)[:, :max_rows]
 
 
 def csr_topk_numpy(indptr, indices, data, x, big_k: int):

@@ -141,6 +141,45 @@ class TestSynthetic:
             assert as_bytes(getattr(j, name)) == as_bytes(getattr(t, name))
 
 
+class TestDeltaPlane:
+    """The mutable index's host plane: delta streams, appends, tombstones."""
+
+    @pytest.mark.parametrize("fmt", FORMATS)
+    @pytest.mark.parametrize("n_cols", [64, 40_000])
+    def test_delta_append_decode_bytes(self, fmt, n_cols):
+        rng = np.random.default_rng(7)
+        base_csr = csr_with_empty_rows(n_rows=30, n_cols=n_cols, seed=n_cols)
+        rows = [(np.sort(rng.choice(n_cols, n, replace=False)).astype(np.int32),
+                 rng.standard_normal(n).astype(np.float32)) for n in (3, 0, 40, 1)]
+        jd = jbscsr.encode_delta_rows(rows, n_cols, 32, fmt)
+        td = tbscsr.encode_delta_rows(rows, n_cols, 32, fmt)
+        jb = jbscsr.encode_bscsr(base_csr, 32, fmt)
+        tb = tbscsr.encode_bscsr(port_csr(base_csr), 32, fmt)
+        ja = jbscsr.append_packets(jb, jd, pad_packets_to=jb.num_packets + td.num_packets + 2)
+        ta = tbscsr.append_packets(tb, td, pad_packets_to=tb.num_packets + td.num_packets + 2)
+        for j, t in ((jd, td), (ja, ta)):
+            for name in ("vals", "cols", "flags"):
+                assert as_bytes(getattr(j, name)) == as_bytes(getattr(t, name)), name
+            assert (j.n_rows, j.nnz, j.n_cols) == (t.n_rows, t.nnz, t.n_cols)
+            jc, tc = jbscsr.decode_bscsr(j), tbscsr.decode_bscsr(t)
+            for name in ("indptr", "indices", "data"):
+                assert as_bytes(getattr(jc, name)) == as_bytes(getattr(tc, name)), name
+        with pytest.raises(ValueError, match="block size"):
+            tbscsr.append_packets(tb, tbscsr.encode_delta_rows(rows, n_cols, 64, fmt))
+
+    def test_tombstone_bitmap_and_to_dense(self):
+        j, t = jbscsr.TombstoneBitmap.empty(5), tbscsr.TombstoneBitmap.empty(5)
+        for bm in (j, t):
+            bm.mark([1, 9])
+            bm.clear([9, 40])
+            bm.grow(12)
+            bm.mark([11])
+        assert as_bytes(j.bits) == as_bytes(t.bits)
+        assert j.count == t.count == 2 and (11 in t) and (9 not in t) and (50 not in t)
+        csr = csr_with_empty_rows(n_rows=20, seed=3)
+        np.testing.assert_array_equal(csr.to_dense(), port_csr(csr).to_dense())
+
+
 class TestPartitionAndPack:
     @pytest.mark.parametrize("n_rows,c", [(333, 4), (100, 1), (50, 7)])
     def test_partition_plan(self, n_rows, c):
@@ -196,6 +235,7 @@ def test_import_hygiene():
         "import repro_torch.core.similarity, repro_torch.core.topk_spmv\n"
         "import repro_torch.kernels.bscsr_topk_spmv, repro_torch.kernels.executor\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.core.graph, repro_torch.serve.graph_ranking\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

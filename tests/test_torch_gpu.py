@@ -96,3 +96,27 @@ def test_kernel_route_never_takes_host_queries(cuda):
     with pytest.raises(ValueError, match="cpu"):
         K.bscsr_topk_spmv(torch.zeros(64), torch.from_numpy(packed.words).to(cuda), k=8,
                           n_rows=packed.max_slots, fmt_name="F32", block_size=32)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 64), (256, 2, 512), (64, 2, 40_000)])
+def test_accumulate_kernel_matches_plain_bitwise(cuda, fmt, block, t, n_cols):
+    """Slot sums bit for bit, with a slot budget padded past the live count
+    and flag-free padding packets: slots that never complete read 0.0."""
+    csr = dyadic_csr(400, n_cols, seed=block + t + 1)
+    packed = ops.pack_partitions(csr, 4, block, fmt, packets_multiple=t,
+                                 stream_layout="fused")
+    words = np.concatenate(
+        [packed.words, np.zeros((4, 2 * t, packed.words.shape[2]), np.int32)], 1)
+    n_rows = 2 * packed.max_slots
+    kw = dict(n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
+    x = torch.from_numpy((np.random.default_rng(t).integers(-16, 17, n_cols) / 8.0)
+                         .astype(np.float32))
+    w = torch.from_numpy(words)
+    want = K.bscsr_spmv(x, w, **kw)
+    got = K.bscsr_spmv(x.to(cuda), w.to(cuda), **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+    live = np.asarray(packed.candidate_slots)
+    assert (want.numpy()[np.arange(n_rows)[None, :] >= live[:, None]] == 0).all()

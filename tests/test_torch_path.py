@@ -1,8 +1,9 @@
 """The port's query path end to end against the reference, on the CPU.
 
 Finalize and merge, ``build_index`` + ``topk_spmv(_batched)``, the executor's
-counters, and the ``SparseEmbeddingIndex`` facade, each against ``repro`` on
-the same inputs (made from a seed with numpy) with ``device="cpu"``.  The
+counters, and the ``SparseEmbeddingIndex`` facade (queries, live updates,
+stats and the graph calls), each against ``repro`` on the same inputs (made
+from a seed with numpy) with ``device="cpu"``.  The
 reference's own facade snapshot (segmented, power-of-two padded) is carried
 across with ``packed_from_arrays`` and must give the same answers.
 """
@@ -225,22 +226,72 @@ class TestFacade:
             xs, packed, big_k=8, k=16, device="cpu"))
 
     def test_dispatch_info(self, facades):
-        _, t = facades
+        j, t = facades
         t.query(np.ones(N_COLS, np.float32))
         info = t.dispatch_info()
-        assert info["fn_builds"] >= 1 and info["signature"]["slot_bucket"] == 30
+        want = j.index.packed.signature_info()
+        assert info["fn_builds"] >= 1 and info["signature"] == want
+        assert info["signature"]["slot_bucket"] == 32 and info["churn_stable"] is True
         before = info["h2d_copies"]
         t.query(np.ones(N_COLS, np.float32))
         assert t.dispatch_info()["h2d_copies"] == before
 
     @pytest.mark.parametrize("call", ["upsert", "delete", "compact", "stats",
                                       "personalized_pagerank", "topk_eigen"])
-    def test_later_slices_raise(self, facades, call):
-        _, t = facades
-        args = {"upsert": (np.zeros((1, N_COLS)),), "delete": ([0],),
-                "personalized_pagerank": ([0],), "topk_eigen": (2,)}.get(call, ())
+    def test_mutable_and_graph_surfaces_match_the_reference(self, call):
+        """Each call on fresh facades of both packages: same stats, answers and
+        (for the graph calls, on a square collection) the same solves."""
+        from repro.core import graph as jgraph
+
+        kw = dict(big_k=8, k=8, num_partitions=3, block_size=32)
+        rng = np.random.default_rng(14)
+        if call in ("personalized_pagerank", "topk_eigen"):
+            csr = jgraph.synthetic_graph_csr("er", 64, seed=1,
+                                             symmetric=call == "topk_eigen")
+            j = JaxIndex(csr, jtopk.TopKSpMVConfig(**kw))
+            t = TorchIndex(port_csr(csr), tcfg(**kw))
+            if call == "personalized_pagerank":
+                a = j.personalized_pagerank([3, 9], tol=1e-5, use_kernel=False)
+                b = t.personalized_pagerank([3, 9], tol=1e-5)
+                assert b.canonical and b.converged and b.retraces == 0
+                np.testing.assert_array_equal(a.scores.view(np.int32),
+                                              b.scores.view(np.int32))
+            else:
+                a = j.topk_eigen(2, tol=1e-5, max_iters=3000, use_kernel=False)
+                b = t.topk_eigen(2, tol=1e-5, max_iters=3000)
+                assert b.converged and b.retraces == 0
+                np.testing.assert_allclose(a.values, b.values, rtol=0, atol=1e-5)
+            return
+        emb = rng.standard_normal((90, N_COLS)).astype(np.float32)
+        new = rng.standard_normal((4, N_COLS)).astype(np.float32)
+        j = JaxIndex.from_dense(emb, nnz_per_row=12, config=jtopk.TopKSpMVConfig(**kw))
+        t = TorchIndex.from_dense(emb, nnz_per_row=12, config=tcfg(**kw))
+        for svc in (j, t):
+            if call == "upsert":
+                np.testing.assert_array_equal(svc.upsert(new[:2]), [90, 91])
+                svc.upsert(new[2:], ids=[5, 6])
+            elif call in ("delete", "compact"):
+                svc.delete([2, 40])
+            if call == "compact":
+                svc.compact()
+        assert dataclasses.asdict(j.stats()) == dataclasses.asdict(t.stats())
+        xs = rng.standard_normal((3, N_COLS)).astype(np.float32)
+        assert_close_rows(j.query_batch(xs, use_kernel=False), t.query_batch(xs))
+        if call in ("delete", "compact"):
+            assert not {2, 40} & set(t.query_batch(xs)[1].reshape(-1).tolist())
+
+    @pytest.mark.parametrize("case", ["mesh", "n_shards", "recall_target", "from_index"])
+    def test_later_slices_raise(self, facades, case):
+        j, t = facades
+        csr = port_csr(j.csr)
+        call = {
+            "mesh": lambda: TorchIndex(csr, tcfg(), mesh=object()),
+            "n_shards": lambda: TorchIndex(csr, tcfg(), n_shards=2),
+            "recall_target": lambda: TorchIndex(csr, tcfg(), recall_target=0.9),
+            "from_index": lambda: TorchIndex.from_index(t.index),
+        }[case]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(t, call)(*args)
+            call()
 
 
 class TestQueryValidation:
