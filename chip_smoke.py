@@ -28,19 +28,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              the executor's host-to-device copies stay flat in steady state.
 4. timings   each top-k kernel at every Q the main path gives it on the main
              path's streams, and the accumulate kernel on phase 6's streams
-             (run after phase 6), CUDA events, each checked against its plain
-             version on the same inputs, with its bound on an H100 SXM and a
-             library yardstick (torch.sparse.mm).
+             (run after phase 6; bit-identical on dyadic values, within a
+             stated rounding bound on random x), CUDA events, each checked
+             against its plain version on the same inputs, with its bound on
+             an H100 SXM and a library yardstick (torch.sparse.mm).
 6. graph     personalized PageRank and top-k eigen at full width: the "ring"
              operator at 2**21 nodes (5,242,878 nnz, the scale of SNAP's
              com-Youtube), F32, B=256, T=2, fused, c=32, through
              ``GraphRankingService`` over a ``SparseEmbeddingIndex``'s
              mutable index: cold, warm (after ``update_node``, weights
              x 1.02) and forget+cold solves, all converged, canonical and
-             retrace-free, warm within 1 ulp of cold (the count of differing
-             scores logged) with fewer iterations, the ``use_kernel=False``
-             solve within 1 ulp, host-to-device copies flat across the
-             iterations; then
+             retrace-free, the cold and warm solves bit-identical to their
+             ``use_kernel=False`` counterparts, warm with fewer iterations
+             and within 1 ulp of cold (in the same entries on both paths),
+             host-to-device copies flat across the iterations; then
              ``topk_eigen(3)`` on the "ba" operator at 1024 nodes with float64
              residuals at most 1e-4.  The accumulate kernel's launch count
              must rise here.
@@ -533,12 +534,12 @@ def main() -> int:
     from repro_torch.core import graph
     from repro_torch.serve import GraphRankingService
 
-    gsvc, spmv_launches = graph_phase(K, api, graph, SparseEmbeddingIndex,
-                                      GraphRankingService)
+    gsvc, spmv_launches, pre = graph_phase(K, api, graph, SparseEmbeddingIndex,
+                                           GraphRankingService)
     launches["bscsr_spmv"] = spmv_launches
 
     # ---- phase 4 (continued): the accumulate kernel on phase 6's streams ----
-    kernels.append(accumulate_timing(torch, K, gsvc, errs, launches))
+    kernels.append(accumulate_timing(torch, K, bscsr, gsvc, pre, errs, launches))
     log(f"total {time.time() - t_start:.1f} s")
 
     # ---- phase 5: summary ----
@@ -600,6 +601,9 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
 
     K.reset_launch_counts()
     cold, _ = solve("cold rank", lambda: svc.rank(GRAPH_SEEDS, top_k=10))
+    # The build's snapshot, kept for phase 4: the first mutation moves the
+    # index to churn-stable buckets (padded packets, a doubled slot bucket).
+    pre = {"words": np.array(fac.index.packed.words), "n_rows": fac.index.packed.max_slots}
     node = GRAPH_SEEDS[-1] + 1
     row = np.zeros(n_nodes, np.float32)
     lo, hi = csr.indptr[node], csr.indptr[node + 1]
@@ -617,21 +621,36 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
     check.expect(warm.result.iterations < cold2.result.iterations,
                  f"warm start saved nothing: {warm.result.iterations} vs "
                  f"{cold2.result.iterations}")
-    # The canonical refinement leaves two tol-converged iterates ~5e-17 apart
-    # in L1 before rounding to f32, so at 2**21 nodes a few tiny scores land
-    # on either side of a rounding boundary (the reference does the same:
-    # 5 entries 1 ulp apart, on the CPU).  Held to 1 ulp; the count is logged.
-    n_diff, gap = ulp_gap(warm.result.scores, cold2.result.scores)
-    log(f"  warm vs cold: {n_diff} of {n_nodes} scores differ, by at most {gap} ulp")
-    check.expect(gap <= 1, f"warm solve and cold solve {gap} ulp apart")
     check.expect(not np.array_equal(cold.result.scores, cold2.result.scores),
                  "update_node did not move the operator")
+    # The same warm and cold solves through the torch oracle: the kernel
+    # path must give their scores bit for bit.
     ref, _ = solve("use_kernel=False", lambda: fac.personalized_pagerank(
         GRAPH_SEEDS, tol=1e-5, use_kernel=False))
-    n_diff, gap = ulp_gap(ref.scores, cold2.result.scores)
-    log(f"  kernel vs use_kernel=False: {n_diff} of {n_nodes} scores differ, by at most "
-        f"{gap} ulp")
-    check.expect(gap <= 1, f"kernel solve and use_kernel=False solve {gap} ulp apart")
+    ref_warm, _ = solve("use_kernel=False warm", lambda: fac.personalized_pagerank(
+        GRAPH_SEEDS, tol=1e-5, use_kernel=False, warm_start=cold.result.scores))
+    for label, a, b in (("cold", cold2.result.scores, ref.scores),
+                        ("warm", warm.result.scores, ref_warm.scores)):
+        n_diff, gap = ulp_gap(a, b)
+        log(f"  {label}: kernel vs use_kernel=False: {n_diff} of {n_nodes} scores differ")
+        check.expect(n_diff == 0, f"{label} kernel solve and use_kernel=False solve "
+                                  f"differ in {n_diff} scores (up to {gap} ulp)")
+    # Warm vs cold: the canonical refinement contracts two tol-converged
+    # iterates to ~5e-17 apart in L1 and then rounds to f32, so a score whose
+    # f32 ulp is below that spread can round either way.  At 2**21 nodes a
+    # few do: the bit-identity the reference claims does not hold at this
+    # size (tests/test_torch_graph.py::TestPersonalizedPageRank::
+    # test_warm_and_cold_at_scale_match_the_reference shows the reference's
+    # own solves differing so at 2**17 nodes, and the port matching them).
+    # The oracle path must show the same entries, which places the gap in
+    # the algorithm and not in the kernel; each is held to 1 ulp.
+    n_diff, gap = ulp_gap(warm.result.scores, cold2.result.scores)
+    same = np.array_equal(warm.result.scores != cold2.result.scores,
+                          ref_warm.scores != ref.scores)
+    log(f"  warm vs cold: {n_diff} of {n_nodes} scores differ, by at most {gap} ulp; "
+        f"the same entries on the oracle path: {same}")
+    check.expect(gap <= 1 and same, f"warm solve and cold solve {gap} ulp apart "
+                                    f"(oracle path same entries: {same})")
     check.expect(spmv_launches >= cold.result.iterations + warm.result.iterations
                  + cold2.result.iterations, f"bscsr_spmv launched {spmv_launches} times")
     log(f"  top nodes {cold2.node_ids.tolist()}; service {svc.info()}")
@@ -663,40 +682,80 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
     check.expect(eig.converged and eig.retraces == 0, "eigen solve did not converge cleanly")
     check.expect(max(resid) <= 1e-4, f"eigen residuals {resid} above 1e-4")
     check.done()
-    return fac, spmv_launches
+    return fac, spmv_launches, pre
 
 
-def accumulate_timing(torch, K, fac, errs, launches) -> dict:
-    """The accumulate kernel on the graph facade's current snapshot."""
+def accumulate_timing(torch, K, bscsr, fac, pre, errs, launches) -> dict:
+    """The accumulate kernel on phase 6's snapshots.
+
+    ``ms`` walks the snapshot the last solves ran (churn-stable buckets:
+    padded packets, a doubled slot bucket); ``ms_pre_mutation`` the build's.
+    The bound counts what y = A x itself moves: the live packets of the
+    stream, x once and y once.
+    """
     check = Check("timings (accumulate)")
     packed = fac.index.packed
-    words = torch.from_numpy(np.ascontiguousarray(packed.words)).cuda()
     n = packed.n_cols
-    x = torch.from_numpy(np.random.default_rng(3).random(n).astype(np.float32) / n).cuda()
+    step_nnz = 2 * packed.block_size
     kw = dict(n_rows=packed.max_slots, packets_per_step=2, fmt_name="F32",
               block_size=packed.block_size)
-    ms = time_cuda(torch, lambda: K.bscsr_spmv(x, words, **kw))
-    plain_ms, want = time_once(torch, lambda: K.bscsr_spmv_plain(x, words, **kw))
-    got = K.bscsr_spmv(x, words, **kw)
-    torch.cuda.synchronize()
-    err = float((got.double() - want.double()).abs().max())
-    errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
-    check.expect(bool(torch.allclose(got, want, rtol=TOL, atol=TOL)),
-                 f"bscsr_spmv on the graph streams differs from plain (max err {err:.3g})")
+    rng = np.random.default_rng(3)
+
+    # Dyadic values (j / 16) and x (i * 2**-30, i < 256) on the graph's
+    # streams: every prefix sum of a step stays below 2**21 units of 2**-34,
+    # exact in f32 in any order, so kernel and plain must agree bit for bit.
+    dvals = np.where(packed.vals != 0, rng.integers(1, 17, packed.vals.shape) / 16.0,
+                     0.0).astype(np.float32)
+    dwords = torch.from_numpy(bscsr.fuse_words(dvals, packed.cols, packed.flags)).cuda()
+    dx = torch.from_numpy((rng.integers(0, 256, n) * 2.0 ** -30).astype(np.float32)).cuda()
+    got = K.bscsr_spmv(dx, dwords, **kw)
+    want = K.bscsr_spmv_plain(dx, dwords, **kw)
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check.expect(n_diff == 0 and bool(got.abs().max() > 0),
+                 f"bscsr_spmv on dyadic graph streams: {n_diff} sums differ from plain")
+    log(f"  bscsr_spmv on dyadic graph streams: {n_diff} of {got.numel()} sums differ")
+    del dwords, dvals
+
+    # Random x at the solves' scale.  A segment sum is the difference of two
+    # prefix sums of a step, each within a few ulps of the step's total of
+    # |a x|; atol is 16 ulps of the largest such total.
+    x = torch.from_numpy(rng.random(n).astype(np.float32) / n).cuda()
     csr, _ = fac.index.live_csr()
+    atol = 16 * 2.0 ** -24 * step_nnz * float(csr.data.max()) * float(x.max())
+    words = torch.from_numpy(np.ascontiguousarray(packed.words)).cuda()
+    pre_words = torch.from_numpy(pre["words"]).cuda()
+    ms = time_cuda(torch, lambda: K.bscsr_spmv(x, words, **kw))
+    ms_pre = time_cuda(torch, lambda: K.bscsr_spmv(x, pre_words, **dict(kw, n_rows=pre["n_rows"])))
+    plain_ms, want = time_once(torch, lambda: K.bscsr_spmv_plain(x, words, **kw))
+    for label, w, n_rows, ref in (("current", words, kw["n_rows"], want),
+                                  ("pre-mutation", pre_words, pre["n_rows"], None)):
+        kwl = dict(kw, n_rows=n_rows)
+        if ref is None:
+            ref = K.bscsr_spmv_plain(x, w, **kwl)
+        got = K.bscsr_spmv(x, w, **kwl)
+        err = float((got.double() - ref.double()).abs().max())
+        errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
+        check.expect(err <= atol and float(ref.abs().max()) > 100 * atol,
+                     f"bscsr_spmv on the {label} graph streams differs from plain "
+                     f"(max err {err:.3g}, atol {atol:.3g})")
+        log(f"  bscsr_spmv on the {label} streams: max abs err {err:.3g} "
+            f"(atol {atol:.3g}, largest sum {float(ref.abs().max()):.3g})")
     mat = torch.sparse_csr_tensor(torch.from_numpy(csr.indptr).cuda(),
                                   torch.from_numpy(csr.indices.astype(np.int64)).cuda(),
                                   torch.from_numpy(csr.data).cuda(), size=csr.shape)
     library_ms = time_cuda(torch, lambda: torch.sparse.mm(mat, x[:, None]))
-    nbytes = words.numel() * 4 + x.numel() * 4 + got.numel() * 4
+    live_packets = int(((packed.vals != 0).any(-1) | (packed.flags != 0).any(-1)).sum())
+    live_bytes = live_packets * packed.words.shape[2] * 4
+    nbytes = live_bytes + n * 4 + n * 4
     flops = 2.0 * packed.nnz
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS * 1e3
-    steps = packed.vals.shape[1] // 2
-    log(f"  bscsr_spmv: {ms:.3f} ms ({ms * 1e3 / steps:.2f} us per step over {steps} "
-        f"steps), plain {plain_ms:.1f} ms, max abs err {err:.3g}, bound "
-        f"{max(bytes_ms, flops_ms):.4f} ms ({nbytes / 1e6:.1f} MB), torch.sparse.mm "
-        f"{library_ms:.4f} ms")
+    packets, pre_packets = packed.vals.shape[1], pre["words"].shape[1]
+    log(f"  bscsr_spmv: {ms:.3f} ms over {packets} packets per core "
+        f"({ms * 2e3 / packets:.2f} us per step), {ms_pre:.3f} ms over {pre_packets} "
+        f"before the first mutation, plain {plain_ms:.1f} ms; bound "
+        f"{max(bytes_ms, flops_ms):.4f} ms ({nbytes / 1e6:.1f} MB: {live_packets} live "
+        f"packets, x, y), torch.sparse.mm {library_ms:.4f} ms")
     check.done()
     return {
         "name": "bscsr_spmv", "route": "cuda", "source": SOURCE,
@@ -704,8 +763,9 @@ def accumulate_timing(torch, K, fac, errs, launches) -> dict:
         "max_abs_err": errs["bscsr_spmv"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": library_ms, "stream_bytes": words.numel() * 4,
-        "packets_per_core": packed.vals.shape[1],
+        "library_ms": library_ms, "ms_pre_mutation": ms_pre,
+        "packets_per_core": packets, "packets_per_core_pre_mutation": pre_packets,
+        "live_packets": live_packets, "bound_bytes": nbytes, "atol": atol,
         "achieved_gb_per_s": nbytes / (ms * 1e-3) / 1e9,
     }
 

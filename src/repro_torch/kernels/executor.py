@@ -294,15 +294,11 @@ class QueryExecutor:
         ``finalize_candidates`` never runs here; the masking lives in
         ``ops.scatter_slot_sums``.
         """
-        def scatter(sums, s: DeviceSnapshot):
-            kw = {key: v for key, v in s.finalize.items() if key != "n_rows"}
-            return ops.scatter_slot_sums(sums, n_out=n_out, **kw)
-
         if path == "accumulate_ref":
 
             def run(x, alpha, beta, y, s: DeviceSnapshot):
                 sums = ref_lib.bscsr_slot_sums_stacked(*s.streams, x, s.max_slots, fmt)
-                return alpha * scatter(sums, s) + beta * y
+                return ops.accumulate_epilogue(sums, s.finalize, n_out, alpha, beta, y)
 
             return run
 
@@ -312,7 +308,7 @@ class QueryExecutor:
 
         def run(x, alpha, beta, y, s: DeviceSnapshot):
             sums = bscsr_spmv(x, s.streams[0], **kwargs)
-            return alpha * scatter(sums, s) + beta * y
+            return ops.accumulate_epilogue(sums, s.finalize, n_out, alpha, beta, y)
 
         return run
 

@@ -617,16 +617,26 @@ def scatter_slot_sums(
         rows = row_map[torch.clamp(rows, 0, row_map.shape[0] - 1)].long()
         valid = valid & (rows != int(INVALID_ROW))
     valid = valid & (rows >= 0) & (rows < n_out)
-    out = torch.zeros(n_out, dtype=torch.float32, device=dev)
-    out[rows[valid]] = slot_sums[valid] + 0.0
-    return out
+    # Invalid lanes store 0.0 into a sink element past the end, so the store
+    # keeps a static shape and never syncs with the host.
+    out = torch.zeros(n_out + 1, dtype=torch.float32, device=dev)
+    out[torch.where(valid, rows, n_out)] = torch.where(valid, slot_sums, 0.0) + 0.0
+    return out[:n_out]
 
 
-def scatter_tensors(packed: PackedPartitions, device) -> dict:
-    """The scatter inputs of a snapshot as tensors on ``device``."""
-    fin = finalize_tensors(packed, device)
-    fin.pop("n_rows")
-    return fin
+def accumulate_epilogue(sums: torch.Tensor, tensors: dict, n_out: int, alpha, beta,
+                        y=None) -> torch.Tensor:
+    """``alpha * scatter(sums) + beta * y`` (``alpha * scatter(sums)`` without y).
+
+    ``tensors`` holds a snapshot's finalize tensors (``finalize_tensors`` or a
+    pinned ``DeviceSnapshot.finalize``).  Every accumulate entry point ends
+    here, so the expression order that fixes the result's bits is written once.
+    """
+    ax = scatter_slot_sums(sums, n_out=n_out,
+                           **{k: v for k, v in tensors.items() if k != "n_rows"})
+    if y is None:
+        return alpha * ax
+    return alpha * ax + beta * y
 
 
 def bscsr_spmv_blocked(
@@ -652,10 +662,9 @@ def bscsr_spmv_blocked(
         fmt_name=packed.value_format.name, block_size=packed.block_size,
         gather_mode=resolve_gather_mode(gather_mode), inner_loop=inner_loop,
     )
-    ax = scatter_slot_sums(sums, n_out=n_out, **scatter_tensors(packed, device))
-    if y is None:
-        return alpha * ax
-    return alpha * ax + beta * torch.as_tensor(y, dtype=torch.float32, device=device)
+    if y is not None:
+        y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    return accumulate_epilogue(sums, finalize_tensors(packed, device), n_out, alpha, beta, y)
 
 
 def bscsr_spmv_reference(
@@ -675,7 +684,6 @@ def bscsr_spmv_reference(
         *split_tensors(packed, device), _query_tensor(x, device, 1),
         packed.max_slots, packed.value_format,
     )
-    ax = scatter_slot_sums(sums, n_out=n_out, **scatter_tensors(packed, device))
-    if y is None:
-        return alpha * ax
-    return alpha * ax + beta * torch.as_tensor(y, dtype=torch.float32, device=device)
+    if y is not None:
+        y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    return accumulate_epilogue(sums, finalize_tensors(packed, device), n_out, alpha, beta, y)
