@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its main query path on one card.
 
-    python3 chip_smoke.py [--rows N] [--seed S]
+    python3 chip_smoke.py [--rows N] [--seed S] [--only accumulate]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
-1. build     nvcc builds every kernel source of the paths (sm_90a).
+1. build     nvcc builds every kernel source of the paths (sm_90a) and
+             prints each kernel's registers (``-Xptxas -v``).
 2. parity    each kernel against its plain PyTorch version on the card, on
              small fixtures: all four value formats, int16 and int32 column
              ids, Q in {1, 3, 64}, B in {32, 256}, T in {1, 2}, empty rows, a
@@ -14,7 +15,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              the accumulate kernel must leave at exactly 0.0), flag-free
              padding packets, poisoned padding ids.  Dyadic fixtures must be
              bit-identical; random ones agree within rtol = atol = 1e-5 with
-             equal row ids outside near-ties.
+             equal row ids outside near-ties.  The accumulate kernel runs at
+             the card's S blocks per core, at one and at 64, and every S
+             must give the bits of S = 1.
 3. main path the deployment configuration of ``repro.configs.topk_spmv``
              (10M rows x 512 columns, gamma row lengths with mean 20, BF16,
              B=256, K=100, k=8, T=2, fused layout, c=32) through the mutable
@@ -28,10 +31,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              the executor's host-to-device copies stay flat in steady state.
 4. timings   each top-k kernel at every Q the main path gives it on the main
              path's streams, and the accumulate kernel on phase 6's streams
-             (run after phase 6; bit-identical on dyadic values, within a
-             stated rounding bound on random x), CUDA events, each checked
-             against its plain version on the same inputs, with its bound on
-             an H100 SXM and a library yardstick (torch.sparse.mm).
+             before and after the first mutation (run after phase 6;
+             bit-identical to plain on dyadic values, within a stated
+             rounding bound on random x, and at the card's S bit-identical
+             to S = 1 on random x; both S timed in turns with the split
+             table built beforehand, and the table's build time printed),
+             CUDA events (device time: the stream is held while the
+             launches are queued), each checked against its plain version
+             on the same inputs, with its bound on an H100 SXM and a library
+             yardstick (torch.sparse.mm).
 6. graph     personalized PageRank and top-k eigen at full width: the "ring"
              operator at 2**21 nodes (5,242,878 nnz, the scale of SNAP's
              com-Youtube), F32, B=256, T=2, fused, c=32, through
@@ -44,9 +52,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              host-to-device copies flat across the iterations; then
              ``topk_eigen(3)`` on the "ba" operator at 1024 nodes with float64
              residuals at most 1e-4.  The accumulate kernel's launch count
-             must rise here.
+             must rise here; ``PPR_SPLIT`` prints a device iteration's time.
 5. summary   a ``kernels`` JSON line, the card's name and power limit, and
              the result line.
+
+``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
+graph's streams (built and mutated once, no solves), and stops without the
+result line: a short check of a kernel change before the full run.
 
 The script needs one CUDA device and imports only ``repro_torch`` (from
 ``src/`` beside it) and torch/numpy.
@@ -56,6 +68,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +87,9 @@ REPLACES = {
     "bscsr_topk_spmv_multiquery": "src/repro/kernels/bscsr_topk_spmv.py:790",
     "bscsr_spmv": "src/repro/kernels/bscsr_topk_spmv.py:603",
 }
+# Clock cycles of the sleep that holds the stream while time_cuda queues
+# its launches (about 50 ms: longer than 50 calls take to enqueue).
+HOLD_CYCLES = 100_000_000
 GRAPH_NODES = 1 << 21
 GRAPH_NNZ = 5_242_878          # the reference's synthetic_graph_csr("ring", 2**21, 0)
 GRAPH_SEEDS = [5, 17, 4242]
@@ -207,24 +223,30 @@ def parity_phase(torch, K, ops, bscsr, errs):
             ok, err = compare(got, want, bitwise)
             errs[name_k] = max(errs[name_k], err)
             check.expect(ok, f"{name} Q={q}: kernel != plain (max err {err:.3g})")
-        # The accumulate kernel on the same words, first query of the case.
+        # The accumulate kernel on the same words, first query of the case, at
+        # the card's S, at one split and at 64 (past the flagged steps of
+        # these fixtures): each against plain, and every S against S = 1 bit
+        # for bit.
         akw = dict(n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
-        got = K.bscsr_spmv(x[0], w, **akw)
-        want = K.bscsr_spmv_plain(x[0], w, **akw)
-        torch.cuda.synchronize()
-        gv, pv = got.cpu().numpy(), want.cpu().numpy()
-        err = float(np.abs(gv.astype(np.float64) - pv).max())
-        errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
-        if bitwise:
-            ok = np.array_equal(gv.view(np.int32), pv.view(np.int32))
-        else:
-            ok = bool(np.allclose(gv, pv, rtol=TOL, atol=TOL))
+        want = K.bscsr_spmv_plain(x[0], w, **akw).cpu().numpy()
+        one = K.bscsr_spmv(x[0], w, splits=1, **akw).cpu().numpy()
         live = np.asarray(packed.candidate_slots)
         never = np.arange(n_rows)[None, :] >= live[:, None]
-        check.expect(ok, f"{name}: accumulate kernel != plain (max err {err:.3g})")
-        check.expect(bool((gv.view(np.int32)[never] == 0).all()),
-                     f"{name}: a slot that never completes is not 0.0")
-    log(f"  {len(cases) * 4} kernel/plain comparisons")
+        for splits in (None, 1, 64):
+            gv = K.bscsr_spmv(x[0], w, splits=splits, **akw).cpu().numpy()
+            err = float(np.abs(gv.astype(np.float64) - want).max())
+            errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
+            if bitwise:
+                ok = np.array_equal(gv.view(np.int32), want.view(np.int32))
+            else:
+                ok = bool(np.allclose(gv, want, rtol=TOL, atol=TOL))
+            check.expect(ok, f"{name} S={splits}: accumulate kernel != plain "
+                             f"(max err {err:.3g})")
+            check.expect(np.array_equal(gv.view(np.int32), one.view(np.int32)),
+                         f"{name} S={splits}: accumulate kernel != its S=1 bits")
+            check.expect(bool((gv.view(np.int32)[never] == 0).all()),
+                         f"{name} S={splits}: a slot that never completes is not 0.0")
+    log(f"  {len(cases) * 6} kernel/plain comparisons")
     check.done()
 
 
@@ -233,7 +255,13 @@ def parity_phase(torch, K, ops, bscsr, errs):
 # ---------------------------------------------------------------------------
 
 def time_cuda(torch, fn, budget_s=2.0):
-    """Mean ms of ``fn`` over repeated launches, timed with CUDA events."""
+    """Mean device ms of ``fn`` over repeated launches, timed with CUDA events.
+
+    A sleep kernel holds the stream while the launches are queued, so the
+    events measure the device's time alone and not the host's time to
+    enqueue each call (about 0.05 ms for a kernel wrapper: as long as the
+    accumulate kernel itself).
+    """
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -243,12 +271,25 @@ def time_cuda(torch, fn, budget_s=2.0):
     torch.cuda.synchronize()
     one = max(start.elapsed_time(end), 1e-3)
     reps = int(min(50, max(3, budget_s * 1e3 / one)))
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms_per_call(torch, fn, reps=50):
+    """Host milliseconds to enqueue one call of ``fn`` (no synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
 
 
 def time_once(torch, fn):
@@ -258,6 +299,22 @@ def time_once(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+def kernel_registers(report: str) -> dict:
+    """{kernel: registers per thread} from nvcc's ``-Xptxas -v`` report."""
+    regs, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next((k for k in ("topk_spmv_mq_kernel", "topk_spmv_kernel",
+                                     "spmv_accum_kernel", "spmv_fixup_kernel")
+                         if k in m.group(1)), m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
 
 
 def card_line() -> str:
@@ -272,6 +329,10 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=10_000_000,
                         help="collection rows (the deployment has 10M)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", choices=("accumulate",),
+                        help="accumulate: phases 1 and 2 and the accumulate kernel's "
+                             "timing on phase 6's streams (no solves), then stop "
+                             "without the result line")
     args = parser.parse_args()
 
     import torch
@@ -298,10 +359,25 @@ def main() -> int:
     lib = K.build_library(verbose=True)
     K._library()
     log(f"phase build: ok ({time.time() - t0:.1f} s, {lib.name})")
+    log("REGISTERS " + json.dumps(kernel_registers(lib.with_suffix(".log").read_text())))
 
     # ---- phase 2: kernels vs plain versions on small fixtures ----
     errs = {"bscsr_topk_spmv": 0.0, "bscsr_topk_spmv_multiquery": 0.0, "bscsr_spmv": 0.0}
     parity_phase(torch, K, ops, bscsr, errs)
+    if args.only == "accumulate":
+        from repro_torch.core import graph
+        from repro_torch.serve import GraphRankingService
+
+        csr, _, fac, svc = graph_fixture(api, graph, SparseEmbeddingIndex,
+                                         GraphRankingService, GRAPH_NODES, "cuda")
+        pre = {"words": np.array(fac.index.packed.words),
+               "n_rows": fac.index.packed.max_slots}
+        update_node(svc, csr)
+        entry = accumulate_timing(torch, K, bscsr, fac, pre, errs, {"bscsr_spmv": 0})
+        log(json.dumps({"kernels": [entry]}))
+        log(card_line())
+        log(f"ONLY accumulate: done in {time.time() - t_start:.1f} s (no result line)")
+        return 0
 
     # ---- phase 3: the main path at the deployment configuration ----
     check = Check("main path")
@@ -558,18 +634,11 @@ def ulp_gap(a: np.ndarray, b: np.ndarray):
     return int(np.count_nonzero(ia != ib)), int(np.abs(ia - ib).max(initial=0))
 
 
-def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
-                n_nodes=GRAPH_NODES, device="cuda"):
-    """Phase 6: PPR solves through the ranking service, then top-k eigen.
-
-    Returns (the graph facade, the accumulate kernel's launches in this phase).
-    """
-    check = Check("graph")
+def graph_fixture(api, graph, SparseEmbeddingIndex, GraphRankingService, n_nodes, device):
+    """Phase 6's operator, config, facade and ranking service."""
     t0 = time.time()
     csr = graph.synthetic_graph_csr("ring", n_nodes, seed=0)
     log(f"  ring operator: {csr.shape[0]} nodes, nnz {csr.nnz} ({time.time() - t0:.1f} s)")
-    if n_nodes == GRAPH_NODES:
-        check.expect(csr.nnz == GRAPH_NNZ, f"ring operator nnz {csr.nnz} != {GRAPH_NNZ}")
     cfg = api.TopKSpMVConfig(k=8, num_partitions=32, block_size=256, value_format="F32",
                              packets_per_step=2, stream_layout="fused", device=device)
     t0 = time.time()
@@ -583,7 +652,29 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
     # which re-sparsifies and L2-normalizes the row: the operator then stops
     # being an L1 contraction, which the canonical refinement's step count
     # assumes.
-    svc = GraphRankingService(fac.index, tol=1e-5)
+    return csr, cfg, fac, GraphRankingService(fac.index, tol=1e-5)
+
+
+def update_node(svc, csr):
+    """The first mutation: node 4243's weights x 1.02."""
+    node = GRAPH_SEEDS[-1] + 1
+    row = np.zeros(csr.shape[0], np.float32)
+    lo, hi = csr.indptr[node], csr.indptr[node + 1]
+    row[csr.indices[lo:hi]] = csr.data[lo:hi] * 1.02
+    svc.update_node(node, row)
+
+
+def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
+                n_nodes=GRAPH_NODES, device="cuda"):
+    """Phase 6: PPR solves through the ranking service, then top-k eigen.
+
+    Returns (the graph facade, the accumulate kernel's launches in this phase).
+    """
+    check = Check("graph")
+    csr, cfg, fac, svc = graph_fixture(api, graph, SparseEmbeddingIndex,
+                                       GraphRankingService, n_nodes, device)
+    if n_nodes == GRAPH_NODES:
+        check.expect(csr.nnz == GRAPH_NNZ, f"ring operator nnz {csr.nnz} != {GRAPH_NNZ}")
     ex = api.query_executor(cfg)
 
     def solve(label, fn):
@@ -604,11 +695,7 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
     # The build's snapshot, kept for phase 4: the first mutation moves the
     # index to churn-stable buckets (padded packets, a doubled slot bucket).
     pre = {"words": np.array(fac.index.packed.words), "n_rows": fac.index.packed.max_slots}
-    node = GRAPH_SEEDS[-1] + 1
-    row = np.zeros(n_nodes, np.float32)
-    lo, hi = csr.indptr[node], csr.indptr[node + 1]
-    row[csr.indices[lo:hi]] = csr.data[lo:hi] * 1.02
-    svc.update_node(node, row)
+    update_node(svc, csr)
     t0 = time.perf_counter()
     fac.index.live_csr()
     live_s = time.perf_counter() - t0
@@ -660,11 +747,14 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
     t0 = time.perf_counter()
     dev = graph.personalized_pagerank(fac, GRAPH_SEEDS, tol=1e-5, canonicalize=False)
     device_s = time.perf_counter() - t0
-    p = graph.seed_vector(GRAPH_SEEDS, n_nodes).numpy()
+    p = graph.seed_vector(GRAPH_SEEDS, n_nodes, device=device).cpu().numpy()
     t0 = time.perf_counter()
     _, steps = graph._canonical_refine(fac.index, dev.scores, p, 0.85, 1e-5)
     refine_s = time.perf_counter() - t0
     split = {"device_iterations": dev.iterations, "device_s": device_s,
+             "device_ms_per_iteration": device_s * 1e3 / max(dev.iterations, 1),
+             "spmv_splits": K.spmv_splits(device, cfg.num_partitions, packets_per_step=2,
+                                          block_size=256, m=n_nodes),
              "refine_steps": steps, "refine_s": refine_s,
              "refine_s_per_step": refine_s / max(steps, 1), "live_csr_s": live_s}
     log("PPR_SPLIT " + json.dumps(split))
@@ -690,8 +780,10 @@ def accumulate_timing(torch, K, bscsr, fac, pre, errs, launches) -> dict:
 
     ``ms`` walks the snapshot the last solves ran (churn-stable buckets:
     padded packets, a doubled slot bucket); ``ms_pre_mutation`` the build's.
-    The bound counts what y = A x itself moves: the live packets of the
-    stream, x once and y once.
+    Each is timed at the card's S (``spmv_splits``) and at one split, in
+    turns, with the split tables built beforehand as the executor holds
+    them.  The bound counts what y = A x itself moves: the live packets of
+    the stream, x once and y once.
     """
     check = Check("timings (accumulate)")
     packed = fac.index.packed
@@ -700,6 +792,26 @@ def accumulate_timing(torch, K, bscsr, fac, pre, errs, launches) -> dict:
     kw = dict(n_rows=packed.max_slots, packets_per_step=2, fmt_name="F32",
               block_size=packed.block_size)
     rng = np.random.default_rng(3)
+    words = torch.from_numpy(np.ascontiguousarray(packed.words)).cuda()
+    pre_words = torch.from_numpy(pre["words"]).cuda()
+    splits = K.spmv_splits(words.device, packed.num_cores, packets_per_step=2,
+                           block_size=packed.block_size, m=n)
+
+    def tables(w):
+        return {s: K.spmv_split_table(w, packets_per_step=2, block_size=packed.block_size,
+                                      splits=s) for s in (splits, 1)}
+
+    build = lambda: K.spmv_split_table(words, packets_per_step=2,  # noqa: E731
+                                       block_size=packed.block_size, splits=splits)
+    table_ms, table_host_ms = time_cuda(torch, build), host_ms_per_call(torch, build)
+    cur_tables, pre_tables = tables(words), tables(pre_words)
+    log(f"  bscsr_spmv: S = {splits} splits per core "
+        f"(card: {torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+        f"{packed.num_cores} cores)")
+    log(f"SPLIT_TABLE build {table_ms:.4f} ms on the device, {table_host_ms:.4f} ms of "
+        f"host enqueue (S = {splits}, once per snapshot)")
+    log(f"  split bounds of core 0 after the first mutation: "
+        f"{cur_tables[splits][0][0].tolist()}; before: {pre_tables[splits][0][0].tolist()}")
 
     # Dyadic values (j / 16) and x (i * 2**-30, i < 256) on the graph's
     # streams: every prefix sum of a step stays below 2**21 units of 2**-34,
@@ -708,38 +820,56 @@ def accumulate_timing(torch, K, bscsr, fac, pre, errs, launches) -> dict:
                      0.0).astype(np.float32)
     dwords = torch.from_numpy(bscsr.fuse_words(dvals, packed.cols, packed.flags)).cuda()
     dx = torch.from_numpy((rng.integers(0, 256, n) * 2.0 ** -30).astype(np.float32)).cuda()
-    got = K.bscsr_spmv(dx, dwords, **kw)
     want = K.bscsr_spmv_plain(dx, dwords, **kw)
-    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    check.expect(n_diff == 0 and bool(got.abs().max() > 0),
-                 f"bscsr_spmv on dyadic graph streams: {n_diff} sums differ from plain")
-    log(f"  bscsr_spmv on dyadic graph streams: {n_diff} of {got.numel()} sums differ")
+    for s in (splits, 1):
+        got = K.bscsr_spmv(dx, dwords, splits=s, **kw)
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        check.expect(n_diff == 0 and bool(got.abs().max() > 0),
+                     f"bscsr_spmv S={s} on dyadic graph streams: {n_diff} sums differ "
+                     f"from plain")
+        log(f"  bscsr_spmv S={s} on dyadic graph streams: {n_diff} of {got.numel()} sums "
+            f"differ from plain")
     del dwords, dvals
 
     # Random x at the solves' scale.  A segment sum is the difference of two
     # prefix sums of a step, each within a few ulps of the step's total of
-    # |a x|; atol is 16 ulps of the largest such total.
+    # |a x|; atol is 16 ulps of the largest such total.  Against one split
+    # the card's S must give the same bits.
     x = torch.from_numpy(rng.random(n).astype(np.float32) / n).cuda()
     csr, _ = fac.index.live_csr()
     atol = 16 * 2.0 ** -24 * step_nnz * float(csr.data.max()) * float(x.max())
-    words = torch.from_numpy(np.ascontiguousarray(packed.words)).cuda()
-    pre_words = torch.from_numpy(pre["words"]).cuda()
-    ms = time_cuda(torch, lambda: K.bscsr_spmv(x, words, **kw))
-    ms_pre = time_cuda(torch, lambda: K.bscsr_spmv(x, pre_words, **dict(kw, n_rows=pre["n_rows"])))
     plain_ms, want = time_once(torch, lambda: K.bscsr_spmv_plain(x, words, **kw))
-    for label, w, n_rows, ref in (("current", words, kw["n_rows"], want),
-                                  ("pre-mutation", pre_words, pre["n_rows"], None)):
+    timed = {}
+    for label, w, n_rows, tabs, ref in (
+            ("current", words, kw["n_rows"], cur_tables, want),
+            ("pre-mutation", pre_words, pre["n_rows"], pre_tables, None)):
         kwl = dict(kw, n_rows=n_rows)
         if ref is None:
             ref = K.bscsr_spmv_plain(x, w, **kwl)
-        got = K.bscsr_spmv(x, w, **kwl)
+        got = K.bscsr_spmv(x, w, table=tabs[splits], **kwl)
+        one = K.bscsr_spmv(x, w, table=tabs[1], **kwl)
+        n_diff = int((got.view(torch.int32) != one.view(torch.int32)).sum())
+        check.expect(n_diff == 0, f"bscsr_spmv on the {label} graph streams: S={splits} "
+                                  f"and S=1 differ in {n_diff} sums")
         err = float((got.double() - ref.double()).abs().max())
         errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
         check.expect(err <= atol and float(ref.abs().max()) > 100 * atol,
                      f"bscsr_spmv on the {label} graph streams differs from plain "
                      f"(max err {err:.3g}, atol {atol:.3g})")
-        log(f"  bscsr_spmv on the {label} streams: max abs err {err:.3g} "
-            f"(atol {atol:.3g}, largest sum {float(ref.abs().max()):.3g})")
+        log(f"  bscsr_spmv on the {label} streams, random x: S={splits} vs S=1: {n_diff} "
+            f"of {got.numel()} sums differ; vs plain max abs err {err:.3g} (atol "
+            f"{atol:.3g}, largest sum {float(ref.abs().max()):.3g})")
+        # In turns: S, 1, 1, S.
+        turns = [time_cuda(torch, lambda: K.bscsr_spmv(x, w, table=tabs[s], **kwl))
+                 for s in (splits, 1, 1, splits)]
+        timed[label] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+        log(f"  bscsr_spmv on the {label} streams: S={splits} {turns[0]:.4f} / "
+            f"{turns[3]:.4f} ms, S=1 {turns[1]:.4f} / {turns[2]:.4f} ms")
+    host_ms = host_ms_per_call(torch, lambda: K.bscsr_spmv(x, words, table=cur_tables[splits],
+                                                           **kw))
+    log(f"  bscsr_spmv: host enqueue {host_ms:.4f} ms per call (wrapper and launch)")
+    ms, ms_one = timed["current"]
+    ms_pre, ms_pre_one = timed["pre-mutation"]
     mat = torch.sparse_csr_tensor(torch.from_numpy(csr.indptr).cuda(),
                                   torch.from_numpy(csr.indices.astype(np.int64)).cuda(),
                                   torch.from_numpy(csr.data).cuda(), size=csr.shape)
@@ -751,9 +881,9 @@ def accumulate_timing(torch, K, bscsr, fac, pre, errs, launches) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS * 1e3
     packets, pre_packets = packed.vals.shape[1], pre["words"].shape[1]
-    log(f"  bscsr_spmv: {ms:.3f} ms over {packets} packets per core "
-        f"({ms * 2e3 / packets:.2f} us per step), {ms_pre:.3f} ms over {pre_packets} "
-        f"before the first mutation, plain {plain_ms:.1f} ms; bound "
+    log(f"  bscsr_spmv: {ms:.4f} ms at S={splits} ({ms_one:.4f} ms at S=1) over {packets} "
+        f"packets per core, {ms_pre:.4f} ms ({ms_pre_one:.4f} ms at S=1) over "
+        f"{pre_packets} before the first mutation, plain {plain_ms:.1f} ms; bound "
         f"{max(bytes_ms, flops_ms):.4f} ms ({nbytes / 1e6:.1f} MB: {live_packets} live "
         f"packets, x, y), torch.sparse.mm {library_ms:.4f} ms")
     check.done()
@@ -763,7 +893,9 @@ def accumulate_timing(torch, K, bscsr, fac, pre, errs, launches) -> dict:
         "max_abs_err": errs["bscsr_spmv"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": library_ms, "ms_pre_mutation": ms_pre,
+        "library_ms": library_ms, "splits": splits, "ms_one_split": ms_one,
+        "ms_pre_mutation": ms_pre, "ms_pre_mutation_one_split": ms_pre_one,
+        "split_table_ms": table_ms, "host_ms_per_call": host_ms,
         "packets_per_core": packets, "packets_per_core_pre_mutation": pre_packets,
         "live_packets": live_packets, "bound_bytes": nbytes, "atol": atol,
         "achieved_gb_per_s": nbytes / (ms * 1e-3) / 1e9,

@@ -158,7 +158,7 @@ def make_spmv_step(index, use_kernel: bool = True) -> Tuple[Callable, Callable[[
 def seed_vector(
     seeds: Union[int, Sequence[int], dict, np.ndarray, torch.Tensor],
     n: int,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """The L1-normalized personalization vector ``p`` on ``device``.
 

@@ -8,23 +8,19 @@
 //                                        (_topk_spmv_mq_kernel)
 //   bscsr_spmv_launch                 -> bscsr_spmv (_spmv_accum_kernel)
 //
-// The accumulate kernel reads the same stream and writes one f32 per slot
-// (C x n_rows), so it is bound by bytes; for a graph operator x is too wide
-// for shared memory and is gathered from global memory (through L2).
+// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): one pass must read every stream word once, ~4.1 bytes per stored
+// nnz in BF16 with int16 column ids, so a single query is bound by bytes.  A
+// batch adds 2 flops per nnz per query, so from about Q = 32 on the f32 rate
+// bounds it instead.  The accumulate kernel is bound by bytes: on a 2**21-node
+// graph operator (F32, int32 ids) y = A x moves 59.4 MB (the live packets, x
+// and y), 0.018 ms.  wgmma has no role: the work is a gather and a scan.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
-// one pass must read every stream word once, ~4.1 bytes per stored nnz in
-// BF16 with int16 column ids, so a single query is bound by bytes.  A batch
-// adds 2 flops per nnz per query, so from about Q = 32 on the f32 rate bounds
-// it instead.  wgmma has no role: the work is a gather and a scan.
-//
-// Design.  The stage-3 row carry crosses packet boundaries, so a core's
-// packets are walked in order by ONE thread block (the TPU's sequential grid
-// axis becomes a loop inside the block).  A step covers T packets of B nnz,
-// one thread per nnz (T*B <= 1024):
+// Design.  A step covers T packets of B nnz, one thread per nnz (T*B <= 1024):
 //   stage 1  each thread decodes its nnz from the fused words (flag bit,
 //            int16/int32 column id, f32/bf16/Q15/Q7 value) and multiplies by
-//            x[col] (x in shared memory when it fits; out-of-range ids read 0)
+//            x[col] (x in shared memory when it fits, else gathered from global
+//            memory through L2; out-of-range ids read 0)
 //   stage 2  block-wide inclusive scans of the flag bits (segment ids) and
 //            of the products; a segment's sum is the difference of the prefix
 //            at its last nnz and the prefix before its first nnz, as in the
@@ -38,13 +34,42 @@
 //            asc), which is lax.top_k's order.  The result is independent of
 //            the order of the list, so the append may race.
 //   stage 4' (accumulate) a completed row's sum is stored at its slot.
-// Stages 1-3 are one template (walk) shared by the three kernels; the
-// stage-4 structs plug into it.
-// The next step's words are loaded into registers before the current step's
-// scans, hiding part of the load latency.  Known limits, for later work: with
-// c = 32 cores only 32 of 132 SMs stream (a core's stream is not yet split
-// across blocks), each step costs several block barriers, and the
-// multi-query kernel re-reads a core's words once per query chunk.
+// In the top-k kernels stages 1-3 are one template (walk) with a stage-4
+// struct plugged in; the accumulate kernel has its own walk (accum_walk),
+// with the same arithmetic.  The next step's words are loaded into registers
+// before the current step's scans, hiding part of the load latency.
+//
+// The stage-3 carry crosses packet boundaries, so the top-k kernels walk a
+// core's packets in order with ONE block (the TPU's sequential grid axis
+// becomes a loop inside the block).  A step costs about 1.3 us of scan
+// latency and 11 barriers, not bytes, so with c = 32 cores on 132 SMs a
+// one-block walk reaches a few percent of the byte bound.
+//
+// The accumulate kernel splits each core's stream among S blocks (grid
+// C x S, S from the occupancy calculator: one wave fills the card).  A split
+// table (spmv_split_table in the Python module) gives each split a step
+// range [b, e): splits begin only at steps that hold at least one flag bit,
+// and the last one ends at e_c, one past the core's last flagged step (later
+// steps complete no row: only the open trailing row lies there, so a padded
+// snapshot costs no more than a live one).  Exactness: the row open at a
+// split's first step b completes inside step b, so its sequential sum is one
+// f32 addition, head piece (segment 0 of step b, +0.0 when bit 0 is set)
+// plus the carry that the single walk holds after step b-1.  Every carry
+// inside split i-1 is already the sequential one, because the carry restarts
+// at each completed row and split i-1's first step completes one.  So block
+// i starts from carry 0.0 at row R(b) (the table's head_row), stores every
+// row it completes but that one, and hands its head piece and final carry to
+// (C, S) side buffers; the fix-up kernel stores 0.0f + (head + carry of split
+// i-1) at R(b).  Each slot is still written once, with no float atomics, and
+// the output equals the one-block walk (S = 1) bit for bit for every S.
+// Within a step, accum_walk scans (flag, product) pairs in one pass with the
+// same shuffle tree as the top-k walk (same f32 association, same bits) and
+// double-buffers the carry, so a step costs 4 barriers instead of 11, and
+// it gathers x a step ahead.  The likely next limit is the bytes in
+// flight (PERF.md): each thread holds one step of words in registers, so 3
+// blocks of 512 threads per SM (about 40 registers each) keep about 12 KB per SM
+// in flight, which at HBM latency sustains well under 3.35 TB/s; a deeper
+// ring of steps in shared memory (cp.async) is the next step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,6 +95,17 @@ struct Params {
   int k;
   int n_rows;            // slot budget: sentinel slot of empty entries
   int x_in_smem;
+};
+
+// The accumulate kernel's split table and side buffers.  A second kernel
+// argument, not more Params fields: a wider Params changed the top-k
+// kernels' code and cost them 11% at Q = 1 on an H100 (PERF.md).
+struct Splits {
+  const int32_t* bounds;    // (C, S+1) step bounds of each core's splits
+  const int32_t* head_row;  // (C, S) slot of the row open at each split's start
+  float* heads;             // (C, S) head piece of each split after the first
+  float* carries;           // (C, S) open-row carry after each split's last step
+  int n;                    // S
 };
 
 struct Smem {
@@ -276,20 +312,6 @@ struct TopkStage {
   }
 };
 
-// Stage 4' of the accumulate kernel: each completed row is stored at its
-// slot of the zero-filled (C, n_rows) output.  Completed slot ids never
-// repeat, so plain stores suffice.  0.0f + c gives the bits the reference's
-// scatter-add onto zeros gives (-0.0 becomes +0.0).
-struct AccumStage {
-  __device__ void init(const Params&, Smem&, int, int, int) const {}
-  __device__ void row_done(const Params& p, Smem&, int core, int, int r, float c,
-                           int) const {
-    if (r < p.n_rows) p.out_v[static_cast<long long>(core) * p.n_rows + r] = __fadd_rn(0.0f, c);
-  }
-  __device__ void end_step(const Params&, Smem&, int, int, int) const {}
-  __device__ void finish(const Params&, Smem&, int, int, int, int, int) const {}
-};
-
 // Stages 1-3, shared by every kernel: one block walks core `core`'s packets
 // in order for queries q0 .. q0+nq-1 and hands each completed row to the
 // stage.
@@ -375,44 +397,284 @@ __global__ void topk_spmv_mq_kernel(Params p) {
   walk(p, blockIdx.x, q0, min(p.q_chunk, p.nq - q0), TopkStage{});
 }
 
-__global__ void spmv_accum_kernel(Params p) { walk(p, blockIdx.x, 0, 1, AccumStage{}); }
+// A thread's place in the accumulate walk, fixed for the whole walk: its
+// packet row at the first step, the words per step, and the offsets of its
+// flag, column and value words in a packet row.
+struct Lane {
+  const int32_t* row;
+  long long stride;
+  int j, off_f, off_c, off_v;
+};
+
+__device__ inline Lane lane_of(const Params& p, int core, long long first, int tid) {
+  Lane l;
+  l.j = tid % p.block;
+  l.row = p.words + (static_cast<long long>(core) * p.n_packets + first * p.per_step +
+                     tid / p.block) * p.width;
+  l.stride = static_cast<long long>(p.per_step) * p.width;
+  const int wf = p.block >> 5;
+  l.off_f = l.j >> 5;
+  l.off_c = wf + (p.col_words == p.block ? l.j : (l.j >> 1));
+  l.off_v = wf + p.col_words + (p.fmt == 0 ? l.j : (p.fmt == 3 ? (l.j >> 2) : (l.j >> 1)));
+  return l;
+}
+
+__device__ inline Raw load_lane(const Lane& l, const int32_t* row) {
+  return Raw{__ldg(row + l.off_f), __ldg(row + l.off_c), __ldg(row + l.off_v)};
+}
+
+// The accumulate kernel's shared memory: x (when it fits), the step's flag
+// bits, prefixes and segment starts, the pair scan's warp totals, and the
+// open row's carry and slot, double-buffered by step parity.
+struct AccumSmem {
+  float* x;       // m (only when x_in_smem)
+  int* flag;      // TB
+  float* ps;      // TB
+  float* start;   // TB + 1
+  int* warp_i;    // 32
+  float* warp_f;  // 32
+  float* carry;   // 2
+  int* row;       // 2
+};
+
+__host__ __device__ inline size_t accum_smem_bytes(int tb, int m, int x_in_smem) {
+  size_t n = x_in_smem ? align8(sizeof(float) * size_t(m)) : 0;
+  n += align8(sizeof(int) * tb) + align8(sizeof(float) * tb);
+  n += align8(sizeof(float) * (tb + 1)) + 2 * align8(sizeof(int) * 32);
+  return n + 2 * align8(sizeof(float) * 2);
+}
+
+__device__ inline AccumSmem accum_carve(unsigned char* base, int tb, int m, int x_in_smem) {
+  AccumSmem s;
+  unsigned char* p = base;
+  auto take = [&p](size_t bytes) { unsigned char* r = p; p += align8(bytes); return r; };
+  s.x = x_in_smem ? reinterpret_cast<float*>(take(sizeof(float) * size_t(m))) : nullptr;
+  s.flag = reinterpret_cast<int*>(take(sizeof(int) * tb));
+  s.ps = reinterpret_cast<float*>(take(sizeof(float) * tb));
+  s.start = reinterpret_cast<float*>(take(sizeof(float) * (tb + 1)));
+  s.warp_i = reinterpret_cast<int*>(take(sizeof(int) * 32));
+  s.warp_f = reinterpret_cast<float*>(take(sizeof(float) * 32));
+  s.carry = reinterpret_cast<float*>(take(sizeof(float) * 2));
+  s.row = reinterpret_cast<int*>(take(sizeof(int) * 2));
+  return s;
+}
+
+// Stages 1-3 and 4' of the accumulate kernel: block (core, split) walks
+// steps [first, stop) of its core from carry row `row_start` and carry 0.0
+// and stores each completed row's sum, 0.0f + c (the bits the reference's
+// scatter-add onto zeros gives), at its slot of the zero-filled (C, n_rows)
+// output; slot ids never repeat, so plain stores suffice.  In head mode (a
+// split after the first, which starts at a flagged step) the row open at
+// `first` completes in that step, but only the fix-up knows its carry: its
+// head piece goes to `heads`, and every split's final carry to `carries`.
+//
+// The flag scan and the product scan are one pair scan: the top-k kernels'
+// shuffle tree for both (so the same f32 association and the same bits),
+// with 3 barriers instead of 6 plus 2; the prefixes are published by the
+// scan's last barrier; the carry and carry row are double-buffered, so a
+// step costs 4 barriers where the top-k walk costs 11.  The words are
+// loaded two steps ahead and x gathered one step ahead (the gather depends
+// on the decoded column id), so neither load waits on the step's scans.
+__device__ void accum_walk(const Params& p, const Splits& sp, int core, int split,
+                           long long first, long long stop, int row_start, bool head) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tb = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = tb >> 5;
+  AccumSmem s = accum_carve(smem_raw, tb, p.m, p.x_in_smem);
+  if (p.x_in_smem) {
+    for (int i = tid; i < p.m; i += tb) s.x[i] = p.x[i];
+  }
+  if (tid == 0) {
+    s.carry[0] = 0.0f;
+    s.row[0] = row_start;
+  }
+  __syncthreads();
+
+  const Lane lane_pos = lane_of(p, core, first, tid);
+  const int32_t* row = lane_pos.row;
+  auto gather = [&](int c) {
+    return (c >= 0 && c < p.m) ? (p.x_in_smem ? s.x[c] : __ldg(p.x + c)) : 0.0f;
+  };
+  int f, col;
+  float v;
+  decode(p, load_lane(lane_pos, row), lane_pos.j, &f, &col, &v);
+  float xv = gather(col);
+  Raw next{0, 0, 0};
+  if (first + 1 < stop) {
+    row += lane_pos.stride;
+    next = load_lane(lane_pos, row);
+  }
+  for (long long step = first; step < stop; ++step) {
+    const int buf = static_cast<int>((step - first) & 1);
+    const float prod = __fmul_rn(v, xv);
+    // The next step's nnz is decoded and its x gather started now; its words were
+    // loaded a step ago.
+    int f_next = 0;
+    if (step + 1 < stop) {
+      decode(p, next, lane_pos.j, &f_next, &col, &v);
+      xv = gather(col);
+      if (step + 2 < stop) {
+        row += lane_pos.stride;
+        next = load_lane(lane_pos, row);
+      }
+    }
+    s.flag[tid] = f;
+    // ---- stage 2: pair scan of (flag, product) ----
+    int seg = f;
+    float ps = prod;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int yi = __shfl_up_sync(0xffffffffu, seg, d);
+      const float yf = __shfl_up_sync(0xffffffffu, ps, d);
+      if (lane >= d) {
+        seg += yi;
+        ps = __fadd_rn(ps, yf);
+      }
+    }
+    if (lane == 31) {
+      s.warp_i[warp] = seg;
+      s.warp_f[warp] = ps;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int wi = lane < nwarps ? s.warp_i[lane] : 0;
+      float wf = lane < nwarps ? s.warp_f[lane] : 0.0f;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int yi = __shfl_up_sync(0xffffffffu, wi, d);
+        const float yf = __shfl_up_sync(0xffffffffu, wf, d);
+        if (lane >= d) {
+          wi += yi;
+          wf = __fadd_rn(wf, yf);
+        }
+      }
+      if (lane < nwarps) {
+        s.warp_i[lane] = wi;
+        s.warp_f[lane] = wf;
+      }
+    }
+    __syncthreads();
+    if (warp > 0) {
+      seg += s.warp_i[warp - 1];
+      ps = __fadd_rn(ps, s.warp_f[warp - 1]);
+    }
+    const int s_last = s.warp_i[nwarps - 1];
+    s.ps[tid] = ps;
+    __syncthreads();  // publishes the prefixes; the warp totals are free again
+    const int row0 = s.row[buf];
+    const float part = s.carry[buf];
+    const bool is_last = tid == tb - 1 || s.flag[tid + 1] != 0;
+    if (f) s.start[seg] = tid > 0 ? s.ps[tid - 1] : 0.0f;
+    __syncthreads();  // publishes the segment starts
+    // ---- stage 3 and 4' ----
+    const bool at_head = head && step == first;
+    float* out = p.out_v + static_cast<long long>(core) * p.n_rows;
+    if (tid == 0 && f) {
+      // Segment 0 is empty: the carried row completes with its partial sum.
+      if (at_head) {
+        sp.heads[core * sp.n + split] = 0.0f;
+      } else if (row0 >= 0 && row0 < p.n_rows) {
+        out[row0] = __fadd_rn(0.0f, __fadd_rn(0.0f, part));
+      }
+    }
+    if (is_last) {
+      const float base = seg == 0 ? 0.0f : s.start[seg];
+      const float c = __fadd_rn(__fsub_rn(ps, base), seg == 0 ? part : 0.0f);
+      const int r = row0 + seg;
+      if (seg == s_last) {
+        s.carry[buf ^ 1] = c;  // thread tb - 1: the open row goes on
+      } else if (at_head && seg == 0) {
+        sp.heads[core * sp.n + split] = __fsub_rn(ps, base);
+      } else if (r >= 0 && r < p.n_rows) {
+        out[r] = __fadd_rn(0.0f, c);
+      }
+    }
+    if (tid == 0) s.row[buf ^ 1] = row0 + s_last;
+    f = f_next;
+  }
+  if (tid == tb - 1) sp.carries[core * sp.n + split] = s.carry[(stop - first) & 1];
+}
+
+// Block (core, split) walks one split; an empty split (trailing) returns.
+__global__ void spmv_accum_kernel(Params p, Splits sp) {
+  const int core = blockIdx.x, split = blockIdx.y;
+  const int32_t* b = sp.bounds + core * (sp.n + 1) + split;
+  const long long first = b[0], stop = b[1];
+  if (first >= stop) return;
+  accum_walk(p, sp, core, split, first, stop, sp.head_row[core * sp.n + split], split > 0);
+}
+
+// The fix-up: the row open at the start of each non-empty split i > 0
+// completes as head piece + the carry of split i - 1 (non-empty splits are
+// a prefix), the one f32 addition the single walk makes there.  Only this
+// kernel stores that slot, so every slot is still written at most once.
+__global__ void spmv_fixup_kernel(Params p, Splits sp) {
+  const int core = blockIdx.x;
+  const int32_t* b = sp.bounds + core * (sp.n + 1);
+  for (int i = threadIdx.x + 1; i < sp.n; i += blockDim.x) {
+    const int r = sp.head_row[core * sp.n + i];
+    if (b[i] >= b[i + 1] || r < 0 || r >= p.n_rows) continue;
+    const float c = __fadd_rn(sp.heads[core * sp.n + i], sp.carries[core * sp.n + i - 1]);
+    p.out_v[static_cast<long long>(core) * p.n_rows + r] = __fadd_rn(0.0f, c);
+  }
+}
 
 enum class Kind { kTopk, kMultiquery, kAccumulate };
 
-int launch(Kind kind, const float* x, const int32_t* words, float* out_v, int32_t* out_r,
-           int n_cores, long long n_packets, int width, int m, int nq, int q_chunk,
-           int block, int per_step, int col_words, int fmt, int k, int n_rows,
-           cudaStream_t stream) {
-  const int tb = block * per_step;
-  if (tb % 32 != 0 || tb > 1024 || n_cores < 1 || k < 1 || q_chunk < 1 ||
-      n_packets % per_step != 0 || n_packets < per_step) {
+// Dynamic shared memory of a launch; x stays in global memory when keeping
+// it in shared memory would pass 160 KB.  0 when even that does not fit.
+size_t plan_smem(Kind kind, int tb, int q_chunk, int k, int m, int* x_in_smem) {
+  constexpr size_t kSmemLimit = 227 * 1024;
+  auto bytes_of = [&](int in_smem) {
+    return kind == Kind::kAccumulate ? accum_smem_bytes(tb, m, in_smem)
+                                     : smem_bytes(tb, q_chunk, k, m, in_smem);
+  };
+  *x_in_smem = 1;
+  size_t bytes = bytes_of(1);
+  if (bytes > 160 * 1024) {
+    *x_in_smem = 0;
+    bytes = bytes_of(0);
+    if (bytes > kSmemLimit) return 0;
+  }
+  return bytes;
+}
+
+const void* kernel_of(Kind kind) {
+  return kind == Kind::kMultiquery ? reinterpret_cast<const void*>(topk_spmv_mq_kernel)
+         : kind == Kind::kTopk     ? reinterpret_cast<const void*>(topk_spmv_kernel)
+                                   : reinterpret_cast<const void*>(spmv_accum_kernel);
+}
+
+int launch(Kind kind, Params p, const Splits& sp, cudaStream_t stream) {
+  const int tb = p.block * p.per_step;
+  if (tb % 32 != 0 || tb > 1024 || p.n_cores < 1 || p.k < 1 || p.q_chunk < 1 ||
+      p.n_packets % p.per_step != 0 || p.n_packets < p.per_step ||
+      (kind == Kind::kAccumulate && sp.n < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr size_t kSmemLimit = 227 * 1024;
-  Params p{x, words, out_v, out_r, n_cores, n_packets, width, m, nq, q_chunk, block,
-           per_step, col_words, fmt, k, n_rows, 1};
-  size_t bytes = smem_bytes(tb, q_chunk, k, m, 1);
-  if (bytes > 160 * 1024) {
-    p.x_in_smem = 0;
-    bytes = smem_bytes(tb, q_chunk, k, m, 0);
-    if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const void* fn = kind == Kind::kMultiquery
-                       ? reinterpret_cast<const void*>(topk_spmv_mq_kernel)
-                   : kind == Kind::kTopk ? reinterpret_cast<const void*>(topk_spmv_kernel)
-                                         : reinterpret_cast<const void*>(spmv_accum_kernel);
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  const size_t bytes = plan_smem(kind, tb, p.q_chunk, p.k, p.m, &p.x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel_of(kind), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (kind == Kind::kMultiquery) {
-    dim3 grid(n_cores, (nq + q_chunk - 1) / q_chunk);
+    dim3 grid(p.n_cores, (p.nq + p.q_chunk - 1) / p.q_chunk);
     topk_spmv_mq_kernel<<<grid, tb, bytes, stream>>>(p);
   } else if (kind == Kind::kTopk) {
-    topk_spmv_kernel<<<n_cores, tb, bytes, stream>>>(p);
+    topk_spmv_kernel<<<p.n_cores, tb, bytes, stream>>>(p);
   } else {
-    spmv_accum_kernel<<<n_cores, tb, bytes, stream>>>(p);
+    spmv_accum_kernel<<<dim3(p.n_cores, sp.n), tb, bytes, stream>>>(p, sp);
+    if (sp.n > 1) spmv_fixup_kernel<<<p.n_cores, 32, 0, stream>>>(p, sp);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+Params topk_params(const float* x, const int32_t* words, float* out_v, int32_t* out_r,
+                   int n_cores, long long n_packets, int width, int m, int nq, int q_chunk,
+                   int block, int per_step, int col_words, int fmt, int k, int n_rows) {
+  return Params{x, words, out_v, out_r, n_cores, n_packets, width, m, nq, q_chunk, block,
+                per_step, col_words, fmt, k, n_rows, 1};
 }
 
 }  // namespace
@@ -422,9 +684,10 @@ extern "C" int bscsr_topk_spmv_launch(const float* x, const int32_t* words, floa
                                       int width, int m, int nq, int q_chunk, int block,
                                       int per_step, int col_words, int fmt, int k,
                                       int n_rows, void* stream) {
-  return launch(Kind::kTopk, x, words, out_v, out_r, n_cores, n_packets, width, m, 1, 1,
-                block, per_step, col_words, fmt, k, n_rows,
-                static_cast<cudaStream_t>(stream));
+  return launch(Kind::kTopk,
+                topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, 1, 1,
+                            block, per_step, col_words, fmt, k, n_rows),
+                Splits{}, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bscsr_topk_spmv_multiquery_launch(const float* x, const int32_t* words,
@@ -433,17 +696,40 @@ extern "C" int bscsr_topk_spmv_multiquery_launch(const float* x, const int32_t* 
                                                  int nq, int q_chunk, int block,
                                                  int per_step, int col_words, int fmt,
                                                  int k, int n_rows, void* stream) {
-  return launch(Kind::kMultiquery, x, words, out_v, out_r, n_cores, n_packets, width, m,
-                nq, q_chunk, block, per_step, col_words, fmt, k, n_rows,
+  return launch(Kind::kMultiquery,
+                topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, nq,
+                            q_chunk, block, per_step, col_words, fmt, k, n_rows),
+                Splits{}, static_cast<cudaStream_t>(stream));
+}
+
+// Accumulate mode: out (C, n_rows) f32, zero-filled by the caller; bounds
+// (C, S+1) and head_row (C, S) int32 from the split table; heads and
+// carries (C, S) f32 scratch.  Launches the split walk and, for S > 1, the
+// fix-up.
+extern "C" int bscsr_spmv_launch(const float* x, const int32_t* words, float* out,
+                                 const int32_t* bounds, const int32_t* head_row,
+                                 float* heads, float* carries, int n_cores, int splits,
+                                 long long n_packets, int width, int m, int block,
+                                 int per_step, int col_words, int fmt, int n_rows,
+                                 void* stream) {
+  return launch(Kind::kAccumulate,
+                topk_params(x, words, out, nullptr, n_cores, n_packets, width, m, 1, 1,
+                            block, per_step, col_words, fmt, 1, n_rows),
+                Splits{bounds, head_row, heads, carries, splits},
                 static_cast<cudaStream_t>(stream));
 }
 
-// Accumulate mode: out (C, n_rows) f32, zero-filled by the caller.
-extern "C" int bscsr_spmv_launch(const float* x, const int32_t* words, float* out,
-                                 int n_cores, long long n_packets, int width, int m,
-                                 int block, int per_step, int col_words, int fmt,
-                                 int n_rows, void* stream) {
-  return launch(Kind::kAccumulate, x, words, out, nullptr, n_cores, n_packets, width, m,
-                1, 1, block, per_step, col_words, fmt, 1, n_rows,
-                static_cast<cudaStream_t>(stream));
+// Accumulate blocks of T*B threads that one SM holds at once, for an x of
+// width m (the occupancy calculator; the caller sizes S from it).
+extern "C" int bscsr_spmv_resident_blocks(int block, int per_step, int m, int* blocks) {
+  const int tb = block * per_step;
+  int x_in_smem = 0;
+  const size_t bytes = plan_smem(Kind::kAccumulate, tb, 1, 1, m, &x_in_smem);
+  if (tb % 32 != 0 || tb > 1024 || bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(spmv_accum_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, spmv_accum_kernel, tb, bytes));
 }

@@ -10,8 +10,11 @@ Three kernels, each the port of one Pallas TPU kernel of
 All three take the fused word stream ``(C, P, W)`` int32 (``flags | cols |
 vals`` per packet, see ``core/bscsr.py``).  Split-layout snapshots reach
 them as ``fused_words()``, which is bit-identical.  The CUDA source is
-``repro_torch/csrc/bscsr_topk_spmv.cu``: one CTA per core walks its packets
-in order, because the stage-3 row carry crosses packet boundaries.
+``repro_torch/csrc/bscsr_topk_spmv.cu``.  In the top-k kernels one CTA per
+core walks its packets in order, because the stage-3 row carry crosses
+packet boundaries.  The accumulate kernel splits each core's stream among S
+CTAs at steps that hold a flag bit (``spmv_split_table``) and joins the
+splits with an exact carry fix-up, so every S gives the single walk's bits.
 
 Each wrapper dispatches on where its tensors lie.  CPU tensors go to the
 plain version; CUDA tensors launch the kernel (and add one to the wrapper's
@@ -28,8 +31,9 @@ queries with a Python loop over steps.
            start of the step) are merged into the k-sized scratchpad
   stage 4' (accumulate mode) each completed row is stored at its slot
 
-Stages 1-3 are shared by all three (``_plain_steps`` here, ``walk`` in the
-CUDA source).
+Stages 1-3 are shared by all three (``_plain_steps`` here; in the CUDA
+source ``walk`` for the top-k kernels and ``accum_walk``, with the same
+arithmetic and fewer barriers, for the accumulate kernel).
 
 Stage 4 ranks as ``lax.top_k`` does: float total order (-0.0 below +0.0),
 lower position first on ties, which puts scratchpad entries before
@@ -164,27 +168,42 @@ def _decode_fused_tile(tile: torch.Tensor, block: int, fmt: ValueFormat, col_wor
 
 
 def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
-                 fmt: ValueFormat, block: int, col_words: int):
+                 fmt: ValueFormat, block: int, col_words: int, start=None, stop=None,
+                 row=None):
     """Stages 1-3 of the Pallas tile walk for a (Q, M) batch, step by step.
 
-    Yields ``(cand_v, cand_r, complete)`` per step: (C, Q, TB+1) segment sums
-    with the carried open row added to segment 0, (C, TB+1) int32 slot ids,
-    and the (C, TB+1) mask of segments that complete in this step.
+    Each core walks steps ``[start, stop)`` ((C,) tensors; the whole stream
+    by default) from carry row ``row`` ((C,), -1 by default) and a carry of
+    0.0.  Yields ``(cand_v, cand_r, complete, carry_sum)`` per step: (C, Q,
+    TB+1) segment sums with the carried open row added to segment 0, (C,
+    TB+1) int32 slot ids, the (C, TB+1) mask of segments that complete in
+    this step, and the (C, Q) carry after it.  A core past its ``stop``
+    completes nothing and keeps its carry.
     """
     dev = words.device
     n_cores = words.shape[0]
     nq, m = x.shape
     t = packets_per_step
     tb = t * block
+    n_steps = words.shape[1] // t
     x = x.float()
-    carry_row = torch.full((n_cores,), -1, dtype=torch.int32, device=dev)
+    if start is None:
+        start = torch.zeros(n_cores, dtype=torch.int64, device=dev)
+        stop = torch.full((n_cores,), n_steps, dtype=torch.int64, device=dev)
+    length = (stop - start).long()
+    carry_row = (torch.full((n_cores,), -1, dtype=torch.int32, device=dev) if row is None
+                 else row.to(torch.int32))
     carry_sum = torch.zeros((n_cores, nq), dtype=torch.float32, device=dev)
     seg_ids = torch.arange(tb + 1, dtype=torch.int32, device=dev)
     ones = torch.ones((n_cores, 1), dtype=torch.int32, device=dev)
-    for step in range(words.shape[1] // t):
+    cores = torch.arange(n_cores, device=dev)[:, None]
+    packets = torch.arange(t, device=dev)
+    for j in range(int(length.max())):
+        active = j < length                                         # (C,)
+        step = torch.clamp(start.long() + j, max=n_steps - 1)
         # ---- stage 1: decode, gather x (clip + mask), multiply ----
-        f, c, v = _decode_fused_tile(words[:, step * t : (step + 1) * t], block, fmt,
-                                     col_words)
+        f, c, v = _decode_fused_tile(words[cores, step[:, None] * t + packets], block,
+                                     fmt, col_words)
         oob = (c < 0) | (c >= m)
         xv = x[:, torch.clamp(c, 0, m - 1)].permute(1, 0, 2)        # (C, Q, TB)
         xv = torch.where(oob[:, None, :], 0.0, xv)
@@ -204,11 +223,13 @@ def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
         part = carry_sum
         cand_v = seg_sums + torch.where(seg_ids == 0, part[..., None], 0.0)
         cand_r = carry_row[:, None] + seg_ids                       # (C, TB+1)
-        complete = (seg_ids < s_last[:, None]) & (cand_r >= 0)
-        carry_row = carry_row + s_last.int()
+        complete = (seg_ids < s_last[:, None]) & (cand_r >= 0) & active[:, None]
+        carry_row = torch.where(active, carry_row + s_last.int(), carry_row)
         last_sum = torch.gather(seg_sums, -1, s_last[:, None, None].expand(-1, nq, 1))
-        carry_sum = last_sum[..., 0] + torch.where(s_last[:, None] == 0, part, 0.0)
-        yield cand_v, cand_r, complete
+        carry_sum = torch.where(
+            active[:, None],
+            last_sum[..., 0] + torch.where(s_last[:, None] == 0, part, 0.0), carry_sum)
+        yield cand_v, cand_r, complete, carry_sum
 
 
 def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
@@ -219,7 +240,7 @@ def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
     n_cores, nq = words.shape[0], x.shape[0]
     acc_v = torch.full((n_cores, nq, k), NEG_INF, dtype=torch.float32, device=dev)
     acc_r = torch.full((n_cores, nq, k), n_rows, dtype=torch.int32, device=dev)
-    for cand_v, cand_r, complete in _plain_steps(
+    for cand_v, cand_r, complete, _ in _plain_steps(
             x, words, packets_per_step=packets_per_step, fmt=fmt, block=block,
             col_words=col_words):
         cand_v = torch.where(complete[:, None, :], cand_v, NEG_INF)
@@ -256,24 +277,118 @@ def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
                        fmt=fmt, block=block_size, col_words=col_words)
 
 
+def _popcount32(w: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word, as int64 (bit arithmetic, any device)."""
+    v = w.long() & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def spmv_split_table(words: torch.Tensor, *, packets_per_step: int, block_size: int,
+                     splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where ``splits`` walkers start on each core's stream -> (bounds, head_row).
+
+    ``bounds`` (C, S+1) int32: split i of core c walks steps
+    ``[bounds[c, i], bounds[c, i+1])``.  The first bound is 0 and the last is
+    ``e_c``, one past the core's last step that holds a flag bit (0 for a
+    core with none): later steps complete no row, so the walk stops there.
+    Interior bound i targets ``i * e_c // S`` and moves to the first step at
+    or after it that holds a flag bit.  A bound equal to the one before it
+    becomes ``e_c``, so empty splits trail.  ``head_row`` (C, S) int32 is the
+    slot of the row open at each split's first step: -1 plus the flag bits
+    of the steps before it.
+
+    A split that starts at a flagged step completes the row it opens with,
+    inside that step, so its sequential sum is one f32 addition of the
+    split's head piece and the carry of the split before it: the fix-up.
+    Static shapes only (no host sync); the same on the CPU and the card.
+    """
+    if splits < 1:
+        raise ValueError(f"splits must be at least 1, got {splits}")
+    n_cores, n_packets, _ = words.shape
+    dev = words.device
+    n_steps = n_packets // packets_per_step
+    wf = block_size // FLAG_WORD_BITS
+    flag_words = words[:, : n_steps * packets_per_step, :wf]
+    counts = _popcount32(flag_words).reshape(n_cores, n_steps, -1).sum(-1)   # (C, steps)
+    flagged = counts > 0
+    steps = torch.arange(n_steps, device=dev)
+    end = torch.where(flagged, steps + 1, 0).amax(-1, keepdim=True)
+    # nxt[c, s]: the first flagged step >= s (n_steps when none); reverse cummin.
+    nxt = torch.where(flagged, steps, n_steps).flip(-1).cummin(-1).values.flip(-1)
+    nxt = torch.cat([nxt, torch.full((n_cores, 1), n_steps, device=dev)], -1)
+    i = torch.arange(1, splits, device=dev)
+    targets = (i[None, :] * end) // splits                                 # (C, S-1)
+    inner = torch.minimum(torch.gather(nxt, -1, targets), end)
+    bounds = torch.cat([torch.zeros_like(end), inner, end], -1)
+    dup = torch.cat([torch.zeros_like(end, dtype=torch.bool),
+                     bounds[:, 1:] == bounds[:, :-1]], -1)
+    bounds = torch.sort(torch.where(dup, end, bounds), dim=-1).values
+    before = torch.cat([torch.zeros((n_cores, 1), dtype=torch.int64, device=dev),
+                        torch.cumsum(counts, -1)], -1)
+    head_row = torch.gather(before, -1, bounds[:, :-1]) - 1
+    return bounds.to(torch.int32), head_row.to(torch.int32)
+
+
 def bscsr_spmv_plain(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
-                     block_size=256, gather_mode="take", inner_loop="linear"):
+                     block_size=256, gather_mode="take", inner_loop="linear",
+                     splits=None, table=None):
     """Plain PyTorch version of :func:`bscsr_spmv` -> (C, n_rows) slot sums.
 
     Stage 4': every segment that completes in a step lands at its slot as
     ``0.0 + sum``; slots that never complete (the open trailing sentinel,
     phantom slots of a padded budget) stay 0.0.
+
+    With ``splits`` (or a ``table`` from :func:`spmv_split_table`) it walks
+    each split of each core from carry 0.0 and its head row, as the kernel's
+    blocks do.  A split after the first stores no segment 0 at its first
+    step; that head piece plus the previous split's final carry is the open
+    row's sequential sum, stored as ``0.0 + (head + carry)`` at the head row
+    (the fix-up).  The result equals the single walk bit for bit.
     """
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
                               gather_mode, inner_loop)
     n_cores = words.shape[0]
-    out = torch.zeros((n_cores, n_rows + 1), dtype=torch.float32, device=words.device)
-    for cand_v, cand_r, complete in _plain_steps(
-            x.reshape(1, -1), words, packets_per_step=packets_per_step, fmt=fmt,
-            block=block_size, col_words=col_words):
-        keep = complete & (cand_r < n_rows)
-        slot = torch.where(keep, cand_r, n_rows).long()
-        out.scatter_add_(-1, slot, torch.where(keep, cand_v[:, 0], 0.0))
+    dev = words.device
+    out = torch.zeros((n_cores, n_rows + 1), dtype=torch.float32, device=dev)
+    walk = dict(packets_per_step=packets_per_step, fmt=fmt, block=block_size,
+                col_words=col_words)
+    x = x.reshape(1, -1)
+
+    def store(slots, sums, keep):
+        keep = keep & (slots >= 0) & (slots < n_rows)
+        out.scatter_add_(-1, torch.where(keep, slots, n_rows).long(),
+                         torch.where(keep, sums, 0.0))
+
+    if table is None and splits is None:
+        for cand_v, cand_r, complete, _ in _plain_steps(x, words, **walk):
+            store(cand_r, cand_v[:, 0], complete)
+        return out[:, :n_rows]
+    if table is None:
+        table = spmv_split_table(words, packets_per_step=packets_per_step,
+                                 block_size=block_size, splits=splits)
+    bounds, head_row = (t.to(dev) for t in table)
+    carry = torch.zeros(n_cores, dtype=torch.float32, device=dev)
+    for i in range(bounds.shape[1] - 1):
+        first, stop = bounds[:, i], bounds[:, i + 1]
+        head = torch.zeros(n_cores, dtype=torch.float32, device=dev)
+        carry_out = torch.zeros(n_cores, dtype=torch.float32, device=dev)
+        for j, (cand_v, cand_r, complete, carry_sum) in enumerate(_plain_steps(
+                x, words, start=first, stop=stop, row=head_row[:, i], **walk)):
+            if i > 0 and j == 0:
+                # The head piece (+0.0 when bit 0 is set).  The carry it
+                # started from is +0.0, which can only turn a -0.0 head into
+                # +0.0; the fix-up's outer 0.0 + ... erases that difference.
+                head = cand_v[:, 0, 0]
+                complete = complete.clone()
+                complete[:, 0] = False
+            store(cand_r, cand_v[:, 0], complete)
+            carry_out = carry_sum[:, 0]
+        if i > 0:
+            store(head_row[:, i, None], (head + carry)[:, None], (first < stop)[:, None])
+        carry = carry_out
     return out[:, :n_rows]
 
 
@@ -299,7 +414,9 @@ def build_library(verbose: bool = False) -> Path:
 
     The library goes to ``build/kernels/`` at the repository root, named by
     a hash of the source, and is written under a temporary name first so a
-    concurrent build never loads a half-written file.
+    concurrent build never loads a half-written file.  nvcc's report
+    (``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
+    beside it with the suffix ``.log``.
     """
     digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
     lib = _BUILD_DIR / f"libbscsr_topk_spmv_{digest}.so"
@@ -313,6 +430,7 @@ def build_library(verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     if verbose:
         print(proc.stderr, end="")
+    lib.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, lib)
     return lib
 
@@ -327,9 +445,14 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
-    # x, words, out, C, P, W, M, B, T, col_words, fmt, n_rows, stream
-    lib.bscsr_spmv_launch.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i, p]
+    # x, words, out, bounds, head_row, heads, carries, C, S, P, W, M, B, T,
+    # col_words, fmt, n_rows, stream
+    lib.bscsr_spmv_launch.argtypes = [p, p, p, p, p, p, p, i, i, ll, i, i, i, i, i, i, i,
+                                      p]
     lib.bscsr_spmv_launch.restype = i
+    # B, T, M, out: resident accumulate blocks per SM
+    lib.bscsr_spmv_resident_blocks.argtypes = [i, i, i, p]
+    lib.bscsr_spmv_resident_blocks.restype = i
     return lib
 
 
@@ -415,8 +538,46 @@ def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
 bscsr_topk_spmv_multiquery.launches = 0
 
 
+# The plain split walk's default on the CPU, where no card sets S: enough
+# splits that the CPU tests drive the fix-up through every accumulate entry
+# point.
+PLAIN_SPLITS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index: int, block_size: int, packets_per_step: int,
+                     m: int) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _library().bscsr_spmv_resident_blocks(block_size, packets_per_step, m,
+                                                    ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"bscsr_spmv_resident_blocks failed: CUDA error {err}")
+    return n.value
+
+
+def spmv_splits(device, n_cores: int, *, packets_per_step: int, block_size: int,
+                m: int) -> int:
+    """S, the blocks that walk each of ``n_cores`` streams in the accumulate
+    kernel on ``device``.
+
+    On the card: the accumulate blocks one SM holds at once (the occupancy
+    calculator, for this T*B and x width) times the SM count, over the core
+    count, so one wave of blocks fills the card.  On the CPU:
+    ``PLAIN_SPLITS``.
+    """
+    device = torch.device(device)
+    if device.type == "cpu":
+        return PLAIN_SPLITS
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    per_sm = _resident_blocks(dev, block_size, packets_per_step, m)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, per_sm * sms // n_cores)
+
+
 def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
-               block_size=256, gather_mode="take", inner_loop="linear"):
+               block_size=256, gather_mode="take", inner_loop="linear", splits=None,
+               table=None):
     """Accumulate mode: every core's raw per-slot row sums -> (C, n_rows) f32.
 
     The top-k scratchpad never runs; each row that completes is stored at
@@ -427,13 +588,20 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
     sums segments by prefix differences, as this does; under "legacy" and
     "linear-topk" it uses a one-hot matmul there, so the sums agree only
     within f32 tolerance (bit for bit on dyadic fixtures).  ``gather_mode``
-    is served by one gather.  CPU tensors run the plain version.
+    is served by one gather.
+
+    The kernel walks each core's stream with S blocks, one per split of
+    ``table`` (:func:`spmv_split_table`; built here when not given, with
+    ``splits`` or, when that is None, :func:`spmv_splits` blocks), and a
+    second small kernel joins the splits.  Every S gives the same bits.
+    CPU tensors run the plain version (``splits=None`` and no table: the
+    single walk).
     """
     if words.device.type == "cpu" and x.device.type == "cpu":
         return bscsr_spmv_plain(
             x, words, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
-            inner_loop=inner_loop)
+            inner_loop=inner_loop, splits=splits, table=table)
     _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
                             gather_mode, inner_loop)
     _check_cuda_args(x, words)
@@ -443,13 +611,32 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
     if tb > MAX_TILE_NNZ:
         raise ValueError(f"T*B={tb} exceeds the kernel's {MAX_TILE_NNZ} nnz per step")
     n_cores, n_packets, width = words.shape
+    if table is None:
+        if splits is None:
+            splits = spmv_splits(words.device, n_cores, packets_per_step=packets_per_step,
+                                 block_size=block_size, m=x.shape[0])
+        table = spmv_split_table(words, packets_per_step=packets_per_step,
+                                 block_size=block_size, splits=splits)
+    bounds, head_row = table
+    n_splits = head_row.shape[1]
+    if (bounds.shape != (n_cores, n_splits + 1) or head_row.shape != (n_cores, n_splits)
+            or bounds.dtype != torch.int32 or head_row.dtype != torch.int32
+            or bounds.device != words.device or head_row.device != words.device
+            or not (bounds.is_contiguous() and head_row.is_contiguous())):
+        raise ValueError("table must be spmv_split_table's (C, S+1) and (C, S) int32 "
+                         "tensors on the words' device")
+    if splits is not None and splits != n_splits:
+        raise ValueError(f"splits={splits} but the table has {n_splits}")
     out = torch.zeros((n_cores, n_rows), dtype=torch.float32, device=words.device)
+    heads = torch.empty((n_cores, n_splits), dtype=torch.float32, device=words.device)
+    carries = torch.empty_like(heads)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().bscsr_spmv_launch(
-            x.data_ptr(), words.data_ptr(), out.data_ptr(), n_cores, n_packets, width,
-            x.shape[0], block_size, packets_per_step, col_words, _FMT_IDS[fmt_name],
-            n_rows, stream,
+            x.data_ptr(), words.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+            head_row.data_ptr(), heads.data_ptr(), carries.data_ptr(), n_cores,
+            n_splits, n_packets, width, x.shape[0], block_size, packets_per_step,
+            col_words, _FMT_IDS[fmt_name], n_rows, stream,
         )
     if err != 0:
         raise RuntimeError(f"bscsr_spmv_launch failed: CUDA error {err}")

@@ -42,6 +42,8 @@ from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_spmv,
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
+    spmv_split_table,
+    spmv_splits,
 )
 
 PATHS = ("kernel", "reference", "accumulate", "accumulate_ref")
@@ -64,7 +66,7 @@ class DeviceSnapshot:
 
     __slots__ = (
         "uid", "stream_layout", "device", "streams", "finalize", "signature",
-        "max_slots", "block_size", "fmt_name", "uploads",
+        "max_slots", "block_size", "fmt_name", "uploads", "_split_tables",
     )
 
     def __init__(self, packed: ops.PackedPartitions, stream_layout: str, device):
@@ -90,6 +92,19 @@ class DeviceSnapshot:
                          if isinstance(v, torch.Tensor))),
             self.max_slots, self.block_size, self.fmt_name,
         )
+        self._split_tables: dict = {}
+
+    def split_table(self, packets_per_step: int, splits: int):
+        """The accumulate kernel's split table of the fused words, built on
+        the device once per (T, S): no upload, and a fixed shape, so neither
+        ``h2d_copies`` nor the signature moves."""
+        key = (packets_per_step, splits)
+        table = self._split_tables.get(key)
+        if table is None:
+            table = spmv_split_table(self.streams[0], packets_per_step=packets_per_step,
+                                     block_size=self.block_size, splits=splits)
+            self._split_tables[key] = table
+        return table
 
 
 def device_snapshot(packed: ops.PackedPartitions, stream_layout: str, device
@@ -302,12 +317,16 @@ class QueryExecutor:
 
             return run
 
-        kwargs = dict(n_rows=snap.max_slots, packets_per_step=self.packets_per_step,
+        t = self.packets_per_step
+        kwargs = dict(n_rows=snap.max_slots, packets_per_step=t,
                       fmt_name=snap.fmt_name, block_size=snap.block_size,
                       gather_mode=self.gather_mode, inner_loop=self.inner_loop)
 
         def run(x, alpha, beta, y, s: DeviceSnapshot):
-            sums = bscsr_spmv(x, s.streams[0], **kwargs)
+            words = s.streams[0]
+            splits = spmv_splits(words.device, words.shape[0], packets_per_step=t,
+                                 block_size=s.block_size, m=x.shape[0])
+            sums = bscsr_spmv(x, words, table=s.split_table(t, splits), **kwargs)
             return ops.accumulate_epilogue(sums, s.finalize, n_out, alpha, beta, y)
 
         return run

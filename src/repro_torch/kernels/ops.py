@@ -44,6 +44,7 @@ from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_spmv,
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
+    spmv_splits,
 )
 
 NEG_INF = ref_lib.NEG_INF
@@ -656,11 +657,14 @@ def bscsr_spmv_blocked(
     the snapshot.  Iterative workloads go through ``QueryExecutor.spmv``."""
     if n_out is None:
         n_out = int(y.shape[0]) if y is not None else packed.n_rows_logical
+    x = _query_tensor(x, device, 1)
+    words = host_tensor(packed.fused_words(), device)
     sums = bscsr_spmv(
-        _query_tensor(x, device, 1), host_tensor(packed.fused_words(), device),
-        n_rows=packed.max_slots, packets_per_step=packets_per_step,
+        x, words, n_rows=packed.max_slots, packets_per_step=packets_per_step,
         fmt_name=packed.value_format.name, block_size=packed.block_size,
         gather_mode=resolve_gather_mode(gather_mode), inner_loop=inner_loop,
+        splits=spmv_splits(words.device, words.shape[0], packets_per_step=packets_per_step,
+                           block_size=packed.block_size, m=x.shape[0]),
     )
     if y is not None:
         y = torch.as_tensor(y, dtype=torch.float32, device=device)

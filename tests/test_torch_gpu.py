@@ -120,3 +120,85 @@ def test_accumulate_kernel_matches_plain_bitwise(cuda, fmt, block, t, n_cols):
                                   want.numpy().view(np.int32))
     live = np.asarray(packed.candidate_slots)
     assert (want.numpy()[np.arange(n_rows)[None, :] >= live[:, None]] == 0).all()
+
+
+def long_row_csr(n_rows, n_cols, block, seed, dyadic):
+    """Empty rows and, every ninth row, one over five packets."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 13, size=n_rows)
+    lens[::7] = 0
+    lens[4::9] = rng.integers(5 * block + 1, 6 * block, size=len(lens[4::9]))
+    lens = np.minimum(lens, n_cols)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate([np.sort(rng.choice(n_cols, int(n), replace=False))
+                          for n in lens if n]).astype(np.int32)
+    n = int(lens.sum())
+    data = (rng.integers(-128, 128, n) / 128.0 if dyadic else rng.standard_normal(n))
+    return bscsr.CSRMatrix(indptr, idx, data.astype(np.float32), (n_rows, n_cols))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 2000), (256, 2, 2000), (64, 2, 40_000)])
+def test_split_kernel_matches_one_split_bitwise(cuda, fmt, block, t, n_cols):
+    """Random data: every S gives the one-block walk's bits (the kernel's
+    scans are one tree at every S, so the fix-up is the only join)."""
+    csr = long_row_csr(300, n_cols, block, seed=block + t, dyadic=False)
+    packed = ops.pack_partitions(csr, 4, block, fmt, packets_multiple=t,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(t).standard_normal(n_cols)
+                         .astype(np.float32)).to(cuda)
+    kw = dict(n_rows=packed.max_slots, packets_per_step=t, fmt_name=fmt, block_size=block)
+    one = K.bscsr_spmv(x, w, splits=1, **kw)
+    assert float(one.abs().max()) > 0
+    for splits in (None, 2, 5, 64):
+        got = K.bscsr_spmv(x, w, splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), one.view(torch.int32)), splits
+    np.testing.assert_allclose(one.cpu().numpy(),
+                               K.bscsr_spmv_plain(x, w, **kw).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_split_kernel_matches_plain_bitwise_on_a_padded_budget(cuda, fmt):
+    """Dyadic data, flag-free padding steps and a doubled slot budget: the
+    split kernel equals the plain walk bit for bit and leaves every slot that
+    never completes at +0.0."""
+    csr = long_row_csr(200, 512, 32, seed=7, dyadic=True)
+    packed = ops.pack_partitions(csr, 4, 32, fmt, packets_multiple=2,
+                                 stream_layout="fused")
+    words = np.concatenate(
+        [packed.words, np.zeros((4, 8, packed.words.shape[2]), np.int32)], 1)
+    n_rows = 2 * packed.max_slots
+    kw = dict(n_rows=n_rows, packets_per_step=2, fmt_name=fmt, block_size=32)
+    x = torch.from_numpy((np.random.default_rng(8).integers(-16, 17, 512) / 8.0)
+                         .astype(np.float32))
+    w = torch.from_numpy(words)
+    want = K.bscsr_spmv(x, w, **kw).numpy()
+    live = np.asarray(packed.candidate_slots)
+    never = np.arange(n_rows)[None, :] >= live[:, None]
+    for splits in (None, 1, 3, 64):
+        got = K.bscsr_spmv(x.to(cuda), w.to(cuda), splits=splits, **kw)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        assert (got.view(np.int32)[never] == 0).all()
+
+
+def test_split_kernel_counts_one_launch_per_call(cuda):
+    csr = long_row_csr(100, 256, 32, seed=9, dyadic=True)
+    packed = ops.pack_partitions(csr, 2, 32, "F32", packets_multiple=2,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    x = torch.ones(256, device=cuda)
+    kw = dict(n_rows=packed.max_slots, packets_per_step=2, fmt_name="F32", block_size=32)
+    table = K.spmv_split_table(w, packets_per_step=2, block_size=32, splits=4)
+    K.reset_launch_counts()
+    K.bscsr_spmv(x, w, **kw)
+    K.bscsr_spmv(x, w, splits=1, **kw)
+    K.bscsr_spmv(x, w, table=table, **kw)
+    torch.cuda.synchronize()
+    assert K.bscsr_spmv.launches == 3
+    assert K.bscsr_topk_spmv.launches == K.bscsr_topk_spmv_multiquery.launches == 0
+    assert K.spmv_splits(cuda, 2, packets_per_step=2, block_size=32, m=256) >= 1

@@ -118,6 +118,26 @@ class TestAccumulateKernel:
         else:
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("splits", [3, 64])
+    def test_split_walk_matches_the_reference(self, splits):
+        """The split walk (S blocks per core, joined by the carry fix-up) on a
+        row over five packets, empty rows and a padded budget: dyadic, so bit
+        for bit against the reference's single walk."""
+        csr = dyadic_csr(40, 200, seed=8, lens=np.tile([3, 150, 2, 0, 5, 1, 4, 33], 5))
+        tp = both_words(csr, 3, 32, "Q15", 1)
+        words = np.concatenate([tp.words, np.zeros((3, 3, tp.words.shape[2]), np.int32)], 1)
+        x = (np.random.default_rng(9).integers(-16, 17, 200) / 8.0).astype(np.float32)
+        kw = dict(n_rows=2 * tp.max_slots, packets_per_step=1, fmt_name="Q15",
+                  block_size=32)
+        a = jkern.bscsr_spmv(jnp.asarray(x), jnp.asarray(words), stream_layout="fused",
+                             interpret=True, **kw)
+        b = tkern.bscsr_spmv(torch.from_numpy(x), torch.from_numpy(words), splits=splits,
+                             **kw)
+        np.testing.assert_array_equal(bits(a), bits(b))
+        bounds, _ = tkern.spmv_split_table(torch.from_numpy(words), packets_per_step=1,
+                                           block_size=32, splits=splits)
+        assert (bounds[:, 2] > bounds[:, 1]).all()          # at least two splits walk
+
     def test_random_within_tolerance_and_gather_modes(self):
         csr = jbscsr.synthetic_embedding_csr(300, 64, 9, "gamma", seed=14)
         tp = both_words(csr, 3, 64, "F32", 2)
@@ -221,9 +241,14 @@ class TestScatterAndDispatch:
         p[5] = 1.0
         y = ex.spmv(p, idx.packed, alpha=a, beta=b, y=p)
         builds, copies = ex.fn_builds, ex.h2d_copies
+        snap = ex.prepare(idx.packed, ("spmv", 96), "accumulate")[1]
+        table = snap.split_table(cfg.packets_per_step, tkern.PLAIN_SPLITS)
         for _ in range(10):
             y = ex.spmv(y, idx.packed, alpha=a, beta=b, y=p, resident=True)
         assert (ex.fn_builds, ex.h2d_copies) == (builds, copies)
+        # One split table per (snapshot, T, S), built on the device once.
+        assert snap.split_table(cfg.packets_per_step, tkern.PLAIN_SPLITS) is table
+        assert list(snap._split_tables) == [(cfg.packets_per_step, tkern.PLAIN_SPLITS)]
         ref = ex.spmv(p, idx.packed, alpha=a, beta=b, y=p, path="accumulate_ref")
         np.testing.assert_allclose(ref.numpy(), ex.spmv(
             p, idx.packed, alpha=a, beta=b, y=p).numpy(), rtol=1e-6, atol=1e-7)
@@ -343,11 +368,11 @@ class TestPersonalizedPageRank:
         for seeds in ([1, 2, 2], {3: 0.5, 9: 1.5}, full):
             np.testing.assert_array_equal(
                 np.asarray(jgraph.seed_vector(seeds, 64)),
-                tgraph.seed_vector(seeds, 64).numpy())
+                tgraph.seed_vector(seeds, 64, device="cpu").numpy())
         with pytest.raises(ValueError, match="alpha"):
             tgraph.personalized_pagerank(idx, 0, alpha=1.5)
         with pytest.raises(ValueError, match="positive mass"):
-            tgraph.seed_vector(np.zeros(64, np.float32), 64)
+            tgraph.seed_vector(np.zeros(64, np.float32), 64, device="cpu")
         square = ttopk.MutableTopKSpMVIndex(
             port_csr(jbscsr.synthetic_embedding_csr(100, 64, 8, "gamma", 0)),
             ttopk.TopKSpMVConfig(k=8, num_partitions=2, device="cpu"))

@@ -246,6 +246,173 @@ class TestRandomWithinTolerance:
         assert_close_rows(a, b)
 
 
+def split_csr(kind, block, n_cols, seed, sign=0):
+    """Random F32 rows for the split walk.
+
+    "long": empty rows and, every ninth row, one over five packets, so many
+    steps hold no flag bit.  "aligned": rows of whole steps (multiples of
+    2B), so rows open at bit 0 of a step and segment 0 of a split's first
+    step is empty.
+    """
+    rng = np.random.default_rng(seed)
+    if kind == "long":
+        lens = rng.integers(0, 13, size=48)
+        lens[::7] = 0
+        lens[4::9] = rng.integers(5 * block + 1, 6 * block, size=len(lens[4::9]))
+    else:
+        lens = 2 * block * rng.integers(1, 4, size=24)
+        lens[5::6] = rng.integers(1, 2 * block, size=len(lens[5::6]))
+    lens = np.minimum(lens, n_cols)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate([np.sort(rng.choice(n_cols, int(n), replace=False))
+                          for n in lens if n]).astype(np.int32)
+    data = rng.standard_normal(int(lens.sum())).astype(np.float32)
+    if sign:
+        data = sign * np.abs(data)
+    return tbscsr.CSRMatrix(indptr, idx, data, (len(lens), n_cols))
+
+
+def split_words(csr, cores, block, fmt, t, pad_steps=2, flagless_core=True):
+    """Port-packed fused words with flag-free padding steps at the tail and,
+    optionally, an extra core that holds no flag bit at all."""
+    tp = tops.pack_partitions(csr, cores, block, fmt, packets_multiple=t,
+                              stream_layout="fused")
+    words = np.concatenate(
+        [tp.words, np.zeros((cores, pad_steps * t, tp.words.shape[2]), np.int32)], 1)
+    if flagless_core:
+        dead = words[:1].copy()
+        dead[..., : block // 32] = 0
+        words = np.concatenate([words, dead], 0)
+    return words, tp
+
+
+def brute_split_table(words, t, block, splits):
+    """spmv_split_table's rule, one core and one bound at a time."""
+    n_cores, n_packets, _ = words.shape
+    n_steps = n_packets // t
+    flags = words[..., : block // 32].view(np.uint32)
+    bounds = np.zeros((n_cores, splits + 1), np.int32)
+    heads = np.zeros((n_cores, splits), np.int32)
+    for c in range(n_cores):
+        counts = [sum(bin(int(w)).count("1") for w in flags[c, s * t:(s + 1) * t].ravel())
+                  for s in range(n_steps)]
+        flagged = [s for s in range(n_steps) if counts[s]]
+        end = flagged[-1] + 1 if flagged else 0
+        b = [0] + [min([s for s in flagged if s >= i * end // splits], default=end)
+                   for i in range(1, splits)] + [end]
+        b = sorted(end if i and b[i] == b[i - 1] else b[i] for i in range(splits + 1))
+        bounds[c] = b
+        heads[c] = [sum(counts[: b[i]]) - 1 for i in range(splits)]
+    return bounds, heads
+
+
+def spmv(words, x, splits=None, **kw):
+    return tkern.bscsr_spmv(torch.from_numpy(x), torch.from_numpy(words), splits=splits,
+                            **kw).numpy()
+
+
+class TestAccumulateSplit:
+    """The accumulate kernel's split walk (what S blocks per core compute)
+    equals the single walk bit for bit on random data: it is the
+    specification the CUDA kernel is transcribed from."""
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, 5, 64])
+    @pytest.mark.parametrize("kind,block,t", [("long", 32, 1), ("long", 32, 2),
+                                              ("aligned", 32, 2), ("long", 256, 2)])
+    def test_split_table_matches_brute_force(self, splits, kind, block, t):
+        csr = split_csr(kind, block, 2000, seed=splits + t)
+        words, _ = split_words(csr, 3, block, "F32", t)
+        bounds, heads = tkern.spmv_split_table(torch.from_numpy(words), packets_per_step=t,
+                                               block_size=block, splits=splits)
+        want_b, want_h = brute_split_table(words, t, block, splits)
+        np.testing.assert_array_equal(bounds.numpy(), want_b)
+        np.testing.assert_array_equal(heads.numpy(), want_h)
+        assert bounds.dtype == heads.dtype == torch.int32
+        assert (want_b[-1] == 0).all()                          # the flagless core
+        assert (want_b[:-1, -1] < words.shape[1] // t).all()    # padded tails cut
+
+    @pytest.mark.parametrize("fmt", FORMATS)
+    @pytest.mark.parametrize("n_cols", [2000, 40_000])          # int16 and int32 ids
+    @pytest.mark.parametrize("block,t", [(32, 1), (32, 2), (256, 1), (256, 2)])
+    def test_split_walk_equals_single_walk(self, fmt, n_cols, block, t):
+        x = random_queries(1, n_cols, seed=block + t)[0]
+        for kind in ("long", "aligned"):
+            csr = split_csr(kind, block, n_cols, seed=n_cols % 89 + t)
+            words, tp = split_words(csr, 3, block, fmt, t)
+            assert (words.shape[2] - block // 32 - block * tp.value_format.bytes_per_value
+                    // 4 == (block if n_cols > 32_767 else block // 2))
+            kw = dict(n_rows=2 * tp.max_slots, packets_per_step=t, fmt_name=fmt,
+                      block_size=block)
+            single = spmv(words, x, **kw)
+            assert np.abs(single).max() > 0
+            for splits in (1, 2, 5, 64):
+                np.testing.assert_array_equal(spmv(words, x, splits, **kw).view(np.int32),
+                                              single.view(np.int32))
+
+    def test_all_negative_padded_budget(self):
+        csr = split_csr("long", 32, 64, seed=3, sign=-1)
+        words, tp = split_words(csr, 2, 32, "Q7", 2, pad_steps=4)
+        x = np.abs(random_queries(1, 64, seed=4)[0])
+        kw = dict(n_rows=4 * tp.max_slots, packets_per_step=2, fmt_name="Q7",
+                  block_size=32)
+        single = spmv(words, x, **kw)
+        assert (single <= 0).all() and (single < 0).any()
+        live = np.append(np.asarray(tp.candidate_slots), 0)
+        phantom = np.arange(kw["n_rows"])[None, :] >= live[:, None]
+        for splits in (1, 2, 5, 64):
+            got = spmv(words, x, splits, **kw)
+            np.testing.assert_array_equal(got.view(np.int32), single.view(np.int32))
+            assert (got.view(np.int32)[phantom] == 0).all()     # +0.0, not -0.0
+
+    def test_poisoned_padding_ids(self):
+        csr = split_csr("long", 32, 64, seed=10)
+        words, tp = split_words(csr, 2, 32, "BF16", 2, flagless_core=False)
+        dirty = poison_padding(words, 32, "BF16", np.asarray(tp.candidate_slots))
+        assert not np.array_equal(dirty, words)
+        x = random_queries(1, 64, seed=11)[0]
+        kw = dict(n_rows=tp.max_slots, packets_per_step=2, fmt_name="BF16", block_size=32)
+        single = spmv(words, x, **kw)
+        for splits in (1, 2, 5, 64):
+            np.testing.assert_array_equal(spmv(dirty, x, splits, **kw).view(np.int32),
+                                          single.view(np.int32))
+
+    def test_fix_up_carries_across_splits(self):
+        """The split walk joins rows that open in one split and close in the
+        next; without the previous split's carry the sums would differ."""
+        csr = split_csr("long", 32, 2000, seed=12)
+        words, tp = split_words(csr, 3, 32, "F32", 1)
+        t_words = torch.from_numpy(words)
+        bounds, heads = tkern.spmv_split_table(t_words, packets_per_step=1, block_size=32,
+                                               splits=5)
+        bounds_np = bounds.numpy()
+        opens_early = False
+        for c in range(words.shape[0]):
+            for i in range(1, 5):
+                b = bounds_np[c, i]
+                if b < bounds_np[c, i + 1]:
+                    first_bit = int(words[c, b, 0]) & 1
+                    opens_early |= not first_bit and heads.numpy()[c, i] >= 0
+        assert opens_early                      # some head piece joins a carry
+        x = random_queries(1, 2000, seed=13)[0]
+        kw = dict(n_rows=tp.max_slots, packets_per_step=1, fmt_name="F32", block_size=32)
+        np.testing.assert_array_equal(
+            tkern.bscsr_spmv(torch.from_numpy(x), t_words, table=(bounds, heads),
+                             **kw).numpy().view(np.int32),
+            spmv(words, x, **kw).view(np.int32))
+
+    def test_table_rules(self):
+        words = torch.zeros((2, 4, 1 + 16 + 32), dtype=torch.int32)
+        with pytest.raises(ValueError, match="splits"):
+            tkern.spmv_split_table(words, packets_per_step=2, block_size=32, splits=0)
+        bounds, heads = tkern.spmv_split_table(words, packets_per_step=2, block_size=32,
+                                               splits=3)
+        assert bounds.tolist() == [[0] * 4] * 2 and heads.tolist() == [[-1] * 3] * 2
+        assert tkern.spmv_splits("cpu", 2, packets_per_step=2, block_size=32, m=64) == \
+            tkern.PLAIN_SPLITS
+        assert tkern.bscsr_spmv(torch.zeros(64), words, n_rows=4, packets_per_step=2,
+                                fmt_name="F32", block_size=32, splits=3).abs().max() == 0
+
+
 class TestWrapperRules:
     def test_inner_loops_and_gather_modes_share_one_rule(self):
         csr = dyadic_csr(seed=16)
