@@ -15,9 +15,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              the accumulate kernel must leave at exactly 0.0), flag-free
              padding packets, poisoned padding ids.  Dyadic fixtures must be
              bit-identical; random ones agree within rtol = atol = 1e-5 with
-             equal row ids outside near-ties.  The accumulate kernel runs at
-             the card's S blocks per core, at one and at 64, and every S
-             must give the bits of S = 1.
+             equal row ids outside near-ties.  The multi-query kernel (at
+             Q in {1, 3, 64}) and the accumulate kernel run at the card's S
+             blocks per core, at one and at 64, and every S must give the
+             bits of S = 1.
 3. main path the deployment configuration of ``repro.configs.topk_spmv``
              (10M rows x 512 columns, gamma row lengths with mean 20, BF16,
              B=256, K=100, k=8, T=2, fused layout, c=32) through the mutable
@@ -30,8 +31,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              upserts.  Both top-k kernels' launch counts must rise here, and
              the executor's host-to-device copies stay flat in steady state.
 4. timings   each top-k kernel at every Q the main path gives it on the main
-             path's streams, and the accumulate kernel on phase 6's streams
-             before and after the first mutation (run after phase 6;
+             path's streams before and after ingest (the multi-query kernel
+             at the card's S and at one split, in turns, with its S,
+             q_chunk and split-table build time printed; at the card's S
+             bit-identical to S = 1), and the accumulate kernel on phase 6's
+             streams before and after the first mutation (run after phase 6;
              bit-identical to plain on dyadic values, within a stated
              rounding bound on random x, and at the card's S bit-identical
              to S = 1 on random x; both S timed in turns with the split
@@ -90,6 +94,9 @@ REPLACES = {
 # Clock cycles of the sleep that holds the stream while time_cuda queues
 # its launches (about 50 ms: longer than 50 calls take to enqueue).
 HOLD_CYCLES = 100_000_000
+# Extra calls of the multi-query kernel at each S, Q and snapshot of phase 4
+# that must repeat the S = 1 bits.
+MQ_REPEATS = 10
 GRAPH_NODES = 1 << 21
 GRAPH_NNZ = 5_242_878          # the reference's synthetic_graph_csr("ring", 2**21, 0)
 GRAPH_SEEDS = [5, 17, 4242]
@@ -192,6 +199,7 @@ def parity_phase(torch, K, ops, bscsr, errs):
                   "Q15", 32, 1, 3, True, "mixed", None))
     cases.append(("poisoned padding ids", dyadic_csr(bscsr, rng, 30, 64), "BF16", 32, 2,
                   2, True, "mixed", "poison"))
+    n_checks = 0
     for name, csr, fmt, block, t, cores, bitwise, xsign, edit in cases:
         packed = ops.pack_partitions(csr, cores, block, fmt, packets_multiple=t,
                                      stream_layout="fused")
@@ -214,15 +222,27 @@ def parity_phase(torch, K, ops, bscsr, errs):
             if q == 1:
                 got = K.bscsr_topk_spmv(x[0], w, **kw)
                 want = K.bscsr_topk_spmv_plain(x[0], w, **kw)
-                name_k = "bscsr_topk_spmv"
-            else:
-                got = K.bscsr_topk_spmv_multiquery(x, w, **kw)
-                want = K.bscsr_topk_spmv_multiquery_plain(x, w, **kw)
-                name_k = "bscsr_topk_spmv_multiquery"
-            torch.cuda.synchronize()
-            ok, err = compare(got, want, bitwise)
-            errs[name_k] = max(errs[name_k], err)
-            check.expect(ok, f"{name} Q={q}: kernel != plain (max err {err:.3g})")
+                torch.cuda.synchronize()
+                ok, err = compare(got, want, bitwise)
+                errs["bscsr_topk_spmv"] = max(errs["bscsr_topk_spmv"], err)
+                check.expect(ok, f"{name} Q=1: single-query kernel != plain (max err "
+                                 f"{err:.3g})")
+                n_checks += 1
+            # The multi-query kernel at the card's S, at one split and at 64:
+            # each against plain, and every S against S = 1 bit for bit.
+            want = K.bscsr_topk_spmv_multiquery_plain(x, w, **kw)
+            one = K.bscsr_topk_spmv_multiquery(x, w, splits=1, **kw)
+            for splits in (None, 1, 64):
+                got = K.bscsr_topk_spmv_multiquery(x, w, splits=splits, **kw)
+                torch.cuda.synchronize()
+                ok, err = compare(got, want, bitwise)
+                errs["bscsr_topk_spmv_multiquery"] = max(errs["bscsr_topk_spmv_multiquery"],
+                                                         err)
+                check.expect(ok, f"{name} Q={q} S={splits}: multi-query kernel != plain "
+                                 f"(max err {err:.3g})")
+                check.expect(compare(got, one, True)[0],
+                             f"{name} Q={q} S={splits}: multi-query kernel != its S=1 bits")
+                n_checks += 1
         # The accumulate kernel on the same words, first query of the case, at
         # the card's S, at one split and at 64 (past the flagged steps of
         # these fixtures): each against plain, and every S against S = 1 bit
@@ -246,7 +266,8 @@ def parity_phase(torch, K, ops, bscsr, errs):
                          f"{name} S={splits}: accumulate kernel != its S=1 bits")
             check.expect(bool((gv.view(np.int32)[never] == 0).all()),
                          f"{name} S={splits}: a slot that never completes is not 0.0")
-    log(f"  {len(cases) * 6} kernel/plain comparisons")
+            n_checks += 1
+    log(f"  {n_checks} kernel/plain comparisons")
     check.done()
 
 
@@ -307,9 +328,14 @@ def kernel_registers(report: str) -> dict:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = next((k for k in ("topk_spmv_mq_kernel", "topk_spmv_kernel",
-                                     "spmv_accum_kernel", "spmv_fixup_kernel")
+            name = next((k for k in ("topk_spmv_mq_split_kernel", "topk_spmv_mq1_kernel",
+                                     "topk_mq_merge_kernel",
+                                     "topk_spmv_kernel", "spmv_accum_kernel",
+                                     "spmv_fixup_kernel")
                          if k in m.group(1)), m.group(1))
+            qc = re.search(r"ILi(\d+)E", m.group(1))      # the template's queries a block
+            if qc:
+                name += f"<{qc.group(1)}>"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
@@ -532,62 +558,52 @@ def main() -> int:
 
     # ---- phase 4: timings of the top-k kernels on the main path's streams ----
     # On the snapshot before ingest (the exact packet count, as in earlier
-    # runs), kernel and plain version; then the kernel alone on the snapshot
-    # after ingest, whose packet count is the churn-stable bucket.
+    # runs) and on the snapshot after it (the churn-stable packet bucket),
+    # each kernel against its plain version.
     check = Check("timings")
     kw = dict(k=cfg.k, n_rows=main_slots, packets_per_step=cfg.packets_per_step,
               fmt_name="BF16", block_size=cfg.block_size)
     x1 = torch.from_numpy(xs64[0]).cuda()
     x64 = torch.from_numpy(xs64).cuda()
-    stream_bytes = words.numel() * 4
-    kernels = []
-    # Every shape the main path gives a kernel: the single-query kernel at
-    # Q=1 (topk_spmv); the multi-query kernel at Q=1 (query), 8 and 64
-    # (query_batch).  The kernel line reports the last Q of each.
-    shapes = (("bscsr_topk_spmv", (1,)), ("bscsr_topk_spmv_multiquery", (1, 8, 64)))
-    for name, qs in shapes:
-        wrapper = getattr(K, name)
-        plain = getattr(K, name + "_plain")
-        ms_by_q, plain_ms_by_q = {}, {}
-        for q in qs:
-            x = x1 if name == "bscsr_topk_spmv" else x64[:q].contiguous()
-            ms_by_q[q] = time_cuda(torch, lambda: wrapper(x, words, **kw))
-            plain_ms_by_q[q], want = time_once(torch, lambda: plain(x, words, **kw))
-            ok, err = compare(wrapper(x, words, **kw), want, bitwise=False)
-            torch.cuda.synchronize()
-            check.expect(ok, f"{name} at Q={q} on the main path's streams differs "
-                             f"from plain (max err {err:.3g})")
-            errs[name] = max(errs[name], err)
-            log(f"  {name} Q={q}: {ms_by_q[q]:.3f} ms, plain {plain_ms_by_q[q]:.1f} ms, "
-                f"max abs err {err:.3g}")
-        ms, plain_ms = ms_by_q[q], plain_ms_by_q[q]
-        nbytes = stream_bytes + x.numel() * 4 + main_cores * q * cfg.k * 8
-        flops = 2.0 * main_nnz * q
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops / F32_FLOPS * 1e3
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None, "q": q, "ms_by_q": ms_by_q,
-            "achieved_gb_per_s": stream_bytes / (ms * 1e-3) / 1e9,
-            "queries_per_s": q / (ms * 1e-3),
-        })
-        log(f"  {name} Q={q}: bound {max(bytes_ms, flops_ms):.3f} ms by "
-            f"{kernels[-1]['bound_by']}")
     packed = svc.index.packed
-    ingested = torch.from_numpy(np.ascontiguousarray(packed.words)).cuda()
-    ikw = dict(kw, n_rows=packed.max_slots)
-    for entry in kernels:
-        q = entry["q"]
-        x = x1 if q == 1 else x64[:q].contiguous()
-        wrapper = getattr(K, entry["name"])
-        entry["ms_after_ingest"] = time_cuda(torch, lambda: wrapper(x, ingested, **ikw))
-        entry["packets_after_ingest"] = packed.vals.shape[1]
-        log(f"  {entry['name']} Q={q} after ingest ({packed.vals.shape[1]} packets per "
-            f"core): {entry['ms_after_ingest']:.3f} ms")
-    del ingested, packed
+    snaps = (("before ingest", words, main_slots),
+             ("after ingest", torch.from_numpy(np.ascontiguousarray(packed.words)).cuda(),
+              packed.max_slots))
+    ingest_packets = packed.vals.shape[1]
+    del packed
+
+    def bound(q):
+        """(bound ms, bound_by) of a Q-query pass over the main path's stream."""
+        nbytes = words.numel() * 4 + q * 512 * 4 + main_cores * q * cfg.k * 8
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = 2.0 * main_nnz * q / F32_FLOPS * 1e3
+        return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+    # The single-query kernel (topk_spmv) at Q = 1.
+    name = "bscsr_topk_spmv"
+    ms, ms_after = (time_cuda(torch, lambda: K.bscsr_topk_spmv(x1, w, **dict(kw, n_rows=n)))
+                    for _, w, n in snaps)
+    plain_ms, want = time_once(torch, lambda: K.bscsr_topk_spmv_plain(x1, words, **kw))
+    ok, err = compare(K.bscsr_topk_spmv(x1, words, **kw), want, bitwise=False)
+    check.expect(ok, f"{name} on the main path's streams differs from plain "
+                     f"(max err {err:.3g})")
+    errs[name] = max(errs[name], err)
+    bound_ms, bound_by = bound(1)
+    log(f"  {name} Q=1: {ms:.3f} ms, after ingest ({ingest_packets} packets per core) "
+        f"{ms_after:.3f} ms, plain {plain_ms:.1f} ms, max abs err {err:.3g}, bound "
+        f"{bound_ms:.3f} ms by {bound_by}")
+    kernels = [{
+        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "q": 1, "ms_by_q": {1: ms}, "ms_after_ingest": ms_after,
+        "packets_after_ingest": ingest_packets,
+        "achieved_gb_per_s": words.numel() * 4 / (ms * 1e-3) / 1e9,
+        "queries_per_s": 1 / (ms * 1e-3),
+    }]
+    kernels.append(multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound))
+    kernels[-1]["packets_after_ingest"] = ingest_packets
+    del snaps
     check.done()
 
     # Yardstick: the exact-search score pass (not the same function: it
@@ -625,6 +641,91 @@ def main() -> int:
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) -> dict:
+    """The multi-query kernel at every Q the main path gives it (1 for
+    ``query``, 8 and 64 for ``query_batch``), on the snapshots before and
+    after ingest, at the card's S (``topk_splits``) and at one split (the
+    one-block walk, cut at e_c), timed in turns with the split tables built
+    beforehand, as the executor holds them.  At each Q and snapshot the
+    kernel is held against its plain version, and the card's S against the
+    S = 1 bits; then ``MQ_REPEATS`` more calls at each S must give those
+    bits again (a race between warps would show only now and then).
+    """
+    name = "bscsr_topk_spmv_multiquery"
+    t, block = kw["packets_per_step"], kw["block_size"]
+    entry = {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+             "launches": launches[name], "library_ms": None}
+    by = {"ms_by_q": {}, "ms_one_split_by_q": {}, "ms_after_ingest_by_q": {},
+          "ms_after_ingest_one_split_by_q": {}, "plain_ms_by_q": {},
+          "plain_ms_after_ingest_by_q": {}, "splits_by_q": {}, "q_chunk_by_q": {},
+          "bound_ms_by_q": {}}
+    for label, words, n_rows in snaps:
+        kwl = dict(kw, n_rows=n_rows)
+        after = label == "after ingest"
+        for q in (1, 8, 64):
+            x = x64[:q].contiguous()
+            q_chunk, n_chunks = K.query_chunks(q)
+            splits = K.topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
+                                   block_size=block, m=x.shape[1], q_chunk=q_chunk,
+                                   k=kw["k"])
+            build = lambda: K.spmv_split_table(words, packets_per_step=t,  # noqa: E731
+                                               block_size=block, splits=splits)
+            if q == 1:
+                table_ms, table_host_ms = time_cuda(torch, build), host_ms_per_call(torch,
+                                                                                     build)
+                log(f"SPLIT_TABLE {label}: build {table_ms:.4f} ms on the device, "
+                    f"{table_host_ms:.4f} ms of host enqueue (S = {splits}, once per "
+                    f"snapshot)")
+                entry["split_table_ms" + ("_after_ingest" if after else "")] = table_ms
+            tabs = {s: K.spmv_split_table(words, packets_per_step=t, block_size=block,
+                                          splits=s) for s in {splits, 1}}
+            plain_ms, want = time_once(
+                torch, lambda: K.bscsr_topk_spmv_multiquery_plain(x, words, **kwl))
+            got = K.bscsr_topk_spmv_multiquery(x, words, table=tabs[splits], **kwl)
+            one = K.bscsr_topk_spmv_multiquery(x, words, table=tabs[1], **kwl)
+            torch.cuda.synchronize()
+            check.expect(compare(got, one, True)[0],
+                         f"{name} Q={q} {label}: S={splits} and S=1 differ")
+            for s, out in ((splits, got), (1, one)):
+                ok, err = compare(out, want, bitwise=False)
+                errs[name] = max(errs[name], err)
+                check.expect(ok, f"{name} Q={q} S={s} {label} differs from plain "
+                                 f"(max err {err:.3g})")
+            for s in (splits, 1):
+                reps = [K.bscsr_topk_spmv_multiquery(x, words, table=tabs[s], **kwl)
+                        for _ in range(MQ_REPEATS)]
+                torch.cuda.synchronize()
+                bad = sum(not (torch.equal(v.view(torch.int32), one[0].view(torch.int32))
+                               and torch.equal(r, one[1])) for v, r in reps)
+                check.expect(bad == 0, f"{name} Q={q} S={s} {label}: {bad} of {MQ_REPEATS} "
+                                       f"repeated calls differ from the S=1 bits")
+            # In turns: S, 1, 1, S.
+            turns = [time_cuda(torch, lambda: K.bscsr_topk_spmv_multiquery(
+                x, words, table=tabs[s], **kwl)) for s in (splits, 1, 1, splits)]
+            ms, ms_one = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            suffix = "_after_ingest" if after else ""
+            by["ms" + suffix + "_by_q"][q] = ms
+            by["ms" + suffix + "_one_split_by_q"][q] = ms_one
+            by["plain_ms" + suffix + "_by_q"][q] = plain_ms
+            by["splits_by_q"][q] = splits
+            by["q_chunk_by_q"][q] = q_chunk
+            by["bound_ms_by_q"][q] = bound(q)[0]
+            log(f"  {name} Q={q} {label}: S={splits} (q_chunk {q_chunk}, {n_chunks} chunks) "
+                f"{turns[0]:.3f} / {turns[3]:.3f} ms, S=1 {turns[1]:.3f} / {turns[2]:.3f} "
+                f"ms, plain {plain_ms:.1f} ms, max abs err {errs[name]:.3g}, bound "
+                f"{bound(q)[0]:.3f} ms")
+    q = 64
+    ms = by["ms_by_q"][q]
+    entry.update({
+        "max_abs_err": errs[name], "ms": ms, "plain_ms": by["plain_ms_by_q"][q],
+        "bound_ms": bound(q)[0], "bound_by": bound(q)[1], "q": q,
+        "splits": by["splits_by_q"][q], "ms_after_ingest": by["ms_after_ingest_by_q"][q],
+        "achieved_gb_per_s": snaps[0][1].numel() * 4 / (ms * 1e-3) / 1e9,
+        "queries_per_s": q / (ms * 1e-3), **by,
+    })
+    return entry
 
 
 def ulp_gap(a: np.ndarray, b: np.ndarray):

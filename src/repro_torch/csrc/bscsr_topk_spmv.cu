@@ -34,16 +34,18 @@
 //            asc), which is lax.top_k's order.  The result is independent of
 //            the order of the list, so the append may race.
 //   stage 4' (accumulate) a completed row's sum is stored at its slot.
-// In the top-k kernels stages 1-3 are one template (walk) with a stage-4
-// struct plugged in; the accumulate kernel has its own walk (accum_walk),
-// with the same arithmetic.  The next step's words are loaded into registers
-// before the current step's scans, hiding part of the load latency.
+// In the single-query kernel stages 1-3 are one template (walk) with a
+// stage-4 struct plugged in; the multi-query and accumulate kernels have
+// their own walks (mq_walk, accum_walk), with the same arithmetic.  The next
+// step's words are loaded into registers before the current step's scans,
+// hiding part of the load latency.
 //
-// The stage-3 carry crosses packet boundaries, so the top-k kernels walk a
-// core's packets in order with ONE block (the TPU's sequential grid axis
-// becomes a loop inside the block).  A step costs about 1.3 us of scan
+// The stage-3 carry crosses packet boundaries, so the single-query kernel
+// walks a core's packets in order with ONE block (the TPU's sequential grid
+// axis becomes a loop inside the block).  A step costs about 1.2 us of scan
 // latency and 11 barriers, not bytes, so with c = 32 cores on 132 SMs a
-// one-block walk reaches a few percent of the byte bound.
+// one-block walk reaches a few percent of the byte bound.  The other two
+// kernels split each core's stream among blocks.
 //
 // The accumulate kernel splits each core's stream among S blocks (grid
 // C x S, S from the occupancy calculator: one wave fills the card).  A split
@@ -70,6 +72,33 @@
 // blocks of 512 threads per SM (about 40 registers each) keep about 12 KB per SM
 // in flight, which at HBM latency sustains well under 3.35 TB/s; a deeper
 // ring of steps in shared memory (cp.async) is the next step.
+//
+// The multi-query kernel (topk_spmv_mq1_kernel or topk_spmv_mq_split_kernel,
+// then topk_mq_merge_kernel) replaced a one-block walk per (core, chunk of 8
+// queries) that reached 0.5-1.7% of its bounds: 32 of 132 SMs worked at
+// Q <= 8, and each query of a chunk ran its own block scans, about 53
+// barriers a step at 8 queries.  Latency
+// per step bounds it, not bytes (Q = 1) or f32 operations (Q = 64).  It walks
+// the accumulate kernel's split table on a grid of (core, split, query
+// chunk), S from the occupancy calculator over cores x chunks (one wave),
+// and cuts every walk at e_c.  Each block starts from carry 0.0 and empty
+// scratchpads; a split after the first keeps the head piece of the row open
+// at its first step (not a candidate there) and hands it, with every
+// split's final carry, to (C, S, Q) side buffers, and its scratchpads to
+// (C, S, Q, k) ones.  Exactness: a walk admits a row when strictly above the
+// scratchpad minimum at the start of the step and ranks in lax.top_k order;
+// slots rise along the walk, no candidate scores -0.0 (stage 3 adds +0.0 or
+// a carry that is never -0.0) and NaN is never admitted, so "above the
+// step-start minimum" is "ranks before the current k-th entry", and a walk's
+// final scratchpad is the top k of the rows it completed.  The single walk's
+// is then the top k of (the fold of splits before i, split i's head row,
+// split i's own top k), which the fold kernel computes in split order: head
+// score = head piece + carry of split i-1 (the single walk's one f32
+// addition for that row), admitted when > the fold's minimum (the single
+// walk's threshold at that step), then an in-order merge of split i's
+// list.  Every S gives the bits of S = 1.  Within a step, stage 2 is one
+// scan pass for all queries of the block (mq_walk), so a step costs 3
+// barriers at any chunk width.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -392,11 +421,6 @@ __device__ void walk(const Params& p, int core, int q0, int nq, const Stage& sta
 
 __global__ void topk_spmv_kernel(Params p) { walk(p, blockIdx.x, 0, 1, TopkStage{}); }
 
-__global__ void topk_spmv_mq_kernel(Params p) {
-  const int q0 = blockIdx.y * p.q_chunk;
-  walk(p, blockIdx.x, q0, min(p.q_chunk, p.nq - q0), TopkStage{});
-}
-
 // A thread's place in the accumulate walk, fixed for the whole walk: its
 // packet row at the first step, the words per step, and the offsets of its
 // flag, column and value words in a packet row.
@@ -620,16 +644,431 @@ __global__ void spmv_fixup_kernel(Params p, Splits sp) {
   }
 }
 
-enum class Kind { kTopk, kMultiquery, kAccumulate };
+// The multi-query kernel's split table and side buffers.  A second kernel
+// argument, as Splits is for the accumulate kernel.
+struct MqSplits {
+  const int32_t* bounds;    // (C, S+1) step bounds of each core's splits
+  const int32_t* head_row;  // (C, S) slot of the row open at each split's start
+  float* pad_v;             // (C, S, Q, k) each split's scratchpad (S = 1: the output)
+  int32_t* pad_r;           // (C, S, Q, k)
+  float* heads;             // (C, S, Q) head piece of each split after the first
+  float* carries;           // (C, S, Q) open-row carry after each split's last step
+  int n;                    // S
+};
 
-// Dynamic shared memory of a launch; x stays in global memory when keeping
-// it in shared memory would pass 160 KB.  0 when even that does not fit.
-size_t plan_smem(Kind kind, int tb, int q_chunk, int k, int m, int* x_in_smem) {
-  constexpr size_t kSmemLimit = 227 * 1024;
-  auto bytes_of = [&](int in_smem) {
-    return kind == Kind::kAccumulate ? accum_smem_bytes(tb, m, in_smem)
-                                     : smem_bytes(tb, q_chunk, k, m, in_smem);
+// The multi-query walk's shared memory for qc queries a block: x (when it
+// fits), every query's prefixes, the warps' flag bits (by step parity), the
+// scans' warp totals (column 0 the flags, column 1 + q query q's products),
+// the scratchpads, the carries (by step parity) and admission thresholds,
+// the carry row and the candidate lists (both by step parity).
+struct MqSmem {
+  float* x;       // qc * m (only when x_in_smem)
+  float* ps;      // qc * TB
+  unsigned* fw;   // 2 * 32
+  int* warp_i;    // 32
+  float* warp_f;  // qc * 32
+  float* acc_v;   // qc * k, sorted by (total order desc, slot asc)
+  int* acc_r;     // qc * k
+  float* carry;   // 2 * qc, then qc thresholds (mq_walk's `thr`)
+  int* row;       // 2
+  float* cand_v;  // 2 * qc * (TB + 1)
+  int* cand_r;    // 2 * qc * (TB + 1)
+  int* cand_n;    // 2 * qc
+};
+
+__host__ __device__ inline size_t mq_smem_bytes(int tb, int qc, int k, int m, int x_in_smem) {
+  const size_t q = size_t(qc);
+  size_t n = x_in_smem ? align8(sizeof(float) * q * m) : 0;
+  n += align8(sizeof(float) * q * tb) + align8(sizeof(unsigned) * 64);
+  n += align8(sizeof(int) * 32) + align8(sizeof(float) * q * 32);
+  n += 2 * align8(sizeof(float) * q * k);
+  n += align8(sizeof(float) * 3 * q) + align8(sizeof(int) * 2);
+  n += 2 * align8(sizeof(float) * 2 * q * (tb + 1));
+  return n + align8(sizeof(int) * 2 * q);
+}
+
+__device__ inline MqSmem mq_carve(unsigned char* base, int tb, int qc, int k, int m,
+                                  int x_in_smem) {
+  MqSmem s;
+  unsigned char* p = base;
+  auto take = [&p](size_t bytes) { unsigned char* r = p; p += align8(bytes); return r; };
+  const size_t q = size_t(qc);
+  s.x = x_in_smem ? reinterpret_cast<float*>(take(sizeof(float) * q * m)) : nullptr;
+  s.ps = reinterpret_cast<float*>(take(sizeof(float) * q * tb));
+  s.fw = reinterpret_cast<unsigned*>(take(sizeof(unsigned) * 64));
+  s.warp_i = reinterpret_cast<int*>(take(sizeof(int) * 32));
+  s.warp_f = reinterpret_cast<float*>(take(sizeof(float) * q * 32));
+  s.acc_v = reinterpret_cast<float*>(take(sizeof(float) * q * k));
+  s.acc_r = reinterpret_cast<int*>(take(sizeof(int) * q * k));
+  s.carry = reinterpret_cast<float*>(take(sizeof(float) * 3 * q));
+  s.row = reinterpret_cast<int*>(take(sizeof(int) * 2));
+  s.cand_v = reinterpret_cast<float*>(take(sizeof(float) * 2 * q * (tb + 1)));
+  s.cand_r = reinterpret_cast<int*>(take(sizeof(int) * 2 * q * (tb + 1)));
+  s.cand_n = reinterpret_cast<int*>(take(sizeof(int) * 2 * q));
+  return s;
+}
+
+// (c, r) into a sorted k-entry list when it ranks before the last entry.
+__device__ inline void insert_sorted(float* av, int* ar, int k, float c, int r) {
+  const int kc = total_key(c);
+  if (!ranks_before(kc, r, total_key(av[k - 1]), ar[k - 1])) return;
+  int pos = k - 1;
+  while (pos > 0 && ranks_before(kc, r, total_key(av[pos - 1]), ar[pos - 1])) {
+    av[pos] = av[pos - 1];
+    ar[pos] = ar[pos - 1];
+    --pos;
+  }
+  av[pos] = c;
+  ar[pos] = r;
+}
+
+// Stages 1-4 of the multi-query kernel: block (core, split, chunk) walks
+// n_steps steps of its core from `first` for queries q0 .. q0+nq-1, from
+// carry row `row_start`, carry 0.0 and empty scratchpads, and stores each
+// query's scratchpad in its slice of pad_v / pad_r.  In head mode (a split
+// after the first, which starts at a flagged step) the row open at `first`
+// completes in that step, but only the fold knows its carry: its head piece
+// goes to `heads`, and every split's final carry to `carries`.
+//
+// Stage 2 is one scan pass: every query's product goes up block_scan's warp
+// shuffle tree in the same loop, the warp totals are scanned by one warp per
+// column (the flag counts, then each query), and each thread adds its warp's
+// offset: block_scan's association for every query, so the bits of the
+// one-block walk.  The flags are counted from a warp ballot.  A segment's
+// start prefix is read at the nnz before its first, found in the ballots, so
+// no array of starts is published.  A step's candidates are inserted two
+// steps later (lists double-buffered by step parity), by one thread per
+// query while the other warps decode, so no barrier waits for them:
+// admission then compares with a minimum that may not hold the previous
+// step's candidates yet, a lower threshold that admits more candidates, and
+// insertion ranks each one exactly against the current k-th entry, so the
+// scratchpad ends the same.  Admission reads a copy of the minimum that the
+// inserting thread stores once its insertions are done (`thr`), never the
+// list that thread is writing.  One set of three barriers a step (warp
+// totals, scanned totals, prefixes) serves every query of the chunk, where
+// the one-block walk spends 4 + 6 per query + 1.
+template <int QC>
+__device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split, int q0,
+                        int nq, long long first, int n_steps, int row_start, bool head) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tb = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = tb >> 5;
+  const int k = p.k;
+  const int cap = tb + 1;  // candidates a query can have in one step
+  MqSmem s = mq_carve(smem_raw, tb, QC, k, p.m, p.x_in_smem);
+  // Each query's admission threshold, acc_v's last entry once an insertion
+  // is done.  Addressed from `carry`: one pointer fewer to keep live in the
+  // one-query kernel, which is held to 40 registers.
+  volatile float* thr = s.carry + 2 * QC;
+  if (p.x_in_smem) {
+    const float* xs = p.x + static_cast<long long>(q0) * p.m;
+    for (int i = tid; i < nq * p.m; i += tb) s.x[i] = xs[i];
+  }
+  for (int i = tid; i < QC * k; i += tb) {
+    s.acc_v[i] = kNegInf;
+    s.acc_r[i] = p.n_rows;
+  }
+  if (tid < 2 * QC) s.cand_n[tid] = 0;
+  if (tid < QC) {
+    thr[tid] = kNegInf;
+    s.carry[tid] = 0.0f;
+  }
+  if (tid == 0) s.row[0] = row_start;
+  __syncthreads();
+
+  const Lane lp = lane_of(p, core, first, tid);
+  const int32_t* row = lp.row;
+  auto gather = [&](int c, int q) {
+    if (q >= nq || c < 0 || c >= p.m) return 0.0f;
+    return p.x_in_smem ? s.x[q * p.m + c]
+                       : __ldg(p.x + static_cast<long long>(q0 + q) * p.m + c);
   };
+  // Query `q`'s candidates of the step of parity `b` into its sorted
+  // scratchpad.  The result is independent of the list's order, so the
+  // appends may race.  Other warps may still admit the previous step's rows
+  // while this runs, so they read `thr`, never acc_v: one volatile store
+  // after the insertions, so a reader sees the minimum of a finished state
+  // (at most the step-start minimum) and never a store the compiler makes
+  // into acc_v while it shifts.
+  auto insert = [&](int q, int b) {
+    int* n = s.cand_n + b * QC + q;
+    const float* cv = s.cand_v + (b * QC + q) * cap;
+    const int* cr = s.cand_r + (b * QC + q) * cap;
+    float* av = s.acc_v + q * k;
+    for (int i = 0; i < *n; ++i) insert_sorted(av, s.acc_r + q * k, k, cv[i], cr[i]);
+    *n = 0;
+    thr[q] = av[k - 1];
+  };
+  auto head_out = [&](int q, float piece) {
+    sp.heads[(static_cast<long long>(core) * sp.n + split) * p.nq + q0 + q] = piece;
+  };
+  int f, col;
+  float v;
+  decode(p, load_lane(lp, row), lp.j, &f, &col, &v);
+  float xv[QC];
+#pragma unroll
+  for (int q = 0; q < QC; ++q) xv[q] = gather(col, q);
+  Raw next{0, 0, 0};
+  if (n_steps > 1) {
+    row += lp.stride;
+    next = load_lane(lp, row);
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    const int buf = i & 1;
+    // The candidates of step i - 2 (the list of this parity), whose appends
+    // ended before step i - 1's first barrier, while the other warps decode.
+    if (tid < nq) insert(tid, buf);
+    float ps[QC];
+#pragma unroll
+    for (int q = 0; q < QC; ++q) ps[q] = __fmul_rn(v, xv[q]);
+    // The next step's nnz is decoded and its x gathered now; its words were
+    // loaded a step ago.
+    int f_next = 0;
+    if (i + 1 < n_steps) {
+      decode(p, next, lp.j, &f_next, &col, &v);
+#pragma unroll
+      for (int q = 0; q < QC; ++q) xv[q] = gather(col, q);
+      if (i + 2 < n_steps) {
+        row += lp.stride;
+        next = load_lane(lp, row);
+      }
+    }
+    // ---- stage 2: one scan of the flag bits and every query's products ----
+    // The flag scan is an integer count, so a ballot and a popcount give it
+    // without a shuffle tree; the products keep block_scan's tree.
+    const unsigned bits = __ballot_sync(0xffffffffu, f);
+    unsigned* fw = s.fw + buf * 32;
+    int seg = __popc(bits & (0xffffffffu >> (31 - lane)));
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        const float y = __shfl_up_sync(0xffffffffu, ps[q], d);
+        if (lane >= d) ps[q] = __fadd_rn(ps[q], y);
+      }
+    }
+    if (lane == 31) {
+      fw[warp] = bits;
+      s.warp_i[warp] = seg;
+#pragma unroll
+      for (int q = 0; q < QC; ++q) s.warp_f[q * 32 + warp] = ps[q];
+    }
+    __syncthreads();
+    for (int c = warp; c <= QC; c += nwarps) {
+      if (c == 0) {
+        int w = lane < nwarps ? s.warp_i[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, w, d);
+          if (lane >= d) w += y;
+        }
+        if (lane < nwarps) s.warp_i[lane] = w;
+      } else {
+        float* tot = s.warp_f + (c - 1) * 32;
+        float w = lane < nwarps ? tot[lane] : 0.0f;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const float y = __shfl_up_sync(0xffffffffu, w, d);
+          if (lane >= d) w = __fadd_rn(w, y);
+        }
+        if (lane < nwarps) tot[lane] = w;
+      }
+    }
+    // The nnz after this one opens a segment (the last nnz of the step
+    // always closes one).
+    const bool is_last =
+        lane < 31 ? ((bits >> (lane + 1)) & 1u) != 0 : (warp + 1 == nwarps || (fw[warp + 1] & 1u));
+    __syncthreads();
+    if (warp > 0) {
+      seg += s.warp_i[warp - 1];
+#pragma unroll
+      for (int q = 0; q < QC; ++q) ps[q] = __fadd_rn(ps[q], s.warp_f[q * 32 + warp - 1]);
+    }
+    const int s_last = s.warp_i[nwarps - 1];
+#pragma unroll
+    for (int q = 0; q < QC; ++q) s.ps[q * tb + tid] = ps[q];
+    __syncthreads();  // publishes the prefixes
+    const int row0 = s.row[buf];
+    // ---- stages 3 and 4, every query between the same barriers ----
+    const bool at_head = head && i == 0;
+    auto row_done = [&](int q, int r, float c) {
+      // A candidate: strictly above the scratchpad minimum, which may not
+      // hold the previous step's candidates yet (a lower threshold).
+      if (c > thr[q]) {
+        const int at = atomicAdd(s.cand_n + buf * QC + q, 1);
+        s.cand_v[(buf * QC + q) * cap + at] = c;
+        s.cand_r[(buf * QC + q) * cap + at] = r;
+      }
+    };
+    if (tid == 0 && f) {
+      // Segment 0 is empty: the carried row completes with its partial sum.
+      for (int q = 0; q < nq; ++q) {
+        if (at_head) {
+          head_out(q, 0.0f);
+        } else if (row0 >= 0) {
+          row_done(q, row0, __fadd_rn(0.0f, s.carry[buf * QC + q]));
+        }
+      }
+    }
+    if (is_last) {
+      // The segment's first nnz: the last flag bit at or before this one
+      // (none for segment 0, whose prefix starts at 0.0).
+      int start = 0;
+      if (seg > 0) {
+        unsigned m = bits & (0xffffffffu >> (31 - lane));
+        int w = warp;
+        while (m == 0) m = fw[--w];
+        start = w * 32 + 31 - __clz(static_cast<int>(m));
+      }
+      const int r = row0 + seg;
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        const float base = start > 0 ? s.ps[q * tb + start - 1] : 0.0f;
+        const float piece = __fsub_rn(ps[q], base);
+        const float c = __fadd_rn(piece, seg == 0 ? s.carry[buf * QC + q] : 0.0f);
+        if (seg == s_last) {
+          s.carry[(buf ^ 1) * QC + q] = c;  // thread tb - 1: the open row goes on
+        } else if (q < nq) {
+          if (at_head && seg == 0) {
+            head_out(q, piece);
+          } else if (r >= 0) {
+            row_done(q, r, c);
+          }
+        }
+      }
+    }
+    if (tid == 0) s.row[buf ^ 1] = row0 + s_last;
+    f = f_next;
+  }
+  __syncthreads();
+  if (tid < nq) {
+    insert(tid, 0);  // the last two steps' candidates
+    insert(tid, 1);
+  }
+  __syncthreads();
+  const long long out = ((static_cast<long long>(core) * sp.n + split) * p.nq + q0) * k;
+  for (int i = tid; i < nq * k; i += tb) {
+    sp.pad_v[out + i] = s.acc_v[i];
+    sp.pad_r[out + i] = s.acc_r[i];
+  }
+  if (tid == tb - 1) {
+    float* carries = sp.carries + (static_cast<long long>(core) * sp.n + split) * p.nq + q0;
+    for (int q = 0; q < nq; ++q) carries[q] = s.carry[(n_steps & 1) * QC + q];
+  }
+}
+
+// Block (core, split, query chunk) walks one split for its chunk; an empty
+// split (trailing) holds no row, so its scratchpads stay empty.
+template <int QC>
+__device__ void mq_split(const Params& p, const MqSplits& sp) {
+  const int core = blockIdx.x, split = blockIdx.y;
+  const int q0 = blockIdx.z * p.q_chunk;
+  const int nq = min(p.q_chunk, p.nq - q0);
+  const int32_t* b = sp.bounds + core * (sp.n + 1) + split;
+  if (b[0] >= b[1]) {
+    const long long out = ((static_cast<long long>(core) * sp.n + split) * p.nq + q0) * p.k;
+    for (int i = threadIdx.x; i < nq * p.k; i += blockDim.x) {
+      sp.pad_v[out + i] = kNegInf;
+      sp.pad_r[out + i] = p.n_rows;
+    }
+    return;
+  }
+  mq_walk<QC>(p, sp, core, split, q0, nq, b[0], b[1] - b[0],
+              sp.head_row[core * sp.n + split], split > 0);
+}
+
+// Registers: a block of one query is held to 40, so 3 blocks of 512 threads
+// share an SM (S = 12 at c = 32 instead of 8); a wider chunk may use 64,
+// which still launches 1024 threads.
+__global__ void __maxnreg__(40) topk_spmv_mq1_kernel(Params p, MqSplits sp) {
+  mq_split<1>(p, sp);
+}
+
+template <int QC>
+__global__ void __launch_bounds__(1024) topk_spmv_mq_split_kernel(Params p, MqSplits sp) {
+  mq_split<QC>(p, sp);
+}
+
+template <int QC>
+auto mq_kernel() {
+  if constexpr (QC == 1) {
+    return topk_spmv_mq1_kernel;
+  } else {
+    return topk_spmv_mq_split_kernel<QC>;
+  }
+}
+
+// The fold: one warp per (core, query) joins the splits' scratchpads in
+// order, in shared memory.  The head row of each non-empty split i > 0 scores
+// head piece + the carry of split i - 1 (the single walk's stage-3 addition
+// for it), is admitted when > the fold's minimum (the single walk's
+// threshold at that step) and inserted; then the top k of the fold and split
+// i's sorted list are merged in place from the back, once it is known how
+// many entries each list gives.
+__global__ void topk_mq_merge_kernel(Params p, MqSplits sp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int k = p.k, n_splits = sp.n, lane = threadIdx.x;
+  const int core = blockIdx.x / p.nq, q = blockIdx.x % p.nq;
+  float* fv = reinterpret_cast<float*>(smem_raw);
+  int* fr = reinterpret_cast<int*>(fv + k);
+  float* iv = reinterpret_cast<float*>(fr + k);
+  int* ir = reinterpret_cast<int*>(iv + k);
+  auto at = [&](int i) { return (static_cast<long long>(core) * n_splits + i) * p.nq + q; };
+  for (int j = lane; j < k; j += 32) {
+    fv[j] = sp.pad_v[at(0) * k + j];
+    fr[j] = sp.pad_r[at(0) * k + j];
+  }
+  const int32_t* b = sp.bounds + core * (n_splits + 1);
+  for (int i = 1; i < n_splits && b[i] < b[i + 1]; ++i) {
+    for (int j = lane; j < k; j += 32) {
+      iv[j] = sp.pad_v[at(i) * k + j];
+      ir[j] = sp.pad_r[at(i) * k + j];
+    }
+    __syncwarp();
+    if (lane == 0) {
+      const int r = sp.head_row[core * n_splits + i];
+      const float c = __fadd_rn(sp.heads[at(i)], sp.carries[at(i - 1)]);
+      if (r >= 0 && c > fv[k - 1]) insert_sorted(fv, fr, k, c, r);
+      int na = 0, ni = 0;  // entries of the top k from the fold and from split i
+      while (na + ni < k) {
+        if (ranks_before(total_key(iv[ni]), ir[ni], total_key(fv[na]), fr[na])) {
+          ++ni;
+        } else {
+          ++na;
+        }
+      }
+      for (int o = k - 1, a = na - 1, n = ni - 1; o >= 0; --o) {
+        if (a >= 0 &&
+            (n < 0 || ranks_before(total_key(iv[n]), ir[n], total_key(fv[a]), fr[a]))) {
+          fv[o] = fv[a];
+          fr[o] = fr[a];
+          --a;
+        } else {
+          fv[o] = iv[n];
+          fr[o] = ir[n];
+          --n;
+        }
+      }
+    }
+    __syncwarp();
+  }
+  const long long o = (static_cast<long long>(core) * p.nq + q) * k;
+  for (int j = lane; j < k; j += 32) {
+    p.out_v[o + j] = fv[j];
+    p.out_r[o + j] = fr[j];
+  }
+}
+
+// The kernels that launch() serves; the multi-query kernel has its own.
+enum class Kind { kTopk, kAccumulate };
+
+// Dynamic shared memory of a launch whose layout takes bytes_of(x_in_smem)
+// bytes; x stays in global memory when keeping it in shared memory would
+// pass 160 KB.  0 when even that does not fit.
+template <class BytesOf>
+size_t plan_smem(BytesOf bytes_of, int* x_in_smem) {
+  constexpr size_t kSmemLimit = 227 * 1024;
   *x_in_smem = 1;
   size_t bytes = bytes_of(1);
   if (bytes > 160 * 1024) {
@@ -640,17 +1079,29 @@ size_t plan_smem(Kind kind, int tb, int q_chunk, int k, int m, int* x_in_smem) {
   return bytes;
 }
 
+size_t plan_smem(Kind kind, int tb, int q_chunk, int k, int m, int* x_in_smem) {
+  return plan_smem(
+      [&](int in_smem) {
+        return kind == Kind::kAccumulate ? accum_smem_bytes(tb, m, in_smem)
+                                         : smem_bytes(tb, q_chunk, k, m, in_smem);
+      },
+      x_in_smem);
+}
+
 const void* kernel_of(Kind kind) {
-  return kind == Kind::kMultiquery ? reinterpret_cast<const void*>(topk_spmv_mq_kernel)
-         : kind == Kind::kTopk     ? reinterpret_cast<const void*>(topk_spmv_kernel)
-                                   : reinterpret_cast<const void*>(spmv_accum_kernel);
+  return kind == Kind::kTopk ? reinterpret_cast<const void*>(topk_spmv_kernel)
+                             : reinterpret_cast<const void*>(spmv_accum_kernel);
+}
+
+bool bad_geometry(const Params& p) {
+  const int tb = p.block * p.per_step;
+  return tb % 32 != 0 || tb > 1024 || p.n_cores < 1 || p.k < 1 || p.q_chunk < 1 ||
+         p.n_packets % p.per_step != 0 || p.n_packets < p.per_step;
 }
 
 int launch(Kind kind, Params p, const Splits& sp, cudaStream_t stream) {
   const int tb = p.block * p.per_step;
-  if (tb % 32 != 0 || tb > 1024 || p.n_cores < 1 || p.k < 1 || p.q_chunk < 1 ||
-      p.n_packets % p.per_step != 0 || p.n_packets < p.per_step ||
-      (kind == Kind::kAccumulate && sp.n < 1)) {
+  if (bad_geometry(p) || (kind == Kind::kAccumulate && sp.n < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = plan_smem(kind, tb, p.q_chunk, p.k, p.m, &p.x_in_smem);
@@ -658,16 +1109,46 @@ int launch(Kind kind, Params p, const Splits& sp, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel_of(kind), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (kind == Kind::kMultiquery) {
-    dim3 grid(p.n_cores, (p.nq + p.q_chunk - 1) / p.q_chunk);
-    topk_spmv_mq_kernel<<<grid, tb, bytes, stream>>>(p);
-  } else if (kind == Kind::kTopk) {
+  if (kind == Kind::kTopk) {
     topk_spmv_kernel<<<p.n_cores, tb, bytes, stream>>>(p);
   } else {
     spmv_accum_kernel<<<dim3(p.n_cores, sp.n), tb, bytes, stream>>>(p, sp);
     if (sp.n > 1) spmv_fixup_kernel<<<p.n_cores, 32, 0, stream>>>(p, sp);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The multi-query kernel's shared memory and its attribute, for QC queries
+// a block: the bytes, or 0 when they do not fit.
+template <int QC>
+size_t mq_prepare(int tb, int k, int m, int* x_in_smem) {
+  const size_t bytes =
+      plan_smem([&](int in_smem) { return mq_smem_bytes(tb, QC, k, m, in_smem); }, x_in_smem);
+  if (bytes == 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      mq_kernel<QC>(), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  return err == cudaSuccess ? bytes : 0;
+}
+
+template <int QC>
+int launch_mq(Params p, const MqSplits& sp, cudaStream_t stream) {
+  const int tb = p.block * p.per_step;
+  const size_t bytes = mq_prepare<QC>(tb, p.k, p.m, &p.x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.n_cores, sp.n, (p.nq + p.q_chunk - 1) / p.q_chunk);
+  const auto kernel = mq_kernel<QC>();
+  kernel<<<grid, tb, bytes, stream>>>(p, sp);
+  if (sp.n > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topk_mq_merge_kernel<<<p.n_cores * p.nq, 32, 16 * size_t(p.k), stream>>>(p, sp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The template width of a chunk of q_chunk queries (0: more than 8).
+int qc_of(int q_chunk) {
+  return q_chunk <= 1 ? 1 : q_chunk <= 2 ? 2 : q_chunk <= 4 ? 4 : q_chunk <= 8 ? 8 : 0;
 }
 
 Params topk_params(const float* x, const int32_t* words, float* out_v, int32_t* out_r,
@@ -690,16 +1171,28 @@ extern "C" int bscsr_topk_spmv_launch(const float* x, const int32_t* words, floa
                 Splits{}, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int bscsr_topk_spmv_multiquery_launch(const float* x, const int32_t* words,
-                                                 float* out_v, int32_t* out_r, int n_cores,
-                                                 long long n_packets, int width, int m,
-                                                 int nq, int q_chunk, int block,
-                                                 int per_step, int col_words, int fmt,
-                                                 int k, int n_rows, void* stream) {
-  return launch(Kind::kMultiquery,
-                topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, nq,
-                            q_chunk, block, per_step, col_words, fmt, k, n_rows),
-                Splits{}, static_cast<cudaStream_t>(stream));
+// Multi-query mode: out (C, Q, k); bounds (C, S+1) and head_row (C, S) int32
+// from the split table; pad_v / pad_r (C, S, Q, k) scratch (for S = 1 the
+// output itself); heads and carries (C, S, Q) f32 scratch.  Launches the
+// split walk and, for S > 1, the fold.
+extern "C" int bscsr_topk_spmv_multiquery_launch(
+    const float* x, const int32_t* words, float* out_v, int32_t* out_r,
+    const int32_t* bounds, const int32_t* head_row, float* pad_v, int32_t* pad_r,
+    float* heads, float* carries, int n_cores, int splits, long long n_packets, int width,
+    int m, int nq, int q_chunk, int block, int per_step, int col_words, int fmt, int k,
+    int n_rows, void* stream) {
+  const Params p = topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, nq,
+                               q_chunk, block, per_step, col_words, fmt, k, n_rows);
+  const MqSplits sp{bounds, head_row, pad_v, pad_r, heads, carries, splits};
+  if (bad_geometry(p) || splits < 1 || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (qc_of(q_chunk)) {
+    case 1: return launch_mq<1>(p, sp, s);
+    case 2: return launch_mq<2>(p, sp, s);
+    case 4: return launch_mq<4>(p, sp, s);
+    case 8: return launch_mq<8>(p, sp, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Accumulate mode: out (C, n_rows) f32, zero-filled by the caller; bounds
@@ -732,4 +1225,28 @@ extern "C" int bscsr_spmv_resident_blocks(int block, int per_step, int m, int* b
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, spmv_accum_kernel, tb, bytes));
+}
+
+// Multi-query blocks of T*B threads, q_chunk queries each, that one SM holds
+// at once, for an x of width m and k entries a scratchpad.
+template <int QC>
+int mq_resident(int tb, int m, int k, int* blocks) {
+  int x_in_smem = 0;
+  const size_t bytes = mq_prepare<QC>(tb, k, m, &x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mq_kernel<QC>(), tb, bytes));
+}
+
+extern "C" int bscsr_topk_spmv_mq_resident_blocks(int block, int per_step, int m,
+                                                  int q_chunk, int k, int* blocks) {
+  const int tb = block * per_step;
+  if (tb % 32 != 0 || tb > 1024 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (qc_of(q_chunk)) {
+    case 1: return mq_resident<1>(tb, m, k, blocks);
+    case 2: return mq_resident<2>(tb, m, k, blocks);
+    case 4: return mq_resident<4>(tb, m, k, blocks);
+    case 8: return mq_resident<8>(tb, m, k, blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -10,11 +10,14 @@ Three kernels, each the port of one Pallas TPU kernel of
 All three take the fused word stream ``(C, P, W)`` int32 (``flags | cols |
 vals`` per packet, see ``core/bscsr.py``).  Split-layout snapshots reach
 them as ``fused_words()``, which is bit-identical.  The CUDA source is
-``repro_torch/csrc/bscsr_topk_spmv.cu``.  In the top-k kernels one CTA per
-core walks its packets in order, because the stage-3 row carry crosses
-packet boundaries.  The accumulate kernel splits each core's stream among S
-CTAs at steps that hold a flag bit (``spmv_split_table``) and joins the
-splits with an exact carry fix-up, so every S gives the single walk's bits.
+``repro_torch/csrc/bscsr_topk_spmv.cu``.  In the single-query kernel one CTA
+per core walks its packets in order, because the stage-3 row carry crosses
+packet boundaries.  The other two split each core's stream among S CTAs at
+steps that hold a flag bit (``spmv_split_table``) and stop at the core's
+last flagged step.  The accumulate kernel joins the splits with an exact
+carry fix-up; the multi-query kernel gives each split its own scratchpads
+and folds them in split order, with each split's head row scored as head
+piece + the previous split's carry.  Every S gives the single walk's bits.
 
 Each wrapper dispatches on where its tensors lie.  CPU tensors go to the
 plain version; CUDA tensors launch the kernel (and add one to the wrapper's
@@ -32,8 +35,9 @@ queries with a Python loop over steps.
   stage 4' (accumulate mode) each completed row is stored at its slot
 
 Stages 1-3 are shared by all three (``_plain_steps`` here; in the CUDA
-source ``walk`` for the top-k kernels and ``accum_walk``, with the same
-arithmetic and fewer barriers, for the accumulate kernel).
+source ``walk`` for the single-query kernel, and ``mq_walk`` and
+``accum_walk``, with the same arithmetic and fewer barriers, for the other
+two).
 
 Stage 4 ranks as ``lax.top_k`` does: float total order (-0.0 below +0.0),
 lower position first on ties, which puts scratchpad entries before
@@ -236,24 +240,83 @@ def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
                 packets_per_step: int, fmt: ValueFormat, block: int,
                 col_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Pallas top-k tile walk for a (Q, M) query batch -> (C, Q, k) each."""
-    dev = words.device
-    n_cores, nq = words.shape[0], x.shape[0]
-    acc_v = torch.full((n_cores, nq, k), NEG_INF, dtype=torch.float32, device=dev)
-    acc_r = torch.full((n_cores, nq, k), n_rows, dtype=torch.int32, device=dev)
+    acc_v, acc_r = _empty_scratchpad(words.shape[0], x.shape[0], k, n_rows, words.device)
     for cand_v, cand_r, complete, _ in _plain_steps(
             x, words, packets_per_step=packets_per_step, fmt=fmt, block=block,
             col_words=col_words):
-        cand_v = torch.where(complete[:, None, :], cand_v, NEG_INF)
-        # ---- stage 4: threshold filter + one stable top-k merge ----
-        thr = acc_v.min(dim=-1, keepdim=True).values
-        fv = torch.where(cand_v > thr, cand_v, NEG_INF)
-        cv, ci = _stable_topk(fv, k)
-        cr = torch.gather(cand_r[:, None, :].expand(-1, nq, -1), -1, ci)
-        pool_v = torch.cat([acc_v, cv], dim=-1)
-        pool_r = torch.cat([acc_r, cr], dim=-1)
-        acc_v, mi = _stable_topk(pool_v, k)
-        acc_r = torch.gather(pool_r, -1, mi)
+        acc_v, acc_r = _admit(acc_v, acc_r, cand_v, cand_r, complete, k)
     return acc_v, acc_r
+
+
+def _empty_scratchpad(n_cores: int, nq: int, k: int, n_rows: int, dev):
+    """(C, Q, k) scratchpads of (NEG_INF, n_rows) entries."""
+    return (torch.full((n_cores, nq, k), NEG_INF, dtype=torch.float32, device=dev),
+            torch.full((n_cores, nq, k), n_rows, dtype=torch.int32, device=dev))
+
+
+def _admit(acc_v, acc_r, cand_v, cand_r, complete, k):
+    """Stage 4: candidates strictly above the step-start minimum, one stable
+    top-k merge into the (C, Q, k) scratchpad (entries before candidates)."""
+    nq = acc_v.shape[1]
+    cand_v = torch.where(complete[:, None, :], cand_v, NEG_INF)
+    thr = acc_v.min(dim=-1, keepdim=True).values
+    fv = torch.where(cand_v > thr, cand_v, NEG_INF)
+    cv, ci = _stable_topk(fv, k)
+    cr = torch.gather(cand_r[:, None, :].expand(-1, nq, -1), -1, ci)
+    pool_v = torch.cat([acc_v, cv], dim=-1)
+    pool_r = torch.cat([acc_r, cr], dim=-1)
+    acc_v, mi = _stable_topk(pool_v, k)
+    return acc_v, torch.gather(pool_r, -1, mi)
+
+
+def _walk_plain_split(x: torch.Tensor, words: torch.Tensor, table, *, k: int, n_rows: int,
+                      **walk) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k walk as S walkers per core see it, joined by the in-order fold.
+
+    Each split walks its steps of ``table`` (:func:`spmv_split_table`) from
+    carry 0.0 at its head row with a scratchpad of (NEG_INF, n_rows).  At the
+    first step of a split after the first, segment 0 (the row open there) is
+    not a candidate: its per-query head piece is kept, and so is every
+    split's final carry.  Then the splits fold in order: the head score is
+    head piece + the previous split's carry (the single walk's stage-3
+    addition for that row), admitted when ``>`` the fold's minimum, and the
+    split's own k entries merge in.  The single walk's scratchpad is the top
+    k of its completed rows in ``lax.top_k`` order (slots rise along the
+    walk, no candidate scores -0.0, NaN is never admitted), so the fold
+    gives its bits.
+    """
+    dev = words.device
+    n_cores, nq = words.shape[0], x.shape[0]
+    bounds, head_row = (t.to(dev) for t in table)
+    fold_v, fold_r = _empty_scratchpad(n_cores, nq, k, n_rows, dev)
+    carry = torch.zeros((n_cores, nq), dtype=torch.float32, device=dev)
+    for i in range(bounds.shape[1] - 1):
+        first, stop = bounds[:, i], bounds[:, i + 1]
+        acc_v, acc_r = _empty_scratchpad(n_cores, nq, k, n_rows, dev)
+        head = torch.zeros((n_cores, nq), dtype=torch.float32, device=dev)
+        carry_out = torch.zeros((n_cores, nq), dtype=torch.float32, device=dev)
+        for j, (cand_v, cand_r, complete, carry_sum) in enumerate(_plain_steps(
+                x, words, start=first, stop=stop, row=head_row[:, i], **walk)):
+            if i > 0 and j == 0:
+                head = cand_v[..., 0]
+                complete = complete.clone()
+                complete[:, 0] = False
+            acc_v, acc_r = _admit(acc_v, acc_r, cand_v, cand_r, complete, k)
+            carry_out = carry_sum
+        if i == 0:
+            fold_v, fold_r = acc_v, acc_r
+        else:
+            score = head + carry
+            live = ((first < stop) & (head_row[:, i] >= 0))[:, None]
+            admit = live & (score > fold_v.min(dim=-1).values)
+            pool_v = torch.cat([fold_v, torch.where(admit, score, NEG_INF)[..., None], acc_v],
+                               dim=-1)
+            slot = torch.where(admit, head_row[:, i, None], n_rows).to(torch.int32)
+            pool_r = torch.cat([fold_r, slot[..., None], acc_r], dim=-1)
+            fold_v, mi = _stable_topk(pool_v, k)
+            fold_r = torch.gather(pool_r, -1, mi)
+        carry = carry_out
+    return fold_v, fold_r
 
 
 def bscsr_topk_spmv_plain(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
@@ -269,12 +332,24 @@ def bscsr_topk_spmv_plain(x, words, *, k, n_rows, packets_per_step=2, fmt_name="
 
 def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
                                      fmt_name="F32", block_size=256,
-                                     inner_loop="linear"):
-    """Plain PyTorch version of :func:`bscsr_topk_spmv_multiquery` -> (C, Q, k)."""
+                                     inner_loop="linear", splits=None, table=None):
+    """Plain PyTorch version of :func:`bscsr_topk_spmv_multiquery` -> (C, Q, k).
+
+    With ``splits`` (or a ``table`` from :func:`spmv_split_table`) it walks
+    each split of each core with its own scratchpad, as the kernel's blocks
+    do, and folds the splits in order (``_walk_plain_split``).  The result
+    equals the single walk bit for bit.
+    """
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
-                                 "take", inner_loop)
-    return _walk_plain(x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
-                       fmt=fmt, block=block_size, col_words=col_words)
+                              "take", inner_loop)
+    walk = dict(k=k, n_rows=n_rows, packets_per_step=packets_per_step, fmt=fmt,
+                block=block_size, col_words=col_words)
+    if table is None and splits is None:
+        return _walk_plain(x, words, **walk)
+    if table is None:
+        table = spmv_split_table(words, packets_per_step=packets_per_step,
+                                 block_size=block_size, splits=splits)
+    return _walk_plain_split(x.float(), words, table, **walk)
 
 
 def _popcount32(w: torch.Tensor) -> torch.Tensor:
@@ -302,8 +377,10 @@ def spmv_split_table(words: torch.Tensor, *, packets_per_step: int, block_size: 
 
     A split that starts at a flagged step completes the row it opens with,
     inside that step, so its sequential sum is one f32 addition of the
-    split's head piece and the carry of the split before it: the fix-up.
-    Static shapes only (no host sync); the same on the CPU and the card.
+    split's head piece and the carry of the split before it: the accumulate
+    kernel's fix-up and the multi-query kernel's fold both use it, and both
+    walk this table.  Static shapes only (no host sync); the same on the CPU
+    and the card.
     """
     if splits < 1:
         raise ValueError(f"splits must be at least 1, got {splits}")
@@ -441,10 +518,14 @@ def _library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # x, words, out_v, out_r, C, P, W, M, Q, q_chunk, B, T, col_words, fmt, k,
     # n_rows, stream
-    for name in ("bscsr_topk_spmv_launch", "bscsr_topk_spmv_multiquery_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i, p]
-        fn.restype = i
+    lib.bscsr_topk_spmv_launch.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i,
+                                           p]
+    lib.bscsr_topk_spmv_launch.restype = i
+    # x, words, out_v, out_r, bounds, head_row, pad_v, pad_r, heads, carries, C,
+    # S, P, W, M, Q, q_chunk, B, T, col_words, fmt, k, n_rows, stream
+    lib.bscsr_topk_spmv_multiquery_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
+                                                      ll, i, i, i, i, i, i, i, i, i, i, p]
+    lib.bscsr_topk_spmv_multiquery_launch.restype = i
     # x, words, out, bounds, head_row, heads, carries, C, S, P, W, M, B, T,
     # col_words, fmt, n_rows, stream
     lib.bscsr_spmv_launch.argtypes = [p, p, p, p, p, p, p, i, i, ll, i, i, i, i, i, i, i,
@@ -453,6 +534,9 @@ def _library() -> ctypes.CDLL:
     # B, T, M, out: resident accumulate blocks per SM
     lib.bscsr_spmv_resident_blocks.argtypes = [i, i, i, p]
     lib.bscsr_spmv_resident_blocks.restype = i
+    # B, T, M, q_chunk, k, out: resident multi-query blocks per SM
+    lib.bscsr_topk_spmv_mq_resident_blocks.argtypes = [i, i, i, i, i, p]
+    lib.bscsr_topk_spmv_mq_resident_blocks.restype = i
     return lib
 
 
@@ -465,24 +549,10 @@ def _check_cuda_args(x: torch.Tensor, words: torch.Tensor) -> None:
         raise ValueError("words must be contiguous")
 
 
-def _launch(entry: str, x, words, k, n_rows, packets_per_step, fmt_name, block_size,
-            col_words, nq, q_chunk):
-    n_cores, n_packets, width = words.shape
+def _check_tile(packets_per_step: int, block_size: int) -> None:
     tb = packets_per_step * block_size
     if tb > MAX_TILE_NNZ:
         raise ValueError(f"T*B={tb} exceeds the kernel's {MAX_TILE_NNZ} nnz per step")
-    out_v = torch.empty((n_cores, nq, k), dtype=torch.float32, device=words.device)
-    out_r = torch.empty((n_cores, nq, k), dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_library(), entry)(
-            x.data_ptr(), words.data_ptr(), out_v.data_ptr(), out_r.data_ptr(),
-            n_cores, n_packets, width, x.shape[-1], nq, q_chunk, block_size,
-            packets_per_step, col_words, _FMT_IDS[fmt_name], k, n_rows, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {err}")
-    return out_v, out_r
 
 
 def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
@@ -502,58 +572,143 @@ def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
     _check_cuda_args(x, words)
     if x.dim() != 1:
         raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
-    v, r = _launch("bscsr_topk_spmv_launch", x, words, k, n_rows, packets_per_step,
-                   fmt_name, block_size, col_words, 1, 1)
+    _check_tile(packets_per_step, block_size)
+    n_cores, n_packets, width = words.shape
+    out_v = torch.empty((n_cores, k), dtype=torch.float32, device=words.device)
+    out_r = torch.empty((n_cores, k), dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().bscsr_topk_spmv_launch(
+            x.data_ptr(), words.data_ptr(), out_v.data_ptr(), out_r.data_ptr(),
+            n_cores, n_packets, width, x.shape[-1], 1, 1, block_size,
+            packets_per_step, col_words, _FMT_IDS[fmt_name], k, n_rows, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bscsr_topk_spmv_launch failed: CUDA error {err}")
     bscsr_topk_spmv.launches += 1
-    return v[:, 0], r[:, 0]
+    return out_v, out_r
 
 
 bscsr_topk_spmv.launches = 0
 
-# Queries one CTA carries through the stream pass.  More queries per CTA
-# share each decoded tile but serialise their scans inside the CTA.
+# Queries one CTA carries through the stream pass.  Each thread keeps one
+# product per query of its chunk in registers, and one set of barriers a step
+# serves them all.
 MQ_QUERIES_PER_CTA = 8
 
 
+def query_chunks(nq: int) -> Tuple[int, int]:
+    """(queries per CTA, chunks) of a Q-query pass of the multi-query kernel."""
+    q_chunk = min(nq, MQ_QUERIES_PER_CTA)
+    return q_chunk, -(-nq // q_chunk)
+
+
 def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
-                               fmt_name="F32", block_size=256, inner_loop="linear"):
-    """Per-core top-k of a (Q, M) query batch in one stream pass -> (C, Q, k)."""
-    if words.device.type == "cpu" and x.device.type == "cpu":
-        return bscsr_topk_spmv_multiquery_plain(
-            x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
-            fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop)
-    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
-                               "take", inner_loop)
-    _check_cuda_args(x, words)
+                               fmt_name="F32", block_size=256, inner_loop="linear",
+                               splits=None, table=None):
+    """Per-core top-k of a (Q, M) query batch in one stream pass -> (C, Q, k).
+
+    The kernel walks each core's stream with S blocks per chunk of queries,
+    one per split of ``table`` (:func:`spmv_split_table`; built here when not
+    given, with ``splits`` or, when that is None, :func:`topk_splits`
+    blocks), each with its own scratchpad, and a second small kernel folds
+    the splits in order.  Every S gives the single walk's bits.  One launch
+    is counted per call, the fold included.  CPU tensors run the plain
+    version, at ``PLAIN_SPLITS`` when neither ``splits`` nor a table is
+    given.
+    """
     if x.dim() != 2 or x.shape[0] == 0:
         raise ValueError(f"x must be a non-empty (Q, M) batch, got {tuple(x.shape)}")
     nq = x.shape[0]
-    v, r = _launch("bscsr_topk_spmv_multiquery_launch", x, words, k, n_rows,
-                   packets_per_step, fmt_name, block_size, col_words, nq,
-                   min(nq, MQ_QUERIES_PER_CTA))
+    q_chunk, n_chunks = query_chunks(nq)
+    if table is None and splits is None:
+        splits = topk_splits(words.device, words.shape[0], n_chunks,
+                             packets_per_step=packets_per_step, block_size=block_size,
+                             m=x.shape[1], q_chunk=q_chunk, k=k)
+    if words.device.type == "cpu" and x.device.type == "cpu":
+        return bscsr_topk_spmv_multiquery_plain(
+            x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+            fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop,
+            splits=splits, table=table)
+    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                            "take", inner_loop)
+    _check_cuda_args(x, words)
+    _check_tile(packets_per_step, block_size)
+    n_cores, n_packets, width = words.shape
+    if table is None:
+        table = spmv_split_table(words, packets_per_step=packets_per_step,
+                                 block_size=block_size, splits=splits)
+    bounds, head_row = _check_table(table, words, splits)
+    n_splits = head_row.shape[1]
+    dev = words.device
+    out_v = torch.empty((n_cores, nq, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((n_cores, nq, k), dtype=torch.int32, device=dev)
+    if n_splits == 1:                  # (C, 1, Q, k) is the output's layout
+        pad_v, pad_r = out_v, out_r
+    else:
+        pad_v = torch.empty((n_cores, n_splits, nq, k), dtype=torch.float32, device=dev)
+        pad_r = torch.empty((n_cores, n_splits, nq, k), dtype=torch.int32, device=dev)
+    heads = torch.empty((n_cores, n_splits, nq), dtype=torch.float32, device=dev)
+    carries = torch.empty_like(heads)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().bscsr_topk_spmv_multiquery_launch(
+            x.data_ptr(), words.data_ptr(), out_v.data_ptr(), out_r.data_ptr(),
+            bounds.data_ptr(), head_row.data_ptr(), pad_v.data_ptr(), pad_r.data_ptr(),
+            heads.data_ptr(), carries.data_ptr(), n_cores, n_splits, n_packets, width,
+            x.shape[1], nq, q_chunk, block_size, packets_per_step, col_words,
+            _FMT_IDS[fmt_name], k, n_rows, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bscsr_topk_spmv_multiquery_launch failed: CUDA error {err}")
     bscsr_topk_spmv_multiquery.launches += 1
-    return v, r
+    return out_v, out_r
 
 
 bscsr_topk_spmv_multiquery.launches = 0
 
 
-# The plain split walk's default on the CPU, where no card sets S: enough
-# splits that the CPU tests drive the fix-up through every accumulate entry
-# point.
+def _check_table(table, words: torch.Tensor, splits) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A split table's (bounds, head_row), checked against the words."""
+    bounds, head_row = table
+    n_cores, n_splits = words.shape[0], head_row.shape[1]
+    if (bounds.shape != (n_cores, n_splits + 1) or head_row.shape != (n_cores, n_splits)
+            or bounds.dtype != torch.int32 or head_row.dtype != torch.int32
+            or bounds.device != words.device or head_row.device != words.device
+            or not (bounds.is_contiguous() and head_row.is_contiguous())):
+        raise ValueError("table must be spmv_split_table's (C, S+1) and (C, S) int32 "
+                         "tensors on the words' device")
+    if splits is not None and splits != n_splits:
+        raise ValueError(f"splits={splits} but the table has {n_splits}")
+    return bounds, head_row
+
+
+# The plain split walks' default on the CPU, where no card sets S: enough
+# splits that the CPU tests drive the accumulate fix-up and the top-k fold
+# through every entry point.
 PLAIN_SPLITS = 4
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, block_size: int, packets_per_step: int,
-                     m: int) -> int:
+def _resident_blocks(device_index: int, entry: str, *args: int) -> int:
+    """Blocks of a kernel that one SM holds at once (the C export ``entry``)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _library().bscsr_spmv_resident_blocks(block_size, packets_per_step, m,
-                                                    ctypes.addressof(n))
+        err = getattr(_library(), entry)(*args, ctypes.addressof(n))
     if err != 0:
-        raise RuntimeError(f"bscsr_spmv_resident_blocks failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return n.value
+
+
+def _one_wave(device, divisor: int, entry: str, *args: int) -> int:
+    """Splits per stream so that one wave of blocks fills the card: blocks
+    per SM times SMs over ``divisor`` streams; ``PLAIN_SPLITS`` on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return PLAIN_SPLITS
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, _resident_blocks(dev, entry, *args) * sms // divisor)
 
 
 def spmv_splits(device, n_cores: int, *, packets_per_step: int, block_size: int,
@@ -566,13 +721,22 @@ def spmv_splits(device, n_cores: int, *, packets_per_step: int, block_size: int,
     count, so one wave of blocks fills the card.  On the CPU:
     ``PLAIN_SPLITS``.
     """
-    device = torch.device(device)
-    if device.type == "cpu":
-        return PLAIN_SPLITS
-    dev = device.index if device.index is not None else torch.cuda.current_device()
-    per_sm = _resident_blocks(dev, block_size, packets_per_step, m)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, per_sm * sms // n_cores)
+    return _one_wave(device, n_cores, "bscsr_spmv_resident_blocks", block_size,
+                     packets_per_step, m)
+
+
+def topk_splits(device, n_cores: int, n_chunks: int, *, packets_per_step: int,
+                block_size: int, m: int, q_chunk: int, k: int) -> int:
+    """S, the blocks that walk each of ``n_cores`` streams for each of
+    ``n_chunks`` query chunks in the multi-query kernel on ``device``.
+
+    On the card: the kernel's blocks one SM holds at once (the occupancy
+    calculator, for this T*B, x width, chunk and k) times the SM count, over
+    cores x chunks, so one wave of blocks fills the card.  On the CPU:
+    ``PLAIN_SPLITS``.
+    """
+    return _one_wave(device, n_cores * n_chunks, "bscsr_topk_spmv_mq_resident_blocks",
+                     block_size, packets_per_step, m, q_chunk, k)
 
 
 def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
@@ -607,9 +771,7 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
     _check_cuda_args(x, words)
     if x.dim() != 1:
         raise ValueError(f"x must be an (M,) vector, got {tuple(x.shape)}")
-    tb = packets_per_step * block_size
-    if tb > MAX_TILE_NNZ:
-        raise ValueError(f"T*B={tb} exceeds the kernel's {MAX_TILE_NNZ} nnz per step")
+    _check_tile(packets_per_step, block_size)
     n_cores, n_packets, width = words.shape
     if table is None:
         if splits is None:
@@ -617,16 +779,8 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
                                  block_size=block_size, m=x.shape[0])
         table = spmv_split_table(words, packets_per_step=packets_per_step,
                                  block_size=block_size, splits=splits)
-    bounds, head_row = table
+    bounds, head_row = _check_table(table, words, splits)
     n_splits = head_row.shape[1]
-    if (bounds.shape != (n_cores, n_splits + 1) or head_row.shape != (n_cores, n_splits)
-            or bounds.dtype != torch.int32 or head_row.dtype != torch.int32
-            or bounds.device != words.device or head_row.device != words.device
-            or not (bounds.is_contiguous() and head_row.is_contiguous())):
-        raise ValueError("table must be spmv_split_table's (C, S+1) and (C, S) int32 "
-                         "tensors on the words' device")
-    if splits is not None and splits != n_splits:
-        raise ValueError(f"splits={splits} but the table has {n_splits}")
     out = torch.zeros((n_cores, n_rows), dtype=torch.float32, device=words.device)
     heads = torch.empty((n_cores, n_splits), dtype=torch.float32, device=words.device)
     carries = torch.empty_like(heads)

@@ -42,8 +42,10 @@ from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_spmv,
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
+    query_chunks,
     spmv_split_table,
     spmv_splits,
+    topk_splits,
 )
 
 PATHS = ("kernel", "reference", "accumulate", "accumulate_ref")
@@ -95,9 +97,9 @@ class DeviceSnapshot:
         self._split_tables: dict = {}
 
     def split_table(self, packets_per_step: int, splits: int):
-        """The accumulate kernel's split table of the fused words, built on
-        the device once per (T, S): no upload, and a fixed shape, so neither
-        ``h2d_copies`` nor the signature moves."""
+        """The split table of the fused words (the accumulate and multi-query
+        kernels walk it), built on the device once per (T, S): no upload, and
+        a fixed shape, so neither ``h2d_copies`` nor the signature moves."""
         key = (packets_per_step, splits)
         table = self._split_tables.get(key)
         if table is None:
@@ -290,15 +292,26 @@ class QueryExecutor:
 
             return run
 
-        kwargs = dict(k=k, n_rows=snap.max_slots, packets_per_step=self.packets_per_step,
+        t = self.packets_per_step
+        kwargs = dict(k=k, n_rows=snap.max_slots, packets_per_step=t,
                       fmt_name=snap.fmt_name, block_size=snap.block_size,
                       inner_loop=self.inner_loop)
         if q is None:
-            kwargs["gather_mode"] = self.gather_mode
-        kernel = bscsr_topk_spmv if q is None else bscsr_topk_spmv_multiquery
+
+            def run(x, s: DeviceSnapshot):
+                lv, lr = bscsr_topk_spmv(x, s.streams[0], gather_mode=self.gather_mode,
+                                         **kwargs)
+                return finalize(lv, lr, big_k=big_k, **s.finalize)
+
+            return run
 
         def run(x, s: DeviceSnapshot):
-            lv, lr = kernel(x, s.streams[0], **kwargs)
+            words = s.streams[0]
+            q_chunk, n_chunks = query_chunks(x.shape[0])
+            splits = topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
+                                 block_size=s.block_size, m=x.shape[1], q_chunk=q_chunk, k=k)
+            lv, lr = bscsr_topk_spmv_multiquery(x, words, table=s.split_table(t, splits),
+                                                **kwargs)
             return finalize(lv, lr, big_k=big_k, **s.finalize)
 
         return run

@@ -246,8 +246,8 @@ class TestRandomWithinTolerance:
         assert_close_rows(a, b)
 
 
-def split_csr(kind, block, n_cols, seed, sign=0):
-    """Random F32 rows for the split walk.
+def split_csr(kind, block, n_cols, seed, sign=0, dyadic=False):
+    """Random F32 rows for the split walk (``dyadic``: values k/128).
 
     "long": empty rows and, every ninth row, one over five packets, so many
     steps hold no flag bit.  "aligned": rows of whole steps (multiples of
@@ -266,9 +266,11 @@ def split_csr(kind, block, n_cols, seed, sign=0):
     indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
     idx = np.concatenate([np.sort(rng.choice(n_cols, int(n), replace=False))
                           for n in lens if n]).astype(np.int32)
-    data = rng.standard_normal(int(lens.sum())).astype(np.float32)
+    n = int(lens.sum())
+    data = (rng.integers(-128, 128, n) / 128.0 if dyadic else rng.standard_normal(n))
+    data = data.astype(np.float32)
     if sign:
-        data = sign * np.abs(data)
+        data = sign * (np.maximum(np.abs(data), 1 / 128) if dyadic else np.abs(data))
     return tbscsr.CSRMatrix(indptr, idx, data, (len(lens), n_cols))
 
 
@@ -411,6 +413,151 @@ class TestAccumulateSplit:
             tkern.PLAIN_SPLITS
         assert tkern.bscsr_spmv(torch.zeros(64), words, n_rows=4, packets_per_step=2,
                                 fmt_name="F32", block_size=32, splits=3).abs().max() == 0
+
+
+def mq(words, xs, splits=None, table=None, **kw):
+    v, r = tkern.bscsr_topk_spmv_multiquery(torch.from_numpy(xs), torch.from_numpy(words),
+                                            splits=splits, table=table, **kw)
+    return v.numpy(), r.numpy()
+
+
+def mq_single(words, xs, **kw):
+    """The single walk: the plain version with no splits and no table."""
+    v, r = tkern.bscsr_topk_spmv_multiquery_plain(torch.from_numpy(xs),
+                                                  torch.from_numpy(words), **kw)
+    return v.numpy(), r.numpy()
+
+
+class TestTopkSplit:
+    """The multi-query kernel's split walk (S blocks per core, each with its
+    own scratchpad, joined by the in-order fold) equals the single walk bit
+    for bit, on random data too: it is the specification the CUDA kernel is
+    transcribed from."""
+
+    @pytest.mark.parametrize("fmt", FORMATS)
+    @pytest.mark.parametrize("n_cols", [2000, 40_000])          # int16 and int32 ids
+    @pytest.mark.parametrize("block,t", [(32, 1), (32, 2), (64, 1), (64, 2)])
+    def test_split_walk_equals_single_walk(self, fmt, n_cols, block, t):
+        for kind, dyadic in (("long", False), ("aligned", False), ("long", True)):
+            csr = split_csr(kind, block, n_cols, seed=n_cols % 89 + t + block, dyadic=dyadic)
+            words, tp = split_words(csr, 3, block, fmt, t)
+            kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=t, fmt_name=fmt,
+                      block_size=block)
+            for q in (1, 3):
+                xs = (dyadic_queries(q, n_cols, seed=q + t) if dyadic
+                      else random_queries(q, n_cols, seed=q + t))
+                single = mq_single(words, xs, **kw)
+                assert (single[0] > tkern.NEG_INF).any()
+                for splits in (1, 2, 5, 64):
+                    assert_bitwise(mq(words, xs, splits, **kw), single)
+
+    @pytest.mark.parametrize("splits", [2, 5, 64])
+    def test_signed_zero_scores(self, splits):
+        words, slots, xs = TestDyadicBitIdentical.signed_zero_fixture()
+        kw = dict(k=12, n_rows=slots, packets_per_step=1, fmt_name="Q7", block_size=32)
+        single = mq_single(words, xs, **kw)
+        assert (single[0] == 0).any()
+        assert_bitwise(mq(words, xs, splits, **kw), single)
+
+    @pytest.mark.parametrize("splits", [2, 5, 64])
+    def test_all_negative_padded_budget(self, splits):
+        """Every score < 0, a slot budget past the live count and flag-free
+        padding steps (cut at e_c): no phantom slot enters a scratchpad."""
+        csr = split_csr("long", 32, 64, seed=3, sign=-1, dyadic=True)
+        words, tp = split_words(csr, 2, 32, "Q7", 2, pad_steps=4)
+        xs = dyadic_queries(3, 64, seed=4, positive=True)
+        kw = dict(k=8, n_rows=4 * tp.max_slots, packets_per_step=2, fmt_name="Q7",
+                  block_size=32)
+        single = mq_single(words, xs, **kw)
+        got = mq(words, xs, splits, **kw)
+        assert_bitwise(got, single)
+        filled = got[0] > tkern.NEG_INF
+        assert (got[0][filled] <= 0).all() and (got[0][filled] < 0).any()   # empty rows: 0
+        assert (got[1][~filled] == kw["n_rows"]).all()
+        live = np.append(np.asarray(tp.candidate_slots), 0)
+        for c in range(words.shape[0]):
+            assert (got[1][c][filled[c]] < live[c]).all()
+
+    @pytest.mark.parametrize("t", [1, 2])
+    def test_row_spanning_packets_and_short_cores(self, t):
+        rng = np.random.default_rng(6)
+        lens = np.array([3, 150, 2, 0, 5, 1, 4])
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(200, n, replace=False))
+                              for n in lens if n]).astype(np.int32)
+        data = (rng.integers(-128, 128, int(lens.sum())) / 128.0).astype(np.float32)
+        csr = jbscsr.CSRMatrix(indptr, idx, data, (7, 200))
+        words, slots = fused_words(csr, 3, 32, "Q15", t)
+        xs = dyadic_queries(3, 200, seed=7)
+        kw = dict(k=8, n_rows=slots, packets_per_step=t, fmt_name="Q15", block_size=32)
+        single = mq_single(words, xs, **kw)
+        assert (single[1] == slots).any()
+        for splits in (2, 5, 64):
+            assert_bitwise(mq(words, xs, splits, **kw), single)
+
+    def test_poisoned_padding_ids(self):
+        csr = split_csr("long", 32, 64, seed=10, dyadic=True)
+        words, tp = split_words(csr, 2, 32, "BF16", 2, flagless_core=False)
+        dirty = poison_padding(words, 32, "BF16", np.asarray(tp.candidate_slots))
+        assert not np.array_equal(dirty, words)
+        xs = random_queries(3, 64, seed=11)
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=2, fmt_name="BF16",
+                  block_size=32)
+        single = mq_single(words, xs, **kw)
+        for splits in (2, 5, 64):
+            assert_bitwise(mq(dirty, xs, splits, **kw), single)
+
+    @pytest.mark.parametrize("splits", [2, 3, 7, 64])
+    def test_ties_at_the_kth_place_across_splits(self, splits):
+        """Most rows score exactly 3/8: the k-th place is a tie that the fold
+        must break by the lower slot, across every split boundary, and the
+        head rows tie too."""
+        rng = np.random.default_rng(30)
+        lens = np.full(90, 3)
+        lens[::11] = rng.integers(40, 70, size=len(lens[::11]))   # rows over packets
+        lens[5::13] = 4
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(80, int(n), replace=False))
+                              for n in lens]).astype(np.int32)
+        data = np.full(int(lens.sum()), 1 / 8, np.float32)
+        long_rows = np.repeat(lens > 4, lens)
+        data[long_rows] = -1 / 128
+        csr = tbscsr.CSRMatrix(indptr, idx, data, (len(lens), 80))
+        words, tp = split_words(csr, 2, 32, "F32", 1)
+        xs = np.ones((2, 80), np.float32)
+        xs[1, ::2] = 0.5
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=1, fmt_name="F32",
+                  block_size=32)
+        single = mq_single(words, xs, **kw)
+        assert (single[0][:2, 0, -1] == 3 / 8).all()               # the k-th place ties
+        bounds, _ = tkern.spmv_split_table(torch.from_numpy(words), packets_per_step=1,
+                                           block_size=32, splits=splits)
+        assert (bounds[:2, 1] < bounds[:2, -1]).all()               # more than one split
+        assert_bitwise(mq(words, xs, splits, **kw), single)
+
+    def test_split_walk_against_pallas(self):
+        """One dyadic S > 1 case against the reference's Pallas kernel."""
+        csr = dyadic_csr(n_rows=150, seed=31, max_len=40, empty_every=6)
+        words, slots = fused_words(csr, 2, 32, "BF16", 2)
+        xs = dyadic_queries(3, 64, seed=32)
+        kw = dict(k=8, n_rows=slots, packets_per_step=2, fmt_name="BF16", block_size=32)
+        want = pallas(xs, words, True, **kw)
+        bounds, heads = tkern.spmv_split_table(torch.from_numpy(words), packets_per_step=2,
+                                               block_size=32, splits=5)
+        assert (bounds[:, 2] < bounds[:, -1]).all()
+        assert_bitwise(mq(words, xs, table=(bounds, heads), **kw), want)
+
+    def test_splits_on_the_cpu(self):
+        assert tkern.topk_splits("cpu", 32, 1, packets_per_step=2, block_size=256, m=512,
+                                 q_chunk=1, k=8) == tkern.PLAIN_SPLITS
+        assert tkern.query_chunks(1) == (1, 1)
+        assert tkern.query_chunks(64) == (tkern.MQ_QUERIES_PER_CTA,
+                                          64 // tkern.MQ_QUERIES_PER_CTA)
+        words = torch.zeros((2, 4, 1 + 16 + 32), dtype=torch.int32)
+        v, r = tkern.bscsr_topk_spmv_multiquery(torch.zeros((2, 64)), words, k=3, n_rows=4,
+                                                packets_per_step=2, fmt_name="F32",
+                                                block_size=32, splits=3)
+        assert (v == tkern.NEG_INF).all() and (r == 4).all() and v.shape == (2, 2, 3)
 
 
 class TestWrapperRules:
