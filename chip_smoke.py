@@ -18,7 +18,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              equal row ids outside near-ties.  The multi-query kernel (at
              Q in {1, 3, 64}) and the accumulate kernel run at the card's S
              blocks per core, at one and at 64, and every S must give the
-             bits of S = 1.
+             bits of S = 1.  The same checks run on the tagged width classes
+             of mixed-precision snapshots (TAG4, TAG2 with BF16 and Q15
+             cores in one launch, TAG1; dyadic, random, all-negative under a
+             padded budget, poisoned padding, ties at the k-th place), and
+             each snapshot's grouped dispatch must give the bits of its f32
+             twins streamed as one F32 stream.
 3. main path the deployment configuration of ``repro.configs.topk_spmv``
              (10M rows x 512 columns, gamma row lengths with mean 20, BF16,
              B=256, K=100, k=8, T=2, fused layout, c=32) through the mutable
@@ -44,6 +49,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              launches are queued), each checked against its plain version
              on the same inputs, with its bound on an H100 SXM and a library
              yardstick (torch.sparse.mm).
+5. mixed     recall-targeted mixed precision at the query cell's size: the
+             same 10M x 512 collection (seed 0) scaled hot/cold as the
+             reference's mixed-precision sweep (the first c/4 partitions at
+             full magnitude, the other rows x 0.25), recall_target = 0.99
+             (16 calibration queries, seed 0), through the mutable facade:
+             format histogram, predicted and measured recall@8 (big_k = k,
+             through the kernel, at least the target - 0.02), bytes per nnz
+             beside uniform BF16, each kernel's device time per width class
+             and in sum at Q = 1, 8, 64 (and ``topk_spmv``, accumulate) with
+             its bound, before and after an ingest of 64 cold rows and 64
+             deletes; before and after, each class's words through each
+             kernel and its plain version (phase 4's tolerances), the
+             facade's ``query`` / ``query_batch`` answers, ``topk_spmv`` and
+             the executor's y = A x against the plain results merged, and
+             the grouped kernels bit for bit against the f32 twins as one
+             F32 stream; every kernel launched exactly once per class and
+             call of the facade's run; no retrace and no
+             format change over three more cold upserts (2 rows each);
+             h2d_copies flat.
 6. graph     personalized PageRank and top-k eigen at full width: the "ring"
              operator at 2**21 nodes (5,242,878 nnz, the scale of SNAP's
              com-Youtube), F32, B=256, T=2, fused, c=32, through
@@ -57,8 +81,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              ``topk_eigen(3)`` on the "ba" operator at 1024 nodes with float64
              residuals at most 1e-4.  The accumulate kernel's launch count
              must rise here; ``PPR_SPLIT`` prints a device iteration's time.
-5. summary   a ``kernels`` JSON line, the card's name and power limit, and
-             the result line.
+   summary   a ``MIXED`` line, the ``kernels`` JSON line (each kernel's
+             classes and its mixed-path times), the card's name and power
+             limit, and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
@@ -70,6 +95,7 @@ The script needs one CUDA device and imports only ``repro_torch`` (from
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import re
@@ -97,6 +123,14 @@ HOLD_CYCLES = 100_000_000
 # Extra calls of the multi-query kernel at each S, Q and snapshot of phase 4
 # that must repeat the S = 1 bits.
 MQ_REPEATS = 10
+# Phase 2's tagged fixtures: eight cores, every width class, and TAG2 with
+# BF16 and Q15 cores in one launch.
+MIXED8 = ("F32", "BF16", "Q15", "Q7", "Q15", "BF16", "Q7", "F32")
+# The mixed phase: the reference's recall-targeted sweep (sweep 5 of
+# benchmarks/bench_kernel_paths.py) at the query cell's size.
+MIXED_TARGET = 0.99
+MIXED_COLD_SCALE = 0.25
+MIXED_BUDGET_S = 0.5           # time_cuda budget per timing in the mixed phase
 GRAPH_NODES = 1 << 21
 GRAPH_NNZ = 5_242_878          # the reference's synthetic_graph_csr("ring", 2**21, 0)
 GRAPH_SEEDS = [5, 17, 4242]
@@ -164,10 +198,18 @@ def dyadic_csr(bscsr, rng, n_rows, n_cols, max_len=12, empty_every=0, sign=0, le
     return bscsr.CSRMatrix(indptr, idx, data.astype(np.float32), (len(lens), n_cols))
 
 
-def poison_padding(bscsr, words, block, fmt, rows_per_core):
+def poison_padding(bscsr, words, block, fmt, rows_per_core, tagged=False):
+    """Padding col ids past each core's last row set to 30,000 and -7.
+
+    In a tagged width-class stream the header word comes first and each
+    core's format is its header's code (``fmt`` is then ignored).
+    """
+    from repro_torch.core.quantization import FORMAT_BY_CODE
+
     out = words.copy()
     for c in range(words.shape[0]):
-        vals, cols, flags = bscsr.defuse_stream(words[c], block, fmt, np.int16)
+        f = FORMAT_BY_CODE[int(words[c, 0, 0])] if tagged else fmt
+        vals, cols, flags = bscsr.defuse_stream(words[c], block, f, np.int16, tagged=tagged)
         row_ids = np.cumsum(bscsr.unpack_bits(flags, block).reshape(-1)) - 1
         pad = (row_ids >= rows_per_core[c]).reshape(cols.shape)
         cols = cols.copy()
@@ -175,8 +217,96 @@ def poison_padding(bscsr, words, block, fmt, rows_per_core):
         half = pad.copy()
         half[::2] = False
         cols[half] = -7
-        out[c] = bscsr.fuse_words(vals, cols, flags)
+        out[c] = bscsr.fuse_words(vals, cols, flags, tag=f.code if tagged else None)
     return out
+
+
+def ties_csr(bscsr, rng):
+    """Every row scores 3/8, 1/2 or below 0 at x = 1, and more than k rows a
+    core score 1/2: the scratchpad is a tie broken by the lower slot."""
+    lens = np.full(400, 3)
+    lens[::11] = rng.integers(40, 70, size=len(lens[::11]))
+    lens[5::13] = 4
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate([np.sort(rng.choice(80, int(n), replace=False))
+                          for n in lens]).astype(np.int32)
+    data = np.full(int(lens.sum()), 1 / 8, np.float32)
+    data[np.repeat(lens > 4, lens)] = -1 / 128
+    return bscsr.CSRMatrix(indptr, idx, data, (len(lens), 80))
+
+
+def fixture_queries(rng, q, n_cols, bitwise, xsign):
+    if xsign == "ties":
+        xs = np.ones((q, n_cols))
+        xs[1::3, ::2] = 0.5
+        xs[2::3] = 2.0
+    elif bitwise:
+        lo = 1 if xsign == "positive" else -16
+        xs = rng.integers(lo, 17, size=(q, n_cols)) / 8.0
+    else:
+        xs = rng.standard_normal((q, n_cols))
+    return xs.astype(np.float32)
+
+
+def stream_checks(torch, K, check, errs, name, w, fmt, block, t, n_rows, live, n_cols,
+                  bitwise, xsign, rng):
+    """One fused stream through all three kernels against their plain
+    versions: the single-query kernel at Q = 1, the multi-query kernel at
+    Q in {1, 3, 64} and S in {card, 1, 64} (and every S against its S = 1
+    bits), the accumulate kernel at the same S (slots that never complete
+    read exactly 0.0).  Returns the number of comparisons."""
+    kw = dict(k=8, n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
+    n_checks = 0
+    for q in (1, 3, 64):
+        x = torch.from_numpy(fixture_queries(rng, q, n_cols, bitwise, xsign)).to(w.device)
+        if q == 1:
+            got = K.bscsr_topk_spmv(x[0], w, **kw)
+            want = K.bscsr_topk_spmv_plain(x[0], w, **kw)
+            torch.cuda.synchronize()
+            ok, err = compare(got, want, bitwise)
+            errs["bscsr_topk_spmv"] = max(errs["bscsr_topk_spmv"], err)
+            check.expect(ok, f"{name} Q=1: single-query kernel != plain (max err "
+                             f"{err:.3g})")
+            n_checks += 1
+        # The multi-query kernel at the card's S, at one split and at 64:
+        # each against plain, and every S against S = 1 bit for bit.
+        want = K.bscsr_topk_spmv_multiquery_plain(x, w, **kw)
+        one = K.bscsr_topk_spmv_multiquery(x, w, splits=1, **kw)
+        for splits in (None, 1, 64):
+            got = K.bscsr_topk_spmv_multiquery(x, w, splits=splits, **kw)
+            torch.cuda.synchronize()
+            ok, err = compare(got, want, bitwise)
+            errs["bscsr_topk_spmv_multiquery"] = max(errs["bscsr_topk_spmv_multiquery"],
+                                                     err)
+            check.expect(ok, f"{name} Q={q} S={splits}: multi-query kernel != plain "
+                             f"(max err {err:.3g})")
+            check.expect(compare(got, one, True)[0],
+                         f"{name} Q={q} S={splits}: multi-query kernel != its S=1 bits")
+            n_checks += 1
+    # The accumulate kernel on the same words, first query of the last batch,
+    # at the card's S, at one split and at 64 (past the flagged steps of
+    # these fixtures): each against plain, and every S against S = 1 bit for
+    # bit.
+    akw = dict(n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
+    want = K.bscsr_spmv_plain(x[0], w, **akw).cpu().numpy()
+    one = K.bscsr_spmv(x[0], w, splits=1, **akw).cpu().numpy()
+    never = np.arange(n_rows)[None, :] >= np.asarray(live)[:, None]
+    for splits in (None, 1, 64):
+        gv = K.bscsr_spmv(x[0], w, splits=splits, **akw).cpu().numpy()
+        err = float(np.abs(gv.astype(np.float64) - want).max())
+        errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
+        if bitwise:
+            ok = np.array_equal(gv.view(np.int32), want.view(np.int32))
+        else:
+            ok = bool(np.allclose(gv, want, rtol=TOL, atol=TOL))
+        check.expect(ok, f"{name} S={splits}: accumulate kernel != plain "
+                         f"(max err {err:.3g})")
+        check.expect(np.array_equal(gv.view(np.int32), one.view(np.int32)),
+                     f"{name} S={splits}: accumulate kernel != its S=1 bits")
+        check.expect(bool((gv.view(np.int32)[never] == 0).all()),
+                     f"{name} S={splits}: a slot that never completes is not 0.0")
+        n_checks += 1
+    return n_checks
 
 
 def parity_phase(torch, K, ops, bscsr, errs):
@@ -210,65 +340,73 @@ def parity_phase(torch, K, ops, bscsr, errs):
             n_rows *= 4
         elif edit == "poison":
             words = poison_padding(bscsr, words, block, fmt, packed.candidate_slots)
-        w = torch.from_numpy(words).to(dev)
-        kw = dict(k=8, n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
-        for q in (1, 3, 64):
-            if bitwise:
-                lo = 1 if xsign == "positive" else -16
-                xs = rng.integers(lo, 17, size=(q, csr.shape[1])) / 8.0
-            else:
-                xs = rng.standard_normal((q, csr.shape[1]))
-            x = torch.from_numpy(xs.astype(np.float32)).to(dev)
-            if q == 1:
-                got = K.bscsr_topk_spmv(x[0], w, **kw)
-                want = K.bscsr_topk_spmv_plain(x[0], w, **kw)
-                torch.cuda.synchronize()
-                ok, err = compare(got, want, bitwise)
-                errs["bscsr_topk_spmv"] = max(errs["bscsr_topk_spmv"], err)
-                check.expect(ok, f"{name} Q=1: single-query kernel != plain (max err "
-                                 f"{err:.3g})")
-                n_checks += 1
-            # The multi-query kernel at the card's S, at one split and at 64:
-            # each against plain, and every S against S = 1 bit for bit.
-            want = K.bscsr_topk_spmv_multiquery_plain(x, w, **kw)
-            one = K.bscsr_topk_spmv_multiquery(x, w, splits=1, **kw)
-            for splits in (None, 1, 64):
-                got = K.bscsr_topk_spmv_multiquery(x, w, splits=splits, **kw)
-                torch.cuda.synchronize()
-                ok, err = compare(got, want, bitwise)
-                errs["bscsr_topk_spmv_multiquery"] = max(errs["bscsr_topk_spmv_multiquery"],
-                                                         err)
-                check.expect(ok, f"{name} Q={q} S={splits}: multi-query kernel != plain "
-                                 f"(max err {err:.3g})")
-                check.expect(compare(got, one, True)[0],
-                             f"{name} Q={q} S={splits}: multi-query kernel != its S=1 bits")
-                n_checks += 1
-        # The accumulate kernel on the same words, first query of the case, at
-        # the card's S, at one split and at 64 (past the flagged steps of
-        # these fixtures): each against plain, and every S against S = 1 bit
-        # for bit.
-        akw = dict(n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
-        want = K.bscsr_spmv_plain(x[0], w, **akw).cpu().numpy()
-        one = K.bscsr_spmv(x[0], w, splits=1, **akw).cpu().numpy()
-        live = np.asarray(packed.candidate_slots)
-        never = np.arange(n_rows)[None, :] >= live[:, None]
-        for splits in (None, 1, 64):
-            gv = K.bscsr_spmv(x[0], w, splits=splits, **akw).cpu().numpy()
-            err = float(np.abs(gv.astype(np.float64) - want).max())
-            errs["bscsr_spmv"] = max(errs["bscsr_spmv"], err)
-            if bitwise:
-                ok = np.array_equal(gv.view(np.int32), want.view(np.int32))
-            else:
-                ok = bool(np.allclose(gv, want, rtol=TOL, atol=TOL))
-            check.expect(ok, f"{name} S={splits}: accumulate kernel != plain "
-                             f"(max err {err:.3g})")
-            check.expect(np.array_equal(gv.view(np.int32), one.view(np.int32)),
-                         f"{name} S={splits}: accumulate kernel != its S=1 bits")
-            check.expect(bool((gv.view(np.int32)[never] == 0).all()),
-                         f"{name} S={splits}: a slot that never completes is not 0.0")
-            n_checks += 1
-    log(f"  {n_checks} kernel/plain comparisons")
+        n_checks += stream_checks(torch, K, check, errs, name, torch.from_numpy(words).to(dev),
+                                  fmt, block, t, n_rows, packed.candidate_slots, csr.shape[1],
+                                  bitwise, xsign, rng)
+    n_tagged = tagged_parity(torch, K, ops, bscsr, errs, check, rng)
+    log(f"  {n_checks} kernel/plain comparisons on uniform streams, {n_tagged} on tagged "
+        f"width classes (TAG4, TAG2 with BF16 and Q15 cores, TAG1)")
     check.done()
+
+
+def tagged_parity(torch, K, ops, bscsr, errs, check, rng) -> int:
+    """Phase 2 on mixed-precision snapshots: every kernel on every width
+    class against its plain version (dyadic bit for bit, random within TOL),
+    with poisoned padding, all-negative scores under a padded budget and
+    ties at the k-th place; then the grouped dispatch (one launch per class)
+    against the same snapshot's f32 twins as one F32 stream, bit for bit."""
+    dev = torch.device("cuda")
+    cases = []
+    for block, t, n_cols in ((32, 1, 64), (256, 2, 512), (64, 2, 40_000)):
+        csr = dyadic_csr(bscsr, rng, 1200, n_cols, empty_every=9)
+        cases.append((f"tagged dyadic B={block} T={t} M={n_cols}", csr, MIXED8, block, t,
+                      True, "mixed", None))
+    rand = bscsr.synthetic_embedding_csr(4000, 512, 20, "gamma", seed=2)
+    cases.append(("tagged random B=256 T=2", rand, MIXED8, 256, 2, False, "mixed", None))
+    cases.append(("tagged all-negative, padded budget",
+                  dyadic_csr(bscsr, rng, 120, 64, sign=-1), MIXED8, 32, 2, True, "positive",
+                  "pad"))
+    cases.append(("tagged poisoned padding ids", dyadic_csr(bscsr, rng, 80, 64), MIXED8, 32,
+                  2, True, "mixed", "poison"))
+    cases.append(("tagged ties at the k-th place", ties_csr(bscsr, rng), ("BF16", "Q15"),
+                  32, 1, True, "ties", None))
+    n_checks = 0
+    for name, csr, formats, block, t, bitwise, xsign, edit in cases:
+        packed = ops.pack_partitions(csr, len(formats), block, packets_multiple=t,
+                                     stream_layout="fused", value_formats=formats)
+        live_all = np.asarray(packed.candidate_slots)
+        for g in packed.groups:
+            words, n_rows, live = g.words, packed.max_slots, live_all[list(g.cores)]
+            if edit == "pad":
+                words = np.concatenate([words, np.zeros((len(g.cores), 4, words.shape[2]),
+                                                        np.int32)], 1)
+                n_rows *= 4
+            elif edit == "poison":
+                words = poison_padding(bscsr, words, block, None, live, tagged=True)
+            n_checks += stream_checks(
+                torch, K, check, errs, f"{name} {g.class_name}",
+                torch.from_numpy(words).to(dev), g.class_name, block, t, n_rows, live,
+                csr.shape[1], bitwise, xsign, rng)
+        if edit is not None:
+            continue
+        twins = dataclasses.replace(packed, stream_layout="split")
+        xs = fixture_queries(rng, 8, csr.shape[1], bitwise, xsign)
+        kw = dict(k=8, packets_per_step=t, device=dev)
+        pairs = [("single", ops.topk_spmv_blocked(xs[0], packed, 16, **kw),
+                  ops.topk_spmv_blocked(xs[0], twins, 16, **kw)),
+                 ("batched", ops.topk_spmv_batched(xs, packed, 16, **kw),
+                  ops.topk_spmv_batched(xs, twins, 16, **kw)),
+                 ("accumulate",
+                  (ops.bscsr_spmv_blocked(xs[0], packed, packets_per_step=t, device=dev),),
+                  (ops.bscsr_spmv_blocked(xs[0], twins, packets_per_step=t, device=dev),))]
+        torch.cuda.synchronize()
+        for what, got, want in pairs:
+            same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                   b.view(torch.int32) if b.dtype == torch.float32 else b)
+                       for a, b in zip(got, want))
+            check.expect(same, f"{name}: grouped {what} dispatch != the f32 twins' bits")
+            n_checks += 1
+    return n_checks
 
 
 # ---------------------------------------------------------------------------
@@ -616,11 +754,21 @@ def main() -> int:
     for q, x in ((1, x1[:, None]), (64, x64.T.contiguous())):
         yard[f"q{q}_ms"] = time_cuda(
             torch, lambda: torch.topk(torch.sparse.mm(mat, x), cfg.big_k, dim=0))
-    del mat, crow, col, val, words, svc, index, csr
+    del mat, crow, col, val, words, svc, index
     gc.collect()
     torch.cuda.empty_cache()
     log("YARDSTICK exact-search score pass torch.sparse.mm(csr, x) + torch.topk: "
         + json.dumps(yard))
+
+    # ---- phase 5: mixed precision at the query cell's size ----
+    if args.rows != 10_000_000 or args.seed != 0:
+        csr = bscsr.synthetic_embedding_csr(10_000_000, 512, 20.0, "gamma", seed=0)
+    t0 = time.time()
+    mixed = mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
+    log(f"  mixed phase {time.time() - t0:.1f} s")
+    del csr
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- phase 6: the graph path at full width ----
     from repro_torch.core import graph
@@ -634,7 +782,30 @@ def main() -> int:
     kernels.append(accumulate_timing(torch, K, bscsr, gsvc, pre, errs, launches))
     log(f"total {time.time() - t_start:.1f} s")
 
-    # ---- phase 5: summary ----
+    # ---- summary ----
+    classes = list(FORMATS) + ["TAG4", "TAG2", "TAG1"]
+    for entry in kernels:
+        name = entry["name"]
+        entry["classes"] = classes
+        entry["launches_mixed_path"] = mixed["launches"][name]
+        entry["mixed"] = {}
+        for label in ("before", "after"):
+            m = mixed[label]
+            key = {"bscsr_topk_spmv": "single_ms", "bscsr_spmv": "accumulate_ms"}.get(name)
+            if key is None:
+                by_class = {c: e["ms_by_q"] for c, e in m["classes"].items()}
+                total, bound = m["sum_ms_by_q"], m["bound_ms_by_q"]
+            else:
+                by_class = {c: e[key] for c, e in m["classes"].items()}
+                total = m["sum_" + key]
+                bound = m["bound_ms_by_q"][1] if key == "single_ms" else m["accumulate_bound_ms"]
+            plain = "plain_accumulate_ms" if name == "bscsr_spmv" else "plain_ms_q64"
+            entry["mixed"][label + "_ingest"] = {
+                "ms_by_class": by_class, "ms_sum": total, "bound_ms": bound,
+                "plain_ms_by_class": {c: e[plain] for c, e in m["classes"].items()}}
+    log("MIXED " + json.dumps({k: mixed[k] for k in (
+        "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
+        "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -649,7 +820,8 @@ def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) ->
     after ingest, at the card's S (``topk_splits``) and at one split (the
     one-block walk, cut at e_c), timed in turns with the split tables built
     beforehand, as the executor holds them.  At each Q and snapshot the
-    kernel is held against its plain version, and the card's S against the
+    kernel is held against its plain version (one plain walk of the 64
+    queries per snapshot), and the card's S against the
     S = 1 bits; then ``MQ_REPEATS`` more calls at each S must give those
     bits again (a race between warps would show only now and then).
     """
@@ -664,6 +836,10 @@ def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) ->
     for label, words, n_rows in snaps:
         kwl = dict(kw, n_rows=n_rows)
         after = label == "after ingest"
+        # One plain walk of the 64 queries is the plain answer at every Q:
+        # each query's walk is its own.
+        plain_ms, want64 = time_once(
+            torch, lambda: K.bscsr_topk_spmv_multiquery_plain(x64, words, **kwl))
         for q in (1, 8, 64):
             x = x64[:q].contiguous()
             q_chunk, n_chunks = K.query_chunks(q)
@@ -681,8 +857,7 @@ def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) ->
                 entry["split_table_ms" + ("_after_ingest" if after else "")] = table_ms
             tabs = {s: K.spmv_split_table(words, packets_per_step=t, block_size=block,
                                           splits=s) for s in {splits, 1}}
-            plain_ms, want = time_once(
-                torch, lambda: K.bscsr_topk_spmv_multiquery_plain(x, words, **kwl))
+            want = (want64[0][:, :q], want64[1][:, :q])
             got = K.bscsr_topk_spmv_multiquery(x, words, table=tabs[splits], **kwl)
             one = K.bscsr_topk_spmv_multiquery(x, words, table=tabs[1], **kwl)
             torch.cuda.synchronize()
@@ -708,14 +883,14 @@ def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) ->
             suffix = "_after_ingest" if after else ""
             by["ms" + suffix + "_by_q"][q] = ms
             by["ms" + suffix + "_one_split_by_q"][q] = ms_one
-            by["plain_ms" + suffix + "_by_q"][q] = plain_ms
             by["splits_by_q"][q] = splits
             by["q_chunk_by_q"][q] = q_chunk
             by["bound_ms_by_q"][q] = bound(q)[0]
             log(f"  {name} Q={q} {label}: S={splits} (q_chunk {q_chunk}, {n_chunks} chunks) "
                 f"{turns[0]:.3f} / {turns[3]:.3f} ms, S=1 {turns[1]:.3f} / {turns[2]:.3f} "
-                f"ms, plain {plain_ms:.1f} ms, max abs err {errs[name]:.3g}, bound "
-                f"{bound(q)[0]:.3f} ms")
+                f"ms, max abs err {errs[name]:.3g}, bound {bound(q)[0]:.3f} ms")
+        by["plain_ms" + ("_after_ingest" if after else "") + "_by_q"][64] = plain_ms
+        log(f"  {name} {label}: plain walk of the 64 queries {plain_ms:.1f} ms")
     q = 64
     ms = by["ms_by_q"][q]
     entry.update({
@@ -726,6 +901,326 @@ def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) ->
         "queries_per_s": q / (ms * 1e-3), **by,
     })
     return entry
+
+
+def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs) -> dict:
+    """Phase 5: recall-targeted mixed precision at the query cell's size.
+
+    The collection scaled hot/cold as the reference's mixed-precision sweep
+    does (the first c/4 partitions at full magnitude, the rest x 0.25), one
+    format per partition for recall@8 >= 0.99 (16 calibration queries, seed
+    0), served through the mutable facade: each width class streams its
+    tagged words through its own launch of each kernel.  Checks, before and
+    after ingest: each class through each kernel against its plain version,
+    the facade's answers against the plain results merged, the grouped
+    kernels against the f32 twins' bits; then recall@8 at big_k = k through
+    the kernel, exact launch counts, retraces, formats and h2d_copies.
+    Returns the per-kernel numbers for the ``kernels`` line.
+    """
+    from repro_torch.core import adaptive, partition
+    from repro_torch.kernels import executor as executor_lib
+
+    check = Check("mixed precision")
+    dev = cfg.resolve_device()
+    n_rows, n_cols = csr.shape
+    c = cfg.resolve_partitions(n_rows)
+    hot_end = int(partition.PartitionPlan.build(n_rows, c).row_starts[c // 4])
+    scales = np.ones(n_rows, np.float32)
+    scales[hot_end:] = MIXED_COLD_SCALE
+    t0 = time.time()
+    mcsr = bscsr.scale_rows(csr, scales)
+    svc = SparseEmbeddingIndex(mcsr, cfg, recall_target=MIXED_TARGET)
+    build_s = time.time() - t0
+    index = svc.index
+    packed = index.packed
+    bpn, vbpn = packed.bytes_per_nnz, packed.value_bytes_per_nnz
+    nnz0, hist0 = packed.nnz, packed.format_histogram()
+    # The uniform BF16 snapshot of the same partitions: every core padded to
+    # the longest, B/32 flag, B/2 col and B/2 value words a packet.
+    p_max, block = packed.vals.shape[1], packed.block_size
+    bf16_bytes = c * p_max * (block // 32 + block) * 4
+    bf16_value_bytes = c * p_max * block * 2
+    log(f"  mixed facade build (calibration, three planes, groups): {build_s:.1f} s; "
+        f"formats {packed.format_histogram()}, predicted recall@8 "
+        f"{index.predicted_recall:.4f} (target {MIXED_TARGET})")
+    log(f"  bytes per nnz {bpn:.4f} (value bytes {vbpn:.4f}) against uniform BF16 "
+        f"{bf16_bytes / packed.nnz:.4f} (value bytes {bf16_value_bytes / packed.nnz:.4f})")
+    check.expect(packed.is_heterogeneous and tuple(g.cores for g in packed.groups)
+                 and sorted(sum((g.cores for g in packed.groups), ())) == list(range(c)),
+                 "the mixed snapshot's width classes do not cover every core once")
+    check.expect(bpn < bf16_bytes / packed.nnz, "mixed precision streams no fewer bytes "
+                                                 "than uniform BF16")
+
+    rng = np.random.default_rng(7)
+    xs64 = rng.standard_normal((64, n_cols)).astype(np.float32)
+    x64 = torch.from_numpy(xs64).to(dev)
+    executor = api.query_executor(cfg)
+
+    def drive():
+        out = (svc.query(xs64[0]), svc.query_batch(xs64[:8]), svc.query_batch(xs64),
+               api.topk_spmv(index, x64[0]))
+        ex_sums = executor.spmv(x64[0], index.packed, alpha=1.0, beta=0.0,
+                                y=torch.zeros(index.packed.n_rows_logical, device=dev))
+        torch.cuda.synchronize()
+        return out, ex_sums
+
+    drive()                                      # pins the snapshot
+    copies = executor.h2d_copies
+    K.reset_launch_counts()
+    drive()
+    launches = {"bscsr_topk_spmv": K.bscsr_topk_spmv.launches,
+                "bscsr_topk_spmv_multiquery": K.bscsr_topk_spmv_multiquery.launches,
+                "bscsr_spmv": K.bscsr_spmv.launches}
+    n_groups = len(packed.groups)
+    log(f"  launches on the mixed path ({n_groups} width classes): {launches}")
+    # One launch per class and call: query and two query_batch calls run
+    # the multi-query kernel, topk_spmv the single-query one, spmv the
+    # accumulate kernel.
+    calls = {"bscsr_topk_spmv": 1, "bscsr_topk_spmv_multiquery": 3, "bscsr_spmv": 1}
+    for name, n in launches.items():
+        check.expect(n == calls[name] * n_groups,
+                     f"{name}: {n} launches on the mixed path, not {calls[name]} calls x "
+                     f"{n_groups} classes")
+    check.expect(executor.h2d_copies == copies,
+                 f"h2d_copies moved in steady state: {copies} -> {executor.h2d_copies}")
+
+    # recall@8 through the kernel at big_k = k on the calibration queries
+    # (the partition term of Eq. 1 is then zero), against exact search.
+    xq = adaptive.sample_calibration_queries(mcsr, cfg.calibration_queries,
+                                             cfg.calibration_seed)
+    ex8 = executor_lib.get_executor(big_k=cfg.k, k=cfg.k,
+                                    packets_per_step=cfg.packets_per_step, device=dev)
+    _, rows = ex8.query_batched(torch.from_numpy(xq).to(dev), packed)
+    mat = torch.sparse_csr_tensor(torch.from_numpy(mcsr.indptr).to(dev),
+                                  torch.from_numpy(mcsr.indices.astype(np.int64)).to(dev),
+                                  torch.from_numpy(mcsr.data).to(dev), size=mcsr.shape)
+    exact = torch.topk(torch.sparse.mm(mat, torch.from_numpy(xq).to(dev).T), cfg.k,
+                       dim=0).indices.T.cpu().numpy()
+    del mat
+    recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / cfg.k
+                            for a, b in zip(rows.cpu().numpy(), exact)]))
+    log(f"  recall@{cfg.k} through the kernel on the {len(xq)} calibration queries: "
+        f"measured {recall:.4f}, predicted {index.predicted_recall:.4f}")
+    check.expect(recall >= MIXED_TARGET - 0.02,
+                 f"recall@8 {recall:.4f} below {MIXED_TARGET} - 0.02")
+
+    def host_ms(fn, reps=5):
+        fn()
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t))
+
+    e2e = {"query_ms": host_ms(lambda: svc.query(xs64[0])),
+           "query_batch_q8_ms": host_ms(lambda: svc.query_batch(xs64[:8])),
+           "query_batch_q64_ms": host_ms(lambda: svc.query_batch(xs64))}
+    log("MIXED_END_TO_END " + json.dumps(e2e))
+
+    def kernels_on(label, p):
+        """Each kernel per class and in sum on snapshot ``p``, the facade's
+        snapshot.  Every class's words go through the three plain versions
+        on the same card tensors (phase 4's tolerances), the facade's
+        answers and the executor's y = A x are held to those plain results
+        merged, the grouped dispatch to the f32 twins' bits, and each
+        kernel is timed per class."""
+        snap = executor_lib.device_snapshot(p, "fused", executor.device)
+        fin = ops.finalize_tensors(p, dev)
+        t, n_slots, nc = cfg.packets_per_step, p.max_slots, p.num_cores
+        kw = dict(packets_per_step=t, block_size=block, inner_loop="linear")
+        x0 = x64[0]
+        # Phase 6's bound on a slot sum's rounding: 16 ulps of a step's
+        # largest total of |a x|.
+        atol = 16 * 2.0 ** -24 * t * block * float(np.abs(p.vals).max()) \
+            * float(x0.abs().max())
+        out = {"classes": {}, "atol": atol}
+        plain_mq = (torch.full((nc, 64, cfg.k), K.NEG_INF, device=dev),
+                    torch.full((nc, 64, cfg.k), n_slots, dtype=torch.int32, device=dev))
+        plain_sums = torch.zeros((nc, n_slots), device=dev)
+        for cname, cores, words in snap.groups:
+            cg = words.shape[0]
+            kwc = dict(kw, n_rows=n_slots, fmt_name=cname)
+            entry = {"cores": cores.tolist(), "packets": int(words.shape[1]),
+                     "stream_bytes": words.numel() * 4, "ms_by_q": {}, "splits_by_q": {}}
+            # Each kernel against its plain version on this class's words.
+            # One plain walk of the 64 queries is the plain answer of both
+            # top-k kernels: each query's walk is its own, and
+            # bscsr_topk_spmv_plain is this walk on a batch of one.  The
+            # plain walks run at one split, which ends each core's walk at
+            # its last flagged step (the single walk's bits).
+            name = "bscsr_topk_spmv_multiquery"
+            entry["plain_ms_q64"], want = time_once(
+                torch, lambda: K.bscsr_topk_spmv_multiquery_plain(x64, words, k=cfg.k,
+                                                                  splits=1, **kwc))
+            for q in (1, 8, 64):
+                got = K.bscsr_topk_spmv_multiquery(x64[:q].contiguous(), words, k=cfg.k, **kwc)
+                ok, err = compare(got, (want[0][:, :q], want[1][:, :q]), bitwise=False)
+                errs[name] = max(errs[name], err)
+                check.expect(ok, f"{label} {cname}: {name} Q={q} differs from plain "
+                                 f"(max err {err:.3g})")
+            plain_mq[0][cores], plain_mq[1][cores] = want
+            name = "bscsr_topk_spmv"
+            ok, err = compare(K.bscsr_topk_spmv(x0, words, k=cfg.k, **kwc),
+                              (want[0][:, 0], want[1][:, 0]), False)
+            errs[name] = max(errs[name], err)
+            check.expect(ok, f"{label} {cname}: {name} differs from plain (max err {err:.3g})")
+            name = "bscsr_spmv"
+            entry["plain_accumulate_ms"], want = time_once(
+                torch, lambda: K.bscsr_spmv_plain(x0, words, splits=1, **kwc))
+            err = float((K.bscsr_spmv(x0, words, **kwc).double() - want.double()).abs().max())
+            errs[name] = max(errs[name], err)
+            check.expect(err <= atol, f"{label} {cname}: {name} differs from plain (max err "
+                                      f"{err:.3g}, atol {atol:.3g})")
+            plain_sums[cores] = want
+            log(f"  {label} {cname}: kernels vs plain: multi-query Q=1/8/64, single-query "
+                f"and accumulate within tolerance (plain top-k walk of Q=64 "
+                f"{entry['plain_ms_q64']:.0f} ms, accumulate {entry['plain_accumulate_ms']:.0f} "
+                f"ms)")
+            # Timed, in turns of the classes.
+            for q in (1, 8, 64):
+                x = x64[:q].contiguous()
+                q_chunk, n_chunks = K.query_chunks(q)
+                splits = K.topk_splits(dev, cg, n_chunks, packets_per_step=t, block_size=block,
+                                       m=n_cols, q_chunk=q_chunk, k=cfg.k)
+                table = K.spmv_split_table(words, packets_per_step=t, block_size=block,
+                                           splits=splits, header=1)
+                entry["ms_by_q"][q] = time_cuda(torch, lambda: K.bscsr_topk_spmv_multiquery(
+                    x, words, k=cfg.k, table=table, **kwc), MIXED_BUDGET_S)
+                entry["splits_by_q"][q] = splits
+            entry["single_ms"] = time_cuda(torch, lambda: K.bscsr_topk_spmv(
+                x0, words, k=cfg.k, **kwc), MIXED_BUDGET_S)
+            asplits = K.spmv_splits(dev, cg, packets_per_step=t, block_size=block, m=n_cols)
+            atable = K.spmv_split_table(words, packets_per_step=t, block_size=block,
+                                        splits=asplits, header=1)
+            entry["accumulate_ms"] = time_cuda(torch, lambda: K.bscsr_spmv(
+                x0, words, table=atable, **kwc), MIXED_BUDGET_S)
+            entry["accumulate_splits"] = asplits
+            out["classes"][cname] = entry
+            log(f"  {label} {cname}: cores {entry['cores']}, {entry['packets']} packets, "
+                f"{entry['stream_bytes'] / 1e9:.4f} GB, S {entry['splits_by_q']} (accumulate "
+                f"{asplits}); multi-query Q=1/8/64 "
+                + " / ".join(f"{entry['ms_by_q'][q]:.3f}" for q in (1, 8, 64))
+                + f" ms, single-query {entry['single_ms']:.3f} ms, accumulate "
+                f"{entry['accumulate_ms']:.4f} ms")
+
+        # The facade and the executor on this snapshot against the plain
+        # per-class results merged as the executor merges its candidates.
+        want = ops.finalize_candidates_batched(*plain_mq, big_k=cfg.big_k, **fin)
+        for q, got in ((1, tuple(a[None] for a in svc.query(xs64[0]))),
+                       (8, svc.query_batch(xs64[:8])), (64, svc.query_batch(xs64))):
+            ok, err = compare(tuple(torch.from_numpy(np.asarray(a)) for a in got),
+                              (want[0][:q], want[1][:q]), bitwise=False)
+            check.expect(ok, f"{label}: the facade's Q={q} answers differ from the plain "
+                             f"candidates merged (max err {err:.3g})")
+        ok, err = compare(api.topk_spmv(index, x0), ops.finalize_candidates(
+            plain_mq[0][:, 0], plain_mq[1][:, 0], big_k=cfg.big_k, **fin), bitwise=False)
+        check.expect(ok, f"{label}: topk_spmv differs from the plain candidates merged "
+                         f"(max err {err:.3g})")
+        y0 = torch.zeros(p.n_rows_logical, device=dev)
+        want = ops.accumulate_epilogue(plain_sums, fin, p.n_rows_logical, 1.0, 0.0, y=y0)
+        err = float((executor.spmv(x0, p, alpha=1.0, beta=0.0, y=y0).double()
+                     - want.double()).abs().max())
+        check.expect(err <= atol, f"{label}: the executor's y = A x differs from the plain "
+                                  f"slot sums scattered (max err {err:.3g}, atol {atol:.3g})")
+        log(f"  {label}: query, query_batch Q=8/64, topk_spmv and the executor's y = A x "
+            f"held to the plain results merged (y max err {err:.3g}, atol {atol:.3g})")
+
+        # Grouped vs the f32 twins as one F32 stream, bit for bit.
+        twins = torch.from_numpy(bscsr.fuse_words(p.vals, p.cols, p.flags)).to(dev)
+        for q in (1, 8, 64):
+            x = x64[:q].contiguous()
+            got = ops.grouped_local_topk(x, snap.groups, n_cores=nc, k=cfg.k, n_rows=n_slots,
+                                         batched=True, **kw)
+            want = K.bscsr_topk_spmv_multiquery(x, twins, k=cfg.k, n_rows=n_slots,
+                                                fmt_name="F32", **kw)
+            check.expect(compare(got, want, True)[0],
+                         f"{label}: grouped multi-query Q={q} != the f32 twins' bits")
+        got = ops.grouped_local_topk(x0, snap.groups, n_cores=nc, k=cfg.k,
+                                     n_rows=n_slots, batched=False, **kw)
+        want = K.bscsr_topk_spmv(x0, twins, k=cfg.k, n_rows=n_slots, fmt_name="F32", **kw)
+        check.expect(compare(got, want, True)[0],
+                     f"{label}: grouped single-query != the f32 twins' bits")
+        got = ops.grouped_slot_sums(x0, snap.groups, n_cores=nc, n_rows=n_slots, **kw)
+        want = K.bscsr_spmv(x0, twins, n_rows=n_slots, fmt_name="F32", **kw)
+        torch.cuda.synchronize()
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        check.expect(n_diff == 0, f"{label}: grouped accumulate differs from the f32 "
+                                  f"twins in {n_diff} sums")
+        log(f"  {label}: grouped kernels vs the f32 twins ({twins.numel() * 4 / 1e9:.3f} "
+            f"GB as one F32 stream): multi-query Q=1/8/64, single-query and accumulate "
+            f"({n_diff} of {got.numel()} sums differ)")
+        del twins
+        cls = out["classes"].values()
+        out["sum_ms_by_q"] = {q: sum(e["ms_by_q"][q] for e in cls) for q in (1, 8, 64)}
+        out["sum_single_ms"] = sum(e["single_ms"] for e in cls)
+        out["sum_accumulate_ms"] = sum(e["accumulate_ms"] for e in cls)
+        stream = sum(e["stream_bytes"] for e in cls)
+        out["stream_bytes"] = stream
+        out["bound_ms_by_q"] = {}
+        for q in (1, 8, 64):
+            bytes_ms = (stream + q * n_cols * 4 + nc * q * cfg.k * 8) / HBM_BYTES_PER_S * 1e3
+            flops_ms = 2.0 * p.nnz * q / F32_FLOPS * 1e3
+            out["bound_ms_by_q"][q] = max(bytes_ms, flops_ms)
+        out["accumulate_bound_ms"] = (stream + n_cols * 4 + nc * n_slots * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        log(f"  {label} in sum over the classes: multi-query Q=1/8/64 "
+            + " / ".join(f"{out['sum_ms_by_q'][q]:.3f}" for q in (1, 8, 64))
+            + " ms (bounds " + " / ".join(f"{out['bound_ms_by_q'][q]:.3f}" for q in (1, 8, 64))
+            + f" ms), single-query {out['sum_single_ms']:.3f} ms (bound "
+            f"{out['bound_ms_by_q'][1]:.3f}), accumulate {out['sum_accumulate_ms']:.4f} ms "
+            f"(bound {out['accumulate_bound_ms']:.4f} ms; {stream / 1e9:.4f} GB of group "
+            f"words)")
+        return out
+
+    before = kernels_on("before ingest", packed)
+    del packed
+    # Ingest: 64 cold rows (the cold partitions' magnitude) and 64 deletes,
+    # then three more cold upserts of 2 rows, each followed by queries.  Each
+    # refresh re-scores every partition that took a row (64 rows mutate all
+    # 32, about 3 s each on the host), so the later upserts stay small.
+    retraces0, fmts0 = executor.retraces, index.partition_formats
+
+    def cold_rows(n):
+        dense = rng.standard_normal((n, n_cols)).astype(np.float32)
+        sp = bscsr.sparsify_topm(dense, 20)
+        return [(sp.indices[sp.indptr[i]:sp.indptr[i + 1]],
+                 MIXED_COLD_SCALE * sp.data[sp.indptr[i]:sp.indptr[i + 1]]) for i in range(n)]
+
+    t0 = time.perf_counter()
+    index.add_rows(cold_rows(64))
+    upsert_s = time.perf_counter() - t0
+    deleted = sorted(int(i) for i in rng.choice(n_rows, 64, replace=False))
+    t0 = time.perf_counter()
+    svc.delete(deleted)
+    delete_s = time.perf_counter() - t0
+    drive()
+    first = executor.retraces - retraces0
+    retraces1, fmts1 = executor.retraces, index.partition_formats
+    for _ in range(3):
+        index.add_rows(cold_rows(2))
+        drive()
+    later = executor.retraces - retraces1
+    check.expect(index.partition_formats == fmts1 == fmts0,
+                 f"partition formats moved under cold ingest: {fmts0} -> "
+                 f"{index.partition_formats}")
+    check.expect(later == 0, f"{later} retraces after the first mutation")
+    copies = executor.h2d_copies
+    drive()
+    check.expect(executor.h2d_copies == copies, "h2d_copies moved in steady state")
+    _, r64 = svc.query_batch(xs64)
+    check.expect(not set(deleted) & set(r64.reshape(-1).tolist()),
+                 "a deleted row id was returned")
+    log(f"  ingest: 64 cold rows {upsert_s:.2f} s, 64 deletes {delete_s:.2f} s; retraces "
+        f"at the first mutation {first}, over 3 more upserts {later}; promoted "
+        f"{index.last_refresh_promoted}; group copies {index.last_refresh_group_copied}")
+    after = kernels_on("after ingest", index.packed)
+    check.done()
+    return {"launches": launches, "before": before, "after": after, "recall": recall,
+            "predicted_recall": index.predicted_recall, "formats": hist0,
+            "bytes_per_nnz": bpn, "value_bytes_per_nnz": vbpn,
+            "bf16_bytes_per_nnz": bf16_bytes / nnz0,
+            "bf16_value_bytes_per_nnz": bf16_value_bytes / nnz0, "end_to_end": e2e}
 
 
 def ulp_gap(a: np.ndarray, b: np.ndarray):

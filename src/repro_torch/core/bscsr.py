@@ -32,7 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.quantization import FORMATS, ValueFormat, host_dequantize, quantize
+from repro_torch.core.quantization import F32, FORMATS, ValueFormat, host_dequantize, quantize
 
 FLAG_WORD_BITS = 32
 
@@ -84,6 +84,14 @@ class BSCSRMatrix:
     @property
     def num_packets(self) -> int:
         return int(self.vals.shape[0])
+
+    @property
+    def stream_bytes(self) -> int:
+        return self.vals.nbytes + self.cols.nbytes + self.flags.nbytes
+
+    @property
+    def bytes_per_nnz(self) -> float:
+        return self.stream_bytes / max(self.nnz, 1)
 
     def fused_words(self) -> np.ndarray:
         """This stream's fused single-stream form (see :func:`fuse_stream`)."""
@@ -286,6 +294,33 @@ def defuse_stream(
     return vals, cols, flags
 
 
+def dequantize_stream(bs: BSCSRMatrix) -> BSCSRMatrix:
+    """An F32 twin of a stream: values exactly dequantized on the host.
+
+    Mixed-precision snapshots keep these as their split arrays, so the
+    oracle and the delta machinery see one dtype; the native bytes live in
+    the tagged fused groups.  Every ladder format dequantizes exactly.
+    """
+    if bs.value_format.storage_dtype == "float32":
+        return bs
+    return dataclasses.replace(
+        bs, vals=host_dequantize(bs.vals, bs.value_format), value_format=F32
+    )
+
+
+def requantize_stream(bs: BSCSRMatrix, fmt: ValueFormat) -> BSCSRMatrix:
+    """Re-encode a stream's values in another format, structure-preserving.
+
+    Only the value payload changes: flags and cols (and the slot structure a
+    mutable index aligns with them) stay, so a per-partition promotion never
+    invalidates delta segments or the host-side slot bookkeeping.
+    """
+    if fmt == bs.value_format:
+        return bs
+    vals = host_dequantize(bs.vals, bs.value_format)
+    return dataclasses.replace(bs, vals=quantize(vals, fmt), value_format=fmt)
+
+
 INVALID_ROW = np.int32(np.iinfo(np.int32).max)
 """Slot-map entry for a dead candidate slot (sentinel / tombstoned row)."""
 
@@ -482,6 +517,30 @@ def synthetic_embedding_csr(
         norms = np.sqrt(np.maximum(sq, 1e-12))
         data = data / np.repeat(norms, lens).astype(np.float32)
     return CSRMatrix(indptr=indptr, indices=indices, data=data, shape=(n_rows, n_cols))
+
+
+def stream_bytes_per_nnz(
+    value_format: ValueFormat | str, n_cols: int, block_size: int = 256
+) -> float:
+    """Exact bytes moved from HBM per non-zero with the tile-packet layout."""
+    fmt = FORMATS[value_format] if isinstance(value_format, str) else value_format
+    col_bytes = col_index_dtype(n_cols).itemsize
+    flag_bytes = 1.0 / 8.0                      # 1 bit per nnz, bit-packed
+    return fmt.bytes_per_value + col_bytes + flag_bytes
+
+
+def scale_rows(csr: CSRMatrix, scales: np.ndarray) -> CSRMatrix:
+    """Row-wise rescale of a CSR's values (``scales``: one factor per row).
+
+    Models collections whose shards carry systematically different score
+    magnitudes (hot vs cold partitions), where per-partition value
+    precision pays: cold partitions tolerate aggressive quantization.
+    """
+    scales = np.asarray(scales, np.float32)
+    if scales.shape != (csr.shape[0],):
+        raise ValueError(f"need one scale per row, got {scales.shape}")
+    data = csr.data * np.repeat(scales, np.diff(csr.indptr)).astype(np.float32)
+    return dataclasses.replace(csr, data=data)
 
 
 def sparsify_topm(dense: np.ndarray, m_keep: int, normalize: bool = True) -> CSRMatrix:

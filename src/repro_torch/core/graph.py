@@ -143,7 +143,7 @@ def make_spmv_step(index, use_kernel: bool = True) -> Tuple[Callable, Callable[[
     if not isinstance(index, (TopKSpMVIndex, MutableTopKSpMVIndex)):
         raise NotImplementedError(
             f"accumulate dispatch over {type(index).__name__} is not ported: "
-            "sharded indexes are ROADMAP Queue 1 item 11"
+            "sharded indexes are ROADMAP Queue 1 item 3"
         )
     ex = query_executor(index.config)
     path = "accumulate" if use_kernel else "accumulate_ref"

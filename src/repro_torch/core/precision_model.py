@@ -90,22 +90,41 @@ def monte_carlo_precision(
 # greedy ladder descent in ``core/adaptive.py`` budget them independently.
 # ---------------------------------------------------------------------------
 
+# Non-zeros scored per chunk of rows in ``csr_batch_scores``.  Unchunked, a
+# 200M-nnz collection and 16 queries would hold two (16, nnz) f32
+# temporaries of 12.8 GB each; each row's sum depends only on its own
+# segment, so chunking by whole rows leaves every score's bits unchanged.
+SCORE_CHUNK_NNZ = 1 << 22
+
+
 def csr_batch_scores(
     indptr: np.ndarray, indices: np.ndarray, data: np.ndarray, xs: np.ndarray
 ) -> np.ndarray:
-    """(S, M) query batch -> (S, N) exact row scores of a host CSR."""
+    """(S, M) query batch -> (S, N) exact row scores of a host CSR.
+
+    Rows are scored in chunks of about ``SCORE_CHUNK_NNZ`` non-zeros (whole
+    rows).
+    """
     xs = np.asarray(xs, np.float32)
-    prods = np.asarray(data, np.float32)[None, :] * xs[:, indices]  # (S, nnz)
+    indptr = np.asarray(indptr)
+    data = np.asarray(data, np.float32)
     n = len(indptr) - 1
     out = np.zeros((xs.shape[0], n), np.float32)
-    nonempty = np.diff(indptr) > 0
-    if nonempty.any():
-        # reduceat over nonempty row starts only: empty rows contribute no
-        # entries, so each segment is exactly one nonempty row's products
-        # (reduceat misbehaves on repeated boundaries otherwise).
-        out[:, nonempty] = np.add.reduceat(
-            prods, np.asarray(indptr[:-1])[nonempty], axis=1
-        )
+    lo = 0
+    while lo < n:
+        hi = int(np.searchsorted(indptr, indptr[lo] + SCORE_CHUNK_NNZ, side="right")) - 1
+        hi = min(max(hi, lo + 1), n)
+        a, b = int(indptr[lo]), int(indptr[hi])
+        nonempty = np.diff(indptr[lo : hi + 1]) > 0
+        if nonempty.any():
+            prods = data[None, a:b] * xs[:, indices[a:b]]          # (S, chunk nnz)
+            # reduceat over nonempty row starts only: empty rows contribute no
+            # entries, so each segment is exactly one nonempty row's products
+            # (reduceat misbehaves on repeated boundaries otherwise).
+            out[:, lo:hi][:, nonempty] = np.add.reduceat(
+                prods, indptr[lo:hi][nonempty] - a, axis=1
+            )
+        lo = hi
     return out
 
 

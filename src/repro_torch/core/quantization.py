@@ -53,6 +53,7 @@ Q15 = ValueFormat("Q15", "int16", frac_bits=15, code=2)
 Q7 = ValueFormat("Q7", "int8", frac_bits=7, code=3)
 
 FORMATS = {f.name: f for f in (F32, BF16, Q15, Q7)}
+FORMAT_BY_CODE = {f.code: f for f in FORMATS.values()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +68,24 @@ class TaggedFormatClass:
     bytes_per_value: int
     members: Tuple[str, ...]  # ValueFormat names sharing this storage width
 
+    @property
+    def member_formats(self) -> Tuple[ValueFormat, ...]:
+        return tuple(FORMATS[m] for m in self.members)
+
 
 TAG4 = TaggedFormatClass("TAG4", 4, ("F32",))
 TAG2 = TaggedFormatClass("TAG2", 2, ("BF16", "Q15"))
 TAG1 = TaggedFormatClass("TAG1", 1, ("Q7",))
 
 WIDTH_CLASSES = {c.name: c for c in (TAG4, TAG2, TAG1)}
+
+
+def width_class_of(fmt: ValueFormat) -> TaggedFormatClass:
+    """The tagged stream class a value format is dispatched under."""
+    for cls in WIDTH_CLASSES.values():
+        if fmt.name in cls.members:
+            return cls
+    raise KeyError(fmt.name)
 
 
 # Every ``fmt_name`` the kernel front-end resolves: plain homogeneous formats

@@ -8,7 +8,8 @@ The backing index is a ``MutableTopKSpMVIndex``, as in the reference: rows
 can be ``upsert``-ed and ``delete``-d while serving (delta tile-packets and
 tombstones, no re-encode), ``compact()`` reclaims the churn, and the graph
 workloads (``personalized_pagerank``, ``topk_eigen``) run over the rows as a
-square operator.  Mixed precision (``recall_target``), the sharded plane
+square operator.  ``recall_target`` gives each partition its own value
+format (mixed precision, ``core/adaptive.py``).  The sharded plane
 (``mesh=``, ``n_shards > 1``) and the recovery constructor (``from_index``)
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -42,10 +43,11 @@ class SimilaritySearchStats:
     last_refresh_repadded: int = 0  # partitions re-padded by the last snapshot
     last_refresh_copied: int = 0  # partitions copied into the COW stack buffers
     snapshot_buffers: int = 0     # COW stacked buffers pooled (leased + free)
+    # -- mixed precision (config.recall_target) ------------------------------
     value_format_histogram: dict = dataclasses.field(default_factory=dict)
     value_bytes_per_nnz: float = 0.0  # streamed value bytes / live nnz
     recall_target: Optional[float] = None
-    predicted_recall: Optional[float] = None
+    predicted_recall: Optional[float] = None  # calibration's recall@k estimate
 
 
 class SparseEmbeddingIndex:
@@ -60,17 +62,17 @@ class SparseEmbeddingIndex:
         mesh=None,
         n_shards: Optional[int] = None,
     ):
-        if recall_target is not None:
-            raise NotImplementedError(
-                "recall_target (mixed precision) is not ported yet: "
-                "ROADMAP Queue 1 item 8"
-            )
         if mesh is not None or (n_shards is not None and n_shards > 1):
             raise NotImplementedError(
-                "sharded serving is not ported yet: ROADMAP Queue 1 item 11"
+                "sharded serving is not ported yet: ROADMAP Queue 1 item 3"
             )
         self.csr = csr  # the collection the index was built from (base segment)
-        self.config = config or topk_lib.TopKSpMVConfig()
+        config = config or topk_lib.TopKSpMVConfig()
+        if recall_target is not None:
+            # Per-partition mixed-precision streams tuned so that predicted
+            # recall@k against exact search stays >= the target.
+            config = dataclasses.replace(config, recall_target=recall_target)
+        self.config = config
         self.nnz_per_row = nnz_per_row  # sparsification level for dense upserts
         self.index = topk_lib.MutableTopKSpMVIndex(csr, self.config)
 
@@ -83,7 +85,7 @@ class SparseEmbeddingIndex:
     def from_index(cls, index, nnz_per_row: int = 32) -> "SparseEmbeddingIndex":
         raise NotImplementedError(
             "from_index recovers a persisted index; persistence is not ported "
-            "yet: ROADMAP Queue 1 item 10"
+            "yet: ROADMAP Queue 1 item 2"
         )
 
     @classmethod
@@ -237,7 +239,7 @@ class SparseEmbeddingIndex:
             value_format_histogram=packed.format_histogram(),
             value_bytes_per_nnz=packed.value_bytes_per_nnz,
             recall_target=self.config.recall_target,
-            predicted_recall=None,
+            predicted_recall=self.index.predicted_recall,
         )
 
     def dispatch_info(self) -> dict:

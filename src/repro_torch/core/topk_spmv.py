@@ -15,13 +15,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import adaptive as adaptive_lib
 from repro_torch.core import bscsr as bscsr_lib
 from repro_torch.core import partition as partition_lib
 from repro_torch.core.precision_model import expected_precision, min_partitions_for_precision
 from repro_torch.kernels import executor as executor_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as ref_lib
-from repro_torch.core.quantization import FORMATS
+from repro_torch.core.quantization import F32, FORMATS, width_class_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +35,13 @@ class TopKSpMVConfig:
     precision_target: float = 0.99
     block_size: int = 256          # B (nnz per tile-packet)
     value_format: str = "F32"      # F32 | BF16 | Q15 | Q7 (uniform)
-    recall_target: Optional[float] = None  # per-partition mixed precision (not
-                                   # ported yet: raises in build_index)
+    recall_target: Optional[float] = None  # per-partition mixed precision:
+                                   # one ValueFormat per partition so predicted
+                                   # quantization-induced recall@k vs exact
+                                   # stays >= this target (overrides
+                                   # value_format; see core/adaptive.py)
+    calibration_queries: int = 16  # query sample size for the autotuner
+    calibration_seed: int = 0      # deterministic per (seed, collection)
     packets_per_step: int = 2      # T
     gather_mode: str = "auto"      # take | onehot | auto: all served by one gather
     inner_loop: str = "linear"     # linear | legacy | linear-seg | linear-topk
@@ -78,18 +84,13 @@ class TopKSpMVConfig:
         return dev
 
 
-_NOT_PORTED_RECALL = (
-    "recall_target (per-partition mixed precision) is not ported yet: "
-    "ROADMAP Queue 1 item 8"
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class TopKSpMVIndex:
     """An immutable, queryable packed index over one embedding collection."""
 
     packed: kernel_ops.PackedPartitions
     config: TopKSpMVConfig
+    format_plan: Optional[adaptive_lib.PartitionFormatPlan] = None
 
     @property
     def n_rows(self) -> int:
@@ -102,18 +103,33 @@ class TopKSpMVIndex:
         )
 
 
+def _assign_formats(csr: bscsr_lib.CSRMatrix, num_partitions: int, config: TopKSpMVConfig):
+    """(format plan, calibration) for ``config.recall_target`` over ``csr``."""
+    return adaptive_lib.assign_partition_formats(
+        csr, num_partitions, config.recall_target, k=config.k,
+        n_queries=config.calibration_queries, seed=config.calibration_seed,
+    )
+
+
 def build_index(csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig) -> TopKSpMVIndex:
+    """Pack a collection; with ``config.recall_target`` each partition gets
+    the format ``adaptive.assign_partition_formats`` chooses for it."""
+    c = config.resolve_partitions(csr.shape[0])
+    fmt_plan = None
+    value_formats = None
     if config.recall_target is not None:
-        raise NotImplementedError(_NOT_PORTED_RECALL)
+        fmt_plan, _ = _assign_formats(csr, c, config)
+        value_formats = fmt_plan.formats
     packed = kernel_ops.pack_partitions(
         csr,
-        num_partitions=config.resolve_partitions(csr.shape[0]),
+        num_partitions=c,
         block_size=config.block_size,
         value_format=config.value_format,
         packets_multiple=config.packets_per_step,
         stream_layout=config.stream_layout,
+        value_formats=value_formats,
     )
-    return TopKSpMVIndex(packed=packed, config=config)
+    return TopKSpMVIndex(packed=packed, config=config, format_plan=fmt_plan)
 
 
 class MutableTopKSpMVIndex:
@@ -134,23 +150,41 @@ class MutableTopKSpMVIndex:
     is copy-on-write (``kernel_ops.SnapshotBufferPool``).  With
     ``config.churn_stable`` the padded packet count, the slot-map width and
     the tombstone length are power-of-two buckets, so refreshes reuse one
-    executor signature until a bucket doubles.  Uniform value formats only:
-    ``recall_target`` is ROADMAP Queue 1 item 8, and ``export_state`` /
-    ``from_state`` with the fault hooks are item 10.
+    executor signature until a bucket doubles.
+
+    With ``config.recall_target`` each partition has its own value format
+    (mixed precision), and the index keeps three aligned planes of streams:
+    ``_exact`` (F32, the source of truth), ``_native`` (each partition's
+    format, which the tagged width-class groups stream) and ``_streams``
+    (the native values exactly dequantized: the f32 twins the oracle and the
+    pad/stack machinery read).  Refresh re-scores mutated partitions and only
+    ever promotes; ``compact`` re-assigns every format.  ``export_state`` /
+    ``from_state`` and the fault hooks are ROADMAP Queue 1 item 2.
     """
 
     def __init__(self, csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig):
-        if config.recall_target is not None:
-            raise NotImplementedError(_NOT_PORTED_RECALL)
         self.config = config
         self._n_cols = csr.shape[1]
         self._fmt = FORMATS[config.value_format]
         c = config.resolve_partitions(csr.shape[0])
         self._plan = partition_lib.PartitionPlan.build(csr.shape[0], c)
         parts = partition_lib.partition_csr(csr, self._plan)
-        self._streams = [
-            bscsr_lib.encode_bscsr(p, config.block_size, self._fmt) for p in parts
-        ]
+        # Mixed-precision planes (config.recall_target): _exact (F32), _native
+        # (each partition's format) and _streams (the f32 twins), all with one
+        # flags/cols structure, so slot bookkeeping ignores formats.
+        self._part_fmts: Optional[list] = None
+        self._calib: Optional[adaptive_lib.PrecisionCalibration] = None
+        self._exact: Optional[list] = None
+        self._native: Optional[list] = None
+        self.last_refresh_promoted = 0
+        if config.recall_target is not None:
+            self._fmt = F32  # the split twin plane is uniformly f32
+            self._set_planes([bscsr_lib.encode_bscsr(p, config.block_size, F32)
+                              for p in parts], *_assign_formats(csr, c, config))
+        else:
+            self._streams = [
+                bscsr_lib.encode_bscsr(p, config.block_size, self._fmt) for p in parts
+            ]
         self._base_packets = max(e.num_packets for e in self._streams)
         self._slots = [
             list(range(start, start + size))
@@ -161,11 +195,10 @@ class MutableTopKSpMVIndex:
             for ci, slots in enumerate(self._slots)
             for si, gid in enumerate(slots)
         }
-        cols_split = np.split(csr.indices, csr.indptr[1:-1])
-        data_split = np.split(csr.data, csr.indptr[1:-1])
+        bounds = csr.indptr.tolist()
         self._rows = {
-            gid: (cols_split[gid].astype(np.int32), data_split[gid])
-            for gid in range(csr.shape[0])
+            gid: (csr.indices[a:b].astype(np.int32), csr.data[a:b])
+            for gid, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))
         }
         self._deleted = bscsr_lib.TombstoneBitmap.empty(csr.shape[0])
         self._next_gid = csr.shape[0]
@@ -183,19 +216,37 @@ class MutableTopKSpMVIndex:
         self.total_repadded = 0
         self.last_refresh_copied = 0     # partitions copied into the COW stack
         self.total_copied = 0
+        self.last_refresh_group_copied = 0  # member streams copied into the
+        self.total_group_copied = 0         # COW width-class group stacks
         self.last_compact_parallel = False
         self._refresh()
+
+    def _set_planes(self, exact: list, fmt_plan, calib) -> None:
+        """Mixed precision: the formats and calibration, and the native and
+        twin planes quantized from the exact (F32) streams."""
+        self._part_fmts = list(fmt_plan.formats)
+        self._calib = calib
+        self._exact = exact
+        self._native = [bscsr_lib.requantize_stream(e, FORMATS[f])
+                        for e, f in zip(exact, self._part_fmts)]
+        self._streams = [bscsr_lib.dequantize_stream(n) for n in self._native]
 
     def _reset_padded_cache(self) -> None:
         """Invalidate the per-partition padded-stream (+ fused words) cache."""
         c = len(self._streams)
         self._dirty = set(range(c))
+        self._mutated = set()  # content-mutated since the last refresh
         self._padded_streams = [None] * c
         self._padded_words = [None] * c
         self._padded_max_p = -1
         # Churn-stable packet cap: anchored at the exact (step-aligned) count
         # on build/compact, bumped to power-of-two buckets by growth.
         self._packet_cap = -1
+        # Mixed precision: one cap per width class (same anchor-then-bucket
+        # rule) and the per-partition padded tagged words, ci -> (cap, fmt,
+        # words).
+        self._class_caps: Optional[dict] = None
+        self._padded_tagged = [None] * c
         # All partitions' content is new: stamp them past every COW buffer.
         self._stamp_counter += 1
         self._part_stamps = np.full(c, self._stamp_counter, np.int64)
@@ -203,6 +254,7 @@ class MutableTopKSpMVIndex:
     def _mark_dirty(self, ci: int) -> None:
         """Record that partition ``ci``'s stream content changed."""
         self._dirty.add(ci)
+        self._mutated.add(ci)
         self._stamp_counter += 1
         self._part_stamps[ci] = self._stamp_counter
 
@@ -220,9 +272,36 @@ class MutableTopKSpMVIndex:
         changes the padded shapes only when a bucket doubles.  The padded
         tail is flag-free zero packets, which the kernels stream as a
         continuation of the open sentinel row.
+
+        Mixed precision: mutated partitions are first re-scored against the
+        stored calibration and the worst promoted up the byte ladder if the
+        recall budget is breached (promote only, so benign upserts keep the
+        format vector and the executor signature).  The tagged width-class
+        groups pad to their own per-class caps, re-fuse only dirty, re-capped
+        or re-formatted partitions, and stack copy-on-write too.
         """
-        fused = self.config.stream_layout == "fused"
+        hetero = self._part_fmts is not None
+        # A mixed-precision snapshot never carries uniform fused words: its
+        # fused plane is the tagged groups.
+        fused = self.config.stream_layout == "fused" and not hetero
         mult = self.config.packets_per_step
+        self.last_refresh_promoted = 0
+        if hetero and self._mutated and self._calib is not None:
+            mutated = {ci: self._partition_live_csr(ci) for ci in sorted(self._mutated)}
+            new_fmts, promoted = adaptive_lib.refresh_partition_formats(
+                self._part_fmts, self._calib, mutated
+            )
+            for ci, (old, new) in enumerate(zip(self._part_fmts, new_fmts)):
+                if old != new:
+                    # Re-quantized from the exact plane: slots, deltas and
+                    # flags stay as they are.
+                    self._native[ci] = bscsr_lib.requantize_stream(
+                        self._exact[ci], FORMATS[new]
+                    )
+                    self._streams[ci] = bscsr_lib.dequantize_stream(self._native[ci])
+            self._part_fmts = list(new_fmts)
+            self.last_refresh_promoted = promoted
+        self._mutated = set()
         max_p = max(e.num_packets for e in self._streams)
         max_p = max(-(-max_p // mult) * mult, mult)
         if self.config.churn_stable:
@@ -245,6 +324,10 @@ class MutableTopKSpMVIndex:
         self._dirty = set()
         self.last_refresh_repadded = len(dirty)
         self.total_repadded += len(dirty)
+        groups, fmt_codes, group_bufs, group_copied = None, None, [], 0
+        if hetero:
+            groups, group_bufs, group_copied = self._refresh_groups(dirty, mult)
+            fmt_codes = np.array([FORMATS[f].code for f in self._part_fmts], np.int32)
 
         num_slots = np.array([len(s) for s in self._slots], dtype=np.int32)
         width = max(int(num_slots.max()) if num_slots.size else 0, 1)
@@ -271,6 +354,8 @@ class MutableTopKSpMVIndex:
             delta_nnz=self._delta_nnz,
             dead_nnz=self._dead_nnz,
             tombstone_count=self._tombstone_slots,
+            fmt_codes=fmt_codes,
+            groups=groups,
         )
         if self.config.cow_snapshots:
             buf, copied = self._buffer_pool.lease(
@@ -299,10 +384,65 @@ class MutableTopKSpMVIndex:
                 words=self._padded_words if fused else None,
                 **segment_fields,
             )
+        for gbuf in group_bufs:
+            gbuf.attach(new_packed)
         self._packed = new_packed
+        self.last_refresh_group_copied = group_copied
+        self.total_group_copied += group_copied
         self.last_refresh_copied = copied
         self.total_copied += copied
         self._version += 1
+
+    def _refresh_groups(self, dirty: set, mult: int):
+        """The tagged width-class groups of a refresh -> (groups, leased
+        buffers, member streams copied).
+
+        Each class pads to its own packet cap (anchored exactly at
+        build/compact, bucketed by mutations, like ``_packet_cap``), so a
+        narrow class never inherits the widest one's packets.  Only dirty,
+        re-capped or re-formatted partitions re-fuse.
+        """
+        nat: dict = {}
+        for n in self._native:
+            cname = width_class_of(n.value_format).name
+            nat[cname] = max(nat.get(cname, 0), max(-(-n.num_packets // mult) * mult, mult))
+        if self.config.churn_stable:
+            if self._class_caps is None:
+                self._class_caps = dict(nat)          # anchor refresh: exact
+            else:                                     # mutation refresh: bucket
+                for cname, p in nat.items():
+                    self._class_caps[cname] = max(self._class_caps.get(cname, 0),
+                                                  kernel_ops.bucket_packets(p, mult))
+            caps = self._class_caps
+        else:
+            caps = nat
+        by_class: dict = {}
+        for ci, n in enumerate(self._native):
+            cname = width_class_of(n.value_format).name
+            cap = caps[cname]
+            cached = self._padded_tagged[ci]
+            if (ci in dirty or cached is None or cached[0] != cap
+                    or cached[1] != n.value_format.name):
+                words = bscsr_lib.fuse_stream(bscsr_lib.pad_packets(n, cap), tagged=True)
+                self._padded_tagged[ci] = (cap, n.value_format.name, words)
+            by_class.setdefault(cname, []).append(ci)
+        groups, bufs, copied = [], [], 0
+        for cname, cores in sorted(by_class.items()):
+            words_list = [self._padded_tagged[ci][2] for ci in cores]
+            if self.config.cow_snapshots:
+                gbuf, gcop = self._buffer_pool.lease_group(
+                    tuple(cores), words_list, self._part_stamps[np.asarray(cores)],
+                    caps[cname], packets_multiple=mult,
+                )
+                bufs.append(gbuf)
+                copied += gcop
+                words = gbuf.view()
+            else:
+                words = np.stack(words_list)
+                copied += len(cores)
+            groups.append(kernel_ops.StreamGroup(cname, tuple(cores), words,
+                                                 self._streams[0].block_size))
+        return tuple(groups), bufs, copied
 
     def refresh(self) -> None:
         """Rebuild and swap the serving snapshot."""
@@ -350,6 +490,33 @@ class MutableTopKSpMVIndex:
             max(self.n_rows, 1), self.num_cores, self.config.k, self.config.big_k
         )
 
+    @property
+    def partition_formats(self) -> Optional[Tuple[str, ...]]:
+        """Current per-partition ValueFormat names (None when homogeneous)."""
+        return tuple(self._part_fmts) if self._part_fmts is not None else None
+
+    @property
+    def predicted_recall(self) -> Optional[float]:
+        """The calibration's predicted recall@k at the current assignment."""
+        return self._calib.predicted_recall() if self._calib is not None else None
+
+    def _rows_csr(self, gids) -> bscsr_lib.CSRMatrix:
+        """The rows ``gids``, in that order, as a host CSR."""
+        lens = np.asarray([len(self._rows[g][0]) for g in gids], dtype=np.int64)
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        if len(gids):
+            indices = np.concatenate([self._rows[g][0] for g in gids])
+            data = np.concatenate([self._rows[g][1] for g in gids])
+        else:
+            indices = np.zeros(0, np.int32)
+            data = np.zeros(0, np.float32)
+        return bscsr_lib.CSRMatrix(indptr=indptr, indices=indices, data=data,
+                                   shape=(len(gids), self._n_cols))
+
+    def _partition_live_csr(self, ci: int) -> bscsr_lib.CSRMatrix:
+        """Live rows currently owned by partition ``ci``, as a host CSR."""
+        return self._rows_csr([g for g in self._slots[ci] if g != int(bscsr_lib.INVALID_ROW)])
+
     # -- mutation ------------------------------------------------------------
 
     @staticmethod
@@ -374,7 +541,18 @@ class MutableTopKSpMVIndex:
             delta = bscsr_lib.encode_delta_rows(
                 rows, self._n_cols, self.config.block_size, self._fmt
             )
-            self._streams[ci] = bscsr_lib.append_packets(self._streams[ci], delta)
+            if self._part_fmts is not None:
+                # All three planes stay append-aligned: the delta encodes
+                # exactly (F32) once, then re-quantizes into the partition's
+                # current format.
+                native_delta = bscsr_lib.requantize_stream(
+                    delta, FORMATS[self._part_fmts[ci]])
+                self._exact[ci] = bscsr_lib.append_packets(self._exact[ci], delta)
+                self._native[ci] = bscsr_lib.append_packets(self._native[ci], native_delta)
+                self._streams[ci] = bscsr_lib.append_packets(
+                    self._streams[ci], bscsr_lib.dequantize_stream(native_delta))
+            else:
+                self._streams[ci] = bscsr_lib.append_packets(self._streams[ci], delta)
             self._mark_dirty(ci)
             slots = self._slots[ci]
             # The previously-open sentinel becomes a dead candidate slot.
@@ -453,16 +631,7 @@ class MutableTopKSpMVIndex:
         if self._live_csr_cache is not None and self._live_csr_cache[0] == self._version:
             return self._live_csr_cache[1]
         gids = np.asarray(sorted(self._loc), dtype=np.int64)
-        lens = np.asarray([len(self._rows[g][0]) for g in gids], dtype=np.int64)
-        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-        if gids.size:
-            indices = np.concatenate([self._rows[g][0] for g in gids])
-            data = np.concatenate([self._rows[g][1] for g in gids])
-        else:
-            indices = np.zeros(0, np.int32)
-            data = np.zeros(0, np.float32)
-        csr = bscsr_lib.CSRMatrix(indptr=indptr, indices=indices, data=data,
-                                  shape=(int(gids.size), self._n_cols))
+        csr = self._rows_csr(gids)
         self._live_csr_cache = (self._version, (csr, gids))
         return csr, gids
 
@@ -496,7 +665,14 @@ class MutableTopKSpMVIndex:
         else:
             streams = [encode(p) for p in parts]
         self.last_compact_parallel = parallel
-        self._streams = streams
+        if self._part_fmts is not None:
+            # The full re-assignment, the one place formats may demote: a fresh
+            # calibration over the live rows, then the three planes anew.
+            # ``self._fmt`` is F32 here, so ``streams`` is the exact plane.
+            self._set_planes(streams, *_assign_formats(csr, plan.num_partitions,
+                                                        self.config))
+        else:
+            self._streams = streams
         self._base_packets = max(e.num_packets for e in streams)
         self._plan = plan
         self._reset_padded_cache()

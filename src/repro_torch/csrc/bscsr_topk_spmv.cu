@@ -18,7 +18,9 @@
 //
 // Design.  A step covers T packets of B nnz, one thread per nnz (T*B <= 1024):
 //   stage 1  each thread decodes its nnz from the fused words (flag bit,
-//            int16/int32 column id, f32/bf16/Q15/Q7 value) and multiplies by
+//            int16/int32 column id, f32/bf16/Q15/Q7 value; in a tagged
+//            width class the core's header word picks BF16 or Q15, see
+//            core_fmt) and multiplies by
 //            x[col] (x in shared memory when it fits, else gathered from global
 //            memory through L2; out-of-range ids read 0)
 //   stage 2  block-wide inclusive scans of the flag bits (segment ids) and
@@ -120,7 +122,7 @@ struct Params {
   int block;             // B
   int per_step;          // T
   int col_words;         // B/2 (int16 ids) or B (int32 ids)
-  int fmt;               // 0 F32, 1 BF16, 2 Q15, 3 Q7
+  int fmt;               // 0 F32, 1 BF16, 2 Q15, 3 Q7, 4 TAG2 (core_fmt)
   int k;
   int n_rows;            // slot budget: sentinel slot of empty entries
   int x_in_smem;
@@ -262,13 +264,31 @@ __device__ inline Raw load_raw(const Params& p, int core, long long step, int ti
   Raw r;
   r.flag_word = __ldg(row + (j >> 5));
   r.col_word = __ldg(row + wf + (p.col_words == p.block ? j : (j >> 1)));
-  const int vj = p.fmt == 0 ? j : (p.fmt == 3 ? (j >> 2) : (j >> 1));
+  const int vj = p.fmt == 0 ? j : (p.fmt == 3 ? (j >> 2) : (j >> 1));  // kTag2: 2 bytes
   r.val_word = __ldg(row + wf + p.col_words + vj);
   return r;
 }
 
-__device__ inline void decode(const Params& p, const Raw& r, int j, int* flag, int* col,
-                              float* val) {
+// The format a core's value words decode as: p.fmt, except in the tagged
+// 2-byte class (kTag2), where BF16 and Q15 share 2-byte words and the core's
+// format code picks one.  A tagged stream reaches the kernels one word past
+// its first header, with the row stride W of the tagged rows, so every
+// section offset of an untagged row lands on the tagged row's section and
+// a core's first header word sits one word before its first row.
+// fuse_stream(tagged=True) writes the partition's code on every row,
+// padding included, so one read per core serves the whole walk.  Q15's code
+// (2) means Q15 and any other code BF16, as the reference's
+// where(tag == Q15.code, q15, bf16).  TAG4 and TAG1 launch as F32 and Q7.
+constexpr int kTag2 = 4;
+
+__device__ inline int core_fmt(const Params& p, int core) {
+  if (p.fmt != kTag2) return p.fmt;
+  const int tag = __ldg(p.words + static_cast<long long>(core) * p.n_packets * p.width - 1);
+  return tag == 2 ? 2 : 1;
+}
+
+__device__ inline void decode(const Params& p, int fmt, const Raw& r, int j, int* flag,
+                              int* col, float* val) {
   *flag = (r.flag_word >> (j & 31)) & 1;
   if (p.col_words == p.block) {
     *col = r.col_word;
@@ -276,7 +296,7 @@ __device__ inline void decode(const Params& p, const Raw& r, int j, int* flag, i
     *col = static_cast<int16_t>((static_cast<unsigned>(r.col_word) >> ((j & 1) * 16)) & 0xffffu);
   }
   const unsigned w = static_cast<unsigned>(r.val_word);
-  switch (p.fmt) {
+  switch (fmt) {
     case 0: *val = __uint_as_float(w); break;
     case 1: *val = __uint_as_float(((w >> ((j & 1) * 16)) & 0xffffu) << 16); break;
     case 2: *val = __fmul_rn(static_cast<float>(static_cast<int16_t>((w >> ((j & 1) * 16)) & 0xffffu)),
@@ -365,13 +385,14 @@ __device__ void walk(const Params& p, int core, int q0, int nq, const Stage& sta
 
   const long long n_steps = p.n_packets / p.per_step;
   const int j = tid % p.block;
+  const int fmt = core_fmt(p, core);
   Raw next = load_raw(p, core, 0, tid);
   for (long long step = 0; step < n_steps; ++step) {
     const Raw cur = next;
     if (step + 1 < n_steps) next = load_raw(p, core, step + 1, tid);
     int f, col;
     float v;
-    decode(p, cur, j, &f, &col, &v);
+    decode(p, fmt, cur, j, &f, &col, &v);
     const bool oob = col < 0 || col >= p.m;
     s.flag[tid] = f;
     const int seg = block_scan(f, s.warp_i);   // barriers publish s.flag
@@ -517,12 +538,13 @@ __device__ void accum_walk(const Params& p, const Splits& sp, int core, int spli
 
   const Lane lane_pos = lane_of(p, core, first, tid);
   const int32_t* row = lane_pos.row;
+  const int fmt = core_fmt(p, core);
   auto gather = [&](int c) {
     return (c >= 0 && c < p.m) ? (p.x_in_smem ? s.x[c] : __ldg(p.x + c)) : 0.0f;
   };
   int f, col;
   float v;
-  decode(p, load_lane(lane_pos, row), lane_pos.j, &f, &col, &v);
+  decode(p, fmt, load_lane(lane_pos, row), lane_pos.j, &f, &col, &v);
   float xv = gather(col);
   Raw next{0, 0, 0};
   if (first + 1 < stop) {
@@ -536,7 +558,7 @@ __device__ void accum_walk(const Params& p, const Splits& sp, int core, int spli
     // loaded a step ago.
     int f_next = 0;
     if (step + 1 < stop) {
-      decode(p, next, lane_pos.j, &f_next, &col, &v);
+      decode(p, fmt, next, lane_pos.j, &f_next, &col, &v);
       xv = gather(col);
       if (step + 2 < stop) {
         row += lane_pos.stride;
@@ -779,6 +801,7 @@ __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split
 
   const Lane lp = lane_of(p, core, first, tid);
   const int32_t* row = lp.row;
+  const int fmt = core_fmt(p, core);
   auto gather = [&](int c, int q) {
     if (q >= nq || c < 0 || c >= p.m) return 0.0f;
     return p.x_in_smem ? s.x[q * p.m + c]
@@ -805,7 +828,7 @@ __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split
   };
   int f, col;
   float v;
-  decode(p, load_lane(lp, row), lp.j, &f, &col, &v);
+  decode(p, fmt, load_lane(lp, row), lp.j, &f, &col, &v);
   float xv[QC];
 #pragma unroll
   for (int q = 0; q < QC; ++q) xv[q] = gather(col, q);
@@ -826,7 +849,7 @@ __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split
     // loaded a step ago.
     int f_next = 0;
     if (i + 1 < n_steps) {
-      decode(p, next, lp.j, &f_next, &col, &v);
+      decode(p, fmt, next, lp.j, &f_next, &col, &v);
 #pragma unroll
       for (int q = 0; q < QC; ++q) xv[q] = gather(col, q);
       if (i + 2 < n_steps) {

@@ -19,6 +19,15 @@ carry fix-up; the multi-query kernel gives each split its own scratchpads
 and folds them in split order, with each split's head row scored as head
 piece + the previous split's carry.  Every S gives the single walk's bits.
 
+A mixed-precision snapshot streams one tagged word array per storage-width
+class (``fmt_name`` TAG4, TAG2 or TAG1): each packet row leads with one
+header word holding the partition's format code, every section moves right
+by one word, and in TAG2 the code picks BF16 or Q15 for the shared 2-byte
+value words.  The plain versions read the tag of each step's first packet,
+as the Pallas kernels do; the CUDA kernels take the words one int32 past
+the first header and read each core's header once.  The two agree because
+every row of a partition's stream, padding included, carries its code.
+
 Each wrapper dispatches on where its tensors lie.  CPU tensors go to the
 plain version; CUDA tensors launch the kernel (and add one to the wrapper's
 ``launches`` count) or raise.  Nothing falls back from one to the other.
@@ -79,7 +88,10 @@ NEG_INF = float(np.finfo(np.float32).min)
 FLAG_WORD_BITS = 32
 INNER_LOOPS = ("linear", "legacy", "linear-seg", "linear-topk")
 GATHER_MODES = ("take", "onehot")
-_FMT_IDS = {"F32": 0, "BF16": 1, "Q15": 2, "Q7": 3}
+# The kernels' format codes.  TAG4 and TAG1 have one member each and launch
+# as it; TAG2's kernels read each core's header word once and decode BF16 or
+# Q15 by it.
+_FMT_IDS = {"F32": 0, "BF16": 1, "Q15": 2, "Q7": 3, "TAG4": 0, "TAG2": 4, "TAG1": 3}
 MAX_TILE_NNZ = 1024  # T*B: one CUDA thread per nnz of a step
 
 
@@ -87,11 +99,16 @@ MAX_TILE_NNZ = 1024  # T*B: one CUDA thread per nnz of a step
 # Shared argument checks
 # ---------------------------------------------------------------------------
 
-def _fused_geometry(width: int, block: int, fmt: ValueFormat) -> int:
+def _header_words(fmt) -> int:
+    """Words before the flag section of a packet row: 1 for a tagged class."""
+    return 1 if isinstance(fmt, TaggedFormatClass) else 0
+
+
+def _fused_geometry(width: int, block: int, fmt) -> int:
     """Validate a fused stream width and return its col-section word count."""
     wf = block // FLAG_WORD_BITS
     wv = block * int(fmt.bytes_per_value) // 4
-    col_words = width - wf - wv
+    col_words = width - _header_words(fmt) - wf - wv
     if col_words not in (block // 2, block):
         raise ValueError(
             f"fused stream width {width} inconsistent with block={block}, "
@@ -102,13 +119,14 @@ def _fused_geometry(width: int, block: int, fmt: ValueFormat) -> int:
 
 def _resolve(fmt_name: str, words: torch.Tensor, block_size: int,
              packets_per_step: int, k: int, gather_mode: str, inner_loop: str):
-    """Checks shared by both kernels -> (fmt, col_words)."""
+    """Checks shared by every kernel -> (fmt, col_words).
+
+    ``fmt`` is a ``ValueFormat`` or, for one width-class group of a
+    mixed-precision snapshot, a ``TaggedFormatClass`` (TAG4, TAG2, TAG1),
+    whose packet rows lead with one header word holding the partition's
+    format code.
+    """
     fmt = STREAM_FORMATS[fmt_name]
-    if isinstance(fmt, TaggedFormatClass):
-        raise NotImplementedError(
-            f"tagged width class {fmt_name!r} belongs to the mixed-precision "
-            "slice (ROADMAP Queue 1 item 8)"
-        )
     if inner_loop not in INNER_LOOPS:
         raise ValueError(f"inner_loop must be one of {INNER_LOOPS}, got {inner_loop!r}")
     if gather_mode not in GATHER_MODES:
@@ -148,18 +166,9 @@ def _stable_topk(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(v, -1, idx), idx
 
 
-def _decode_fused_tile(tile: torch.Tensor, block: int, fmt: ValueFormat, col_words: int):
-    """(C, T, W) words -> flag bits (C, TB) int32, cols (C, TB) int64, vals (C, TB) f32."""
-    c, t, _ = tile.shape
-    wf = block // FLAG_WORD_BITS
-    shifts = torch.arange(FLAG_WORD_BITS, dtype=torch.int32, device=tile.device)
-    f = ((tile[..., :wf].unsqueeze(-1) >> shifts) & 1).reshape(c, t * block)
-    cw = tile[..., wf : wf + col_words].contiguous()
-    if col_words == block:
-        cols = cw.reshape(c, -1)
-    else:
-        cols = cw.view(torch.int16).reshape(c, -1)
-    vw = tile[..., wf + col_words :].contiguous()
+def _decode_val_words(vw: torch.Tensor, fmt: ValueFormat) -> torch.Tensor:
+    """Value-section words (C, T, Wv) -> (C, T * values a row) f32."""
+    c = vw.shape[0]
     if fmt.storage_dtype == "float32":
         v = vw.view(torch.float32)
     elif fmt.storage_dtype == "bfloat16":
@@ -168,11 +177,43 @@ def _decode_fused_tile(tile: torch.Tensor, block: int, fmt: ValueFormat, col_wor
         v = vw.view(torch.int16).float() * fmt.scale
     else:
         v = vw.view(torch.int8).float() * fmt.scale
-    return f, cols.long(), v.reshape(c, -1)
+    return v.reshape(c, -1)
+
+
+def _decode_fused_tile(tile: torch.Tensor, block: int, fmt, col_words: int):
+    """(C, T, W) words -> flag bits (C, TB) int32, cols (C, TB) int64, vals (C, TB) f32.
+
+    For a tagged width class (``TaggedFormatClass``) the packet rows are
+    ``header | flags | cols | vals`` and every section moves right by one
+    word.  A class of one member decodes as that format.  In TAG2, BF16 and
+    Q15 share 2-byte value words: both decodes are made and each core's tag
+    picks one, where the tag is the header of the step's first packet (the
+    reference's ``words[0, 0, 0]`` of the tile); any tag but Q15's means
+    BF16.
+    """
+    c, t, _ = tile.shape
+    h = _header_words(fmt)
+    wf = block // FLAG_WORD_BITS
+    shifts = torch.arange(FLAG_WORD_BITS, dtype=torch.int32, device=tile.device)
+    f = ((tile[..., h : h + wf].unsqueeze(-1) >> shifts) & 1).reshape(c, t * block)
+    cw = tile[..., h + wf : h + wf + col_words].contiguous()
+    if col_words == block:
+        cols = cw.reshape(c, -1)
+    else:
+        cols = cw.view(torch.int16).reshape(c, -1)
+    vw = tile[..., h + wf + col_words :].contiguous()
+    if not h:
+        return f, cols.long(), _decode_val_words(vw, fmt)
+    members = fmt.member_formats
+    v = _decode_val_words(vw, members[0])
+    tag = tile[:, 0, 0, None]
+    for m in members[1:]:
+        v = torch.where(tag == m.code, _decode_val_words(vw, m), v)
+    return f, cols.long(), v
 
 
 def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
-                 fmt: ValueFormat, block: int, col_words: int, start=None, stop=None,
+                 fmt, block: int, col_words: int, start=None, stop=None,
                  row=None):
     """Stages 1-3 of the Pallas tile walk for a (Q, M) batch, step by step.
 
@@ -237,7 +278,7 @@ def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
 
 
 def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
-                packets_per_step: int, fmt: ValueFormat, block: int,
+                packets_per_step: int, fmt, block: int,
                 col_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Pallas top-k tile walk for a (Q, M) query batch -> (C, Q, k) each."""
     acc_v, acc_r = _empty_scratchpad(words.shape[0], x.shape[0], k, n_rows, words.device)
@@ -348,7 +389,8 @@ def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
         return _walk_plain(x, words, **walk)
     if table is None:
         table = spmv_split_table(words, packets_per_step=packets_per_step,
-                                 block_size=block_size, splits=splits)
+                                 block_size=block_size, splits=splits,
+                                 header=_header_words(fmt))
     return _walk_plain_split(x.float(), words, table, **walk)
 
 
@@ -362,7 +404,7 @@ def _popcount32(w: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_split_table(words: torch.Tensor, *, packets_per_step: int, block_size: int,
-                     splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     splits: int, header: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Where ``splits`` walkers start on each core's stream -> (bounds, head_row).
 
     ``bounds`` (C, S+1) int32: split i of core c walks steps
@@ -380,7 +422,9 @@ def spmv_split_table(words: torch.Tensor, *, packets_per_step: int, block_size: 
     split's head piece and the carry of the split before it: the accumulate
     kernel's fix-up and the multi-query kernel's fold both use it, and both
     walk this table.  Static shapes only (no host sync); the same on the CPU
-    and the card.
+    and the card.  ``header`` is the number of words before each packet row's
+    flag section: 1 for a tagged width-class stream, whose first word is the
+    partition's format code and no flag bits.
     """
     if splits < 1:
         raise ValueError(f"splits must be at least 1, got {splits}")
@@ -388,7 +432,7 @@ def spmv_split_table(words: torch.Tensor, *, packets_per_step: int, block_size: 
     dev = words.device
     n_steps = n_packets // packets_per_step
     wf = block_size // FLAG_WORD_BITS
-    flag_words = words[:, : n_steps * packets_per_step, :wf]
+    flag_words = words[:, : n_steps * packets_per_step, header : header + wf]
     counts = _popcount32(flag_words).reshape(n_cores, n_steps, -1).sum(-1)   # (C, steps)
     flagged = counts > 0
     steps = torch.arange(n_steps, device=dev)
@@ -445,7 +489,8 @@ def bscsr_spmv_plain(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
         return out[:, :n_rows]
     if table is None:
         table = spmv_split_table(words, packets_per_step=packets_per_step,
-                                 block_size=block_size, splits=splits)
+                                 block_size=block_size, splits=splits,
+                                 header=_header_words(fmt))
     bounds, head_row = (t.to(dev) for t in table)
     carry = torch.zeros(n_cores, dtype=torch.float32, device=dev)
     for i in range(bounds.shape[1] - 1):
@@ -549,6 +594,14 @@ def _check_cuda_args(x: torch.Tensor, words: torch.Tensor) -> None:
         raise ValueError("words must be contiguous")
 
 
+def _kernel_words(words: torch.Tensor, fmt) -> int:
+    """The words pointer the kernels take.  For a tagged stream it points one
+    int32 past the first header, so with the row stride W unchanged every
+    section offset of an untagged row lands on the tagged row's section, and
+    a core's first header sits one word before its first row."""
+    return words.data_ptr() + 4 * _header_words(fmt)
+
+
 def _check_tile(packets_per_step: int, block_size: int) -> None:
     tb = packets_per_step * block_size
     if tb > MAX_TILE_NNZ:
@@ -567,8 +620,8 @@ def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
             x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
             inner_loop=inner_loop)
-    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
-                               gather_mode, inner_loop)
+    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                              gather_mode, inner_loop)
     _check_cuda_args(x, words)
     if x.dim() != 1:
         raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
@@ -579,7 +632,7 @@ def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().bscsr_topk_spmv_launch(
-            x.data_ptr(), words.data_ptr(), out_v.data_ptr(), out_r.data_ptr(),
+            x.data_ptr(), _kernel_words(words, fmt), out_v.data_ptr(), out_r.data_ptr(),
             n_cores, n_packets, width, x.shape[-1], 1, 1, block_size,
             packets_per_step, col_words, _FMT_IDS[fmt_name], k, n_rows, stream,
         )
@@ -630,14 +683,15 @@ def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
             x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop,
             splits=splits, table=table)
-    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
-                            "take", inner_loop)
+    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
+                              "take", inner_loop)
     _check_cuda_args(x, words)
     _check_tile(packets_per_step, block_size)
     n_cores, n_packets, width = words.shape
     if table is None:
         table = spmv_split_table(words, packets_per_step=packets_per_step,
-                                 block_size=block_size, splits=splits)
+                                 block_size=block_size, splits=splits,
+                                 header=_header_words(fmt))
     bounds, head_row = _check_table(table, words, splits)
     n_splits = head_row.shape[1]
     dev = words.device
@@ -653,7 +707,7 @@ def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().bscsr_topk_spmv_multiquery_launch(
-            x.data_ptr(), words.data_ptr(), out_v.data_ptr(), out_r.data_ptr(),
+            x.data_ptr(), _kernel_words(words, fmt), out_v.data_ptr(), out_r.data_ptr(),
             bounds.data_ptr(), head_row.data_ptr(), pad_v.data_ptr(), pad_r.data_ptr(),
             heads.data_ptr(), carries.data_ptr(), n_cores, n_splits, n_packets, width,
             x.shape[1], nq, q_chunk, block_size, packets_per_step, col_words,
@@ -766,8 +820,8 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
             x, words, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
             inner_loop=inner_loop, splits=splits, table=table)
-    _, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
-                            gather_mode, inner_loop)
+    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
+                              gather_mode, inner_loop)
     _check_cuda_args(x, words)
     if x.dim() != 1:
         raise ValueError(f"x must be an (M,) vector, got {tuple(x.shape)}")
@@ -778,7 +832,8 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
             splits = spmv_splits(words.device, n_cores, packets_per_step=packets_per_step,
                                  block_size=block_size, m=x.shape[0])
         table = spmv_split_table(words, packets_per_step=packets_per_step,
-                                 block_size=block_size, splits=splits)
+                                 block_size=block_size, splits=splits,
+                                 header=_header_words(fmt))
     bounds, head_row = _check_table(table, words, splits)
     n_splits = head_row.shape[1]
     out = torch.zeros((n_cores, n_rows), dtype=torch.float32, device=words.device)
@@ -787,7 +842,7 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().bscsr_spmv_launch(
-            x.data_ptr(), words.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+            x.data_ptr(), _kernel_words(words, fmt), out.data_ptr(), bounds.data_ptr(),
             head_row.data_ptr(), heads.data_ptr(), carries.data_ptr(), n_cores,
             n_splits, n_packets, width, x.shape[0], block_size, packets_per_step,
             col_words, _FMT_IDS[fmt_name], n_rows, stream,

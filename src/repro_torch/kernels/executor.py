@@ -21,6 +21,11 @@
   bucket is only the cache key: the batch reaches the kernel unpadded (the
   kernel takes any Q, and padding would add stream passes of work for no
   saved compile).
+* A mixed-precision snapshot pins one tagged word tensor per width-class
+  group (and its core indices), and its functions run each kernel once per
+  group and scatter the per-core results back into core order.  The format
+  codes and the groups' class names and cores are part of the signature,
+  so a format reassignment counts as a retrace and benign ingest does not.
 * ``h2d_copies`` counts the tensors uploaded at the pin boundary: the
   snapshot's kernel streams and finalize tensors (on a CPU executor the
   same uploads are counted, so the rule is testable there).  The query
@@ -67,22 +72,33 @@ class DeviceSnapshot:
     """
 
     __slots__ = (
-        "uid", "stream_layout", "device", "streams", "finalize", "signature",
-        "max_slots", "block_size", "fmt_name", "uploads", "_split_tables",
+        "uid", "stream_layout", "device", "streams", "groups", "num_cores", "finalize",
+        "signature", "max_slots", "block_size", "fmt_name", "uploads", "_split_tables",
     )
 
     def __init__(self, packed: ops.PackedPartitions, stream_layout: str, device):
         self.uid = packed.uid
         self.stream_layout = stream_layout
         self.device = torch.device(device)
-        if stream_layout == "fused":
-            self.streams = (ops.host_tensor(packed.fused_words(), device),)
+        self.num_cores = packed.num_cores
+        # Mixed precision: one tagged word tensor per width class, with its
+        # core indices; ``groups`` is None for one uniform stream.
+        self.groups = None
+        groups_meta = None
+        if stream_layout == "fused" and ops.uses_groups(packed):
+            self.groups = ops.group_tensors(packed, device)
+            self.streams = tuple(words for _, _, words in self.groups)
+            groups_meta = tuple((g.class_name, g.cores) for g in packed.groups)
+        elif stream_layout == "fused":
+            self.streams = (ops.host_tensor(ops.kernel_words(packed), device),)
         else:
             self.streams = ops.split_tensors(packed, device)
         self.finalize = ops.finalize_tensors(packed, device)
         pinned = list(self.streams) + [
             t for t in self.finalize.values() if isinstance(t, torch.Tensor)
         ]
+        if self.groups is not None:
+            pinned += [cores for _, cores, _ in self.groups]
         self.uploads = len(pinned)
         self.max_slots = packed.max_slots
         self.block_size = packed.block_size
@@ -93,18 +109,22 @@ class DeviceSnapshot:
             tuple(sorted(k for k, v in self.finalize.items()
                          if isinstance(v, torch.Tensor))),
             self.max_slots, self.block_size, self.fmt_name,
+            packed.fmt_signature, groups_meta,
         )
         self._split_tables: dict = {}
 
-    def split_table(self, packets_per_step: int, splits: int):
-        """The split table of the fused words (the accumulate and multi-query
-        kernels walk it), built on the device once per (T, S): no upload, and
-        a fixed shape, so neither ``h2d_copies`` nor the signature moves."""
-        key = (packets_per_step, splits)
+    def split_table(self, packets_per_step: int, splits: int, group: int = 0):
+        """The split table of fused stream ``group`` (the accumulate and
+        multi-query kernels walk it), built on the device once per (T, S,
+        group): no upload, and a fixed shape, so neither ``h2d_copies`` nor
+        the signature moves.  A width-class group's rows lead with a header
+        word, which the table skips."""
+        key = (packets_per_step, splits) + (() if self.groups is None else (group,))
         table = self._split_tables.get(key)
         if table is None:
-            table = spmv_split_table(self.streams[0], packets_per_step=packets_per_step,
-                                     block_size=self.block_size, splits=splits)
+            table = spmv_split_table(self.streams[group], packets_per_step=packets_per_step,
+                                     block_size=self.block_size, splits=splits,
+                                     header=0 if self.groups is None else 1)
             self._split_tables[key] = table
         return table
 
@@ -294,8 +314,28 @@ class QueryExecutor:
 
         t = self.packets_per_step
         kwargs = dict(k=k, n_rows=snap.max_slots, packets_per_step=t,
-                      fmt_name=snap.fmt_name, block_size=snap.block_size,
-                      inner_loop=self.inner_loop)
+                      block_size=snap.block_size, inner_loop=self.inner_loop)
+
+        def tables(s: DeviceSnapshot, x):
+            """Each stream's split table at its own S (a group's core count)."""
+            q_chunk, n_chunks = query_chunks(x.shape[0])
+            return [s.split_table(t, topk_splits(words.device, words.shape[0], n_chunks,
+                                                 packets_per_step=t, block_size=s.block_size,
+                                                 m=x.shape[1], q_chunk=q_chunk, k=k), i)
+                    for i, words in enumerate(s.streams)]
+
+        if snap.groups is not None:
+
+            def run(x, s: DeviceSnapshot):
+                lv, lr = ops.grouped_local_topk(
+                    x, s.groups, n_cores=s.num_cores, batched=q is not None,
+                    tables=None if q is None else tables(s, x),
+                    gather_mode=self.gather_mode, **kwargs)
+                return finalize(lv, lr, big_k=big_k, **s.finalize)
+
+            return run
+
+        kwargs["fmt_name"] = snap.fmt_name
         if q is None:
 
             def run(x, s: DeviceSnapshot):
@@ -306,11 +346,7 @@ class QueryExecutor:
             return run
 
         def run(x, s: DeviceSnapshot):
-            words = s.streams[0]
-            q_chunk, n_chunks = query_chunks(x.shape[0])
-            splits = topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
-                                 block_size=s.block_size, m=x.shape[1], q_chunk=q_chunk, k=k)
-            lv, lr = bscsr_topk_spmv_multiquery(x, words, table=s.split_table(t, splits),
+            lv, lr = bscsr_topk_spmv_multiquery(x, s.streams[0], table=tables(s, x)[0],
                                                 **kwargs)
             return finalize(lv, lr, big_k=big_k, **s.finalize)
 
@@ -331,15 +367,29 @@ class QueryExecutor:
             return run
 
         t = self.packets_per_step
-        kwargs = dict(n_rows=snap.max_slots, packets_per_step=t,
-                      fmt_name=snap.fmt_name, block_size=snap.block_size,
+        kwargs = dict(packets_per_step=t, block_size=snap.block_size,
                       gather_mode=self.gather_mode, inner_loop=self.inner_loop)
 
+        def tables(s: DeviceSnapshot, x):
+            """Each stream's split table at its own S (a group's core count)."""
+            return [s.split_table(t, spmv_splits(words.device, words.shape[0],
+                                                 packets_per_step=t, block_size=s.block_size,
+                                                 m=x.shape[0]), i)
+                    for i, words in enumerate(s.streams)]
+
+        if snap.groups is not None:
+
+            def run(x, alpha, beta, y, s: DeviceSnapshot):
+                sums = ops.grouped_slot_sums(x, s.groups, n_cores=s.num_cores,
+                                             n_rows=s.max_slots, tables=tables(s, x),
+                                             **kwargs)
+                return ops.accumulate_epilogue(sums, s.finalize, n_out, alpha, beta, y)
+
+            return run
+
         def run(x, alpha, beta, y, s: DeviceSnapshot):
-            words = s.streams[0]
-            splits = spmv_splits(words.device, words.shape[0], packets_per_step=t,
-                                 block_size=s.block_size, m=x.shape[0])
-            sums = bscsr_spmv(x, words, table=s.split_table(t, splits), **kwargs)
+            sums = bscsr_spmv(x, s.streams[0], n_rows=s.max_slots, fmt_name=s.fmt_name,
+                              table=tables(s, x)[0], **kwargs)
             return ops.accumulate_epilogue(sums, s.finalize, n_out, alpha, beta, y)
 
         return run

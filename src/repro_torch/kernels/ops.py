@@ -18,6 +18,13 @@ A mutable index stacks its snapshots copy-on-write through a
 ``SnapshotBufferPool`` and carries its churn counters (``base_packets``,
 ``delta_nnz``, ``dead_nnz``, ``tombstone_count``) on the snapshot.
 
+A mixed-precision snapshot (``pack_partitions(value_formats=)``, or a
+mutable index with a ``recall_target``) gives each partition its own value
+format.  Its ``groups`` hold one tagged fused word array per storage-width
+class (``StreamGroup``: TAG4, TAG2, TAG1), each padded to its own packet
+count, and the kernels run once per group; its split arrays are the exactly
+dequantized F32 twins, which the oracle reads.
+
 The dispatch helpers here upload the snapshot on every call: the simple
 baseline.  Serving goes through ``kernels/executor.py``, which pins each
 snapshot on the device once.  Both ship only the fused word stream to the
@@ -37,7 +44,13 @@ import torch
 
 from repro_torch.core import bscsr as bscsr_lib
 from repro_torch.core import partition as partition_lib
-from repro_torch.core.quantization import FORMATS, ValueFormat
+from repro_torch.core.quantization import (
+    FORMAT_BY_CODE,
+    FORMATS,
+    WIDTH_CLASSES,
+    ValueFormat,
+    width_class_of,
+)
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.bscsr_topk_spmv import (
     GATHER_MODES,
@@ -87,8 +100,41 @@ _SNAPSHOT_UIDS = itertools.count()
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamGroup:
+    """One storage-width class of a mixed-precision snapshot's fused streams.
+
+    Partitions are grouped by value storage width (``TAG4``/``TAG2``/
+    ``TAG1``); each group keeps its own tagged ``(Cg, Pg, 1 + W)`` word array
+    with its own packet count, and the dispatchers run one kernel call per
+    group and scatter the per-core results back by ``cores``.
+    """
+
+    class_name: str               # WIDTH_CLASSES key (TAG4 | TAG2 | TAG1)
+    cores: Tuple[int, ...]        # snapshot core indices in this group
+    words: np.ndarray             # (Cg, Pg, 1 + W) tagged fused word streams
+    block_size: int
+
+    @property
+    def stream_bytes(self) -> int:
+        return int(self.words.nbytes)
+
+    @property
+    def value_stream_bytes(self) -> int:
+        """Bytes of this group's value sections (padding packets included)."""
+        cg, pg, _ = self.words.shape
+        bpv = WIDTH_CLASSES[self.class_name].bytes_per_value
+        return cg * pg * self.block_size * bpv
+
+
+@dataclasses.dataclass(frozen=True)
 class PackedPartitions:
-    """All core partitions of one matrix, stacked for the one-block-per-core walk."""
+    """All core partitions of one matrix, stacked for the one-block-per-core walk.
+
+    Mixed-precision snapshots also carry ``fmt_codes`` (each partition's
+    ``ValueFormat`` code) and ``groups`` (the tagged fused streams of each
+    width class); their split arrays are the exactly dequantized F32 twins,
+    and byte accounting counts the native group words.
+    """
 
     vals: np.ndarray          # (C, P, B) base+delta concatenated streams
     cols: np.ndarray          # (C, P, B)
@@ -109,6 +155,9 @@ class PackedPartitions:
     delta_nnz: int = 0                         # live nnz held in delta segments
     dead_nnz: int = 0                          # stream nnz under retired slots
     tombstone_count: int = 0                   # retired (tombstoned) slots
+    # --- mixed-precision fields (None for a homogeneous snapshot) ---
+    fmt_codes: Optional[np.ndarray] = None     # (C,) int32 per-partition codes
+    groups: Optional[Tuple[StreamGroup, ...]] = None  # tagged fused streams
     uid: int = dataclasses.field(init=False, compare=False, repr=False, default=-1)
     has_tombstones: bool = dataclasses.field(init=False, compare=False, default=False)
 
@@ -158,12 +207,33 @@ class PackedPartitions:
         """Size of the global row-id space (sentinel id for the merge mask)."""
         return self.n_rows_total if self.n_rows_total is not None else self.plan.n_rows
 
+    @property
+    def is_heterogeneous(self) -> bool:
+        """True when partitions carry per-partition value formats."""
+        return self.fmt_codes is not None
+
+    @property
+    def fmt_signature(self) -> Optional[Tuple[int, ...]]:
+        """The per-partition format codes (None when homogeneous); part of
+        the executor signature, so a reassignment counts as a retrace."""
+        if self.fmt_codes is None:
+            return None
+        return tuple(int(c) for c in self.fmt_codes)
+
     def format_histogram(self) -> dict:
         """{format name: partition count} of the served streams."""
-        return {self.value_format.name: self.num_cores}
+        if self.fmt_codes is None:
+            return {self.value_format.name: self.num_cores}
+        out: dict = {}
+        for c in self.fmt_codes:
+            name = FORMAT_BY_CODE[int(c)].name
+            out[name] = out.get(name, 0) + 1
+        return out
 
     @property
     def stream_bytes(self) -> int:
+        if self.groups is not None:  # native tagged words, not the f32 twins
+            return int(sum(g.stream_bytes for g in self.groups))
         return self.vals.nbytes + self.cols.nbytes + self.flags.nbytes
 
     @property
@@ -174,6 +244,8 @@ class PackedPartitions:
     @property
     def value_stream_bytes(self) -> int:
         """Bytes of the streamed value sections alone (padding included)."""
+        if self.groups is not None:
+            return int(sum(g.value_stream_bytes for g in self.groups))
         c, p, _ = self.vals.shape
         return c * p * self.block_size * int(self.value_format.bytes_per_value)
 
@@ -183,6 +255,11 @@ class PackedPartitions:
 
     def fused_words(self) -> np.ndarray:
         """The (C, P, W) fused word streams; derived on the fly if not carried."""
+        if self.groups is not None:
+            raise ValueError(
+                "mixed-precision snapshot has no single fused array: dispatch "
+                "its StreamGroups (fused) or its f32 split arrays"
+            )
         if self.words is not None:
             return self.words
         return bscsr_lib.fuse_words(self.vals, self.cols, self.flags)
@@ -225,7 +302,9 @@ def stack_padded_streams(
             f"got {stream_layout!r}"
         )
     words_arr = None
-    if stream_layout == "fused":
+    if stream_layout == "fused" and segment_fields.get("groups") is None:
+        # A mixed-precision snapshot never fuses its f32 twins: its fused
+        # plane is the tagged ``groups``.
         if words is None:
             words = [bscsr_lib.fuse_stream(e) for e in padded]
         words_arr = np.stack(list(words))
@@ -251,14 +330,49 @@ def stack_streams(
     nnz: int,
     packets_multiple: int = 2,
     stream_layout: str = "split",
+    **segment_fields,
 ) -> PackedPartitions:
-    """Pad per-partition streams to a common step-aligned packet count & stack."""
+    """Pad per-partition streams to a common step-aligned packet count & stack.
+
+    ``segment_fields`` go straight into the container.
+    """
     if not streams:
         raise ValueError("need at least one partition stream")
     max_p = max(e.num_packets for e in streams)
     max_p = max(-(-max_p // packets_multiple) * packets_multiple, packets_multiple)
     padded = [bscsr_lib.pad_packets(e, max_p) for e in streams]
-    return stack_padded_streams(padded, plan, n_cols, nnz, stream_layout=stream_layout)
+    return stack_padded_streams(padded, plan, n_cols, nnz, stream_layout=stream_layout,
+                                **segment_fields)
+
+
+def build_stream_groups(
+    encoded: Sequence[bscsr_lib.BSCSRMatrix],
+    packets_multiple: int = 2,
+    pad_to: Optional[dict] = None,
+) -> Tuple[StreamGroup, ...]:
+    """Group native-format partition streams by storage width and fuse (tagged).
+
+    Each width class pads to its own step-aligned packet count, so a narrow
+    group never inherits the widest partition's packets.  ``pad_to``
+    optionally pins per-class packet counts (a churn-stable mutable index
+    passes its bucketed caps); other classes use their natural maximum.
+    """
+    by_class: dict = {}
+    for ci, e in enumerate(encoded):
+        by_class.setdefault(width_class_of(e.value_format).name, []).append(ci)
+    groups = []
+    for cname in sorted(by_class):
+        cores = by_class[cname]
+        max_p = max(encoded[ci].num_packets for ci in cores)
+        max_p = max(-(-max_p // packets_multiple) * packets_multiple, packets_multiple)
+        if pad_to is not None and cname in pad_to:
+            max_p = max(max_p, int(pad_to[cname]))
+        words = np.stack([
+            bscsr_lib.fuse_stream(bscsr_lib.pad_packets(encoded[ci], max_p), tagged=True)
+            for ci in cores
+        ])
+        groups.append(StreamGroup(cname, tuple(cores), words, encoded[0].block_size))
+    return tuple(groups)
 
 
 def pack_partitions(
@@ -268,15 +382,37 @@ def pack_partitions(
     value_format: ValueFormat | str = "F32",
     packets_multiple: int = 2,
     stream_layout: str = "split",
+    value_formats: Optional[Sequence[ValueFormat | str]] = None,
 ) -> PackedPartitions:
-    """Partition a CSR row-wise (§III-A) and BS-CSR encode each partition."""
+    """Partition a CSR row-wise (§III-A) and BS-CSR encode each partition.
+
+    ``value_formats`` (one entry per partition) builds a mixed-precision
+    snapshot instead: each partition is encoded in its own format, the
+    tagged fused streams are grouped by storage width, and the split arrays
+    are the exactly dequantized f32 twins.
+    """
     plan = partition_lib.PartitionPlan.build(csr.shape[0], num_partitions)
     parts = partition_lib.partition_csr(csr, plan)
-    fmt = FORMATS[value_format] if isinstance(value_format, str) else value_format
-    encoded = [bscsr_lib.encode_bscsr(p, block_size, fmt) for p in parts]
+    if value_formats is None:
+        fmt = FORMATS[value_format] if isinstance(value_format, str) else value_format
+        encoded = [bscsr_lib.encode_bscsr(p, block_size, fmt) for p in parts]
+        return stack_streams(
+            encoded, plan, csr.shape[1], csr.nnz,
+            packets_multiple=packets_multiple, stream_layout=stream_layout,
+        )
+    if len(value_formats) != len(parts):
+        raise ValueError(
+            f"value_formats has {len(value_formats)} entries for {len(parts)} partitions"
+        )
+    fmts = [FORMATS[f] if isinstance(f, str) else f for f in value_formats]
+    native = [bscsr_lib.encode_bscsr(p, block_size, f) for p, f in zip(parts, fmts)]
+    groups = build_stream_groups(native, packets_multiple=packets_multiple)
     return stack_streams(
-        encoded, plan, csr.shape[1], csr.nnz,
+        [bscsr_lib.dequantize_stream(e) for e in native],
+        plan, csr.shape[1], csr.nnz,
         packets_multiple=packets_multiple, stream_layout=stream_layout,
+        fmt_codes=np.array([f.code for f in fmts], np.int32),
+        groups=groups,
     )
 
 
@@ -348,6 +484,57 @@ class _StackBuffer:
         return v
 
 
+class _GroupStackBuffer:
+    """One preallocated (Cg, capacity, 1+W) tagged width-class stack, leased out.
+
+    The mixed-precision counterpart of ``_StackBuffer``: ``stamps`` holds the
+    member cores' mutation stamps in group order, so ``sync`` rewrites only
+    members whose partitions mutated.  A format change always rides a
+    mutation stamp (refresh promotes only mutated partitions), and a change
+    of membership changes the geometry key, so equal stamps mean fresh data.
+    """
+
+    def __init__(self, geometry: tuple, capacity: int):
+        cores, word_width = geometry
+        self.geometry = geometry
+        self.capacity = capacity
+        self.pad_to = -1
+        self.stamps = np.full(len(cores), -1, np.int64)
+        self.words = np.zeros((len(cores), capacity, word_width), np.int32)
+        self._leases: list = []
+
+    def is_free(self) -> bool:
+        self._leases = [r for r in self._leases if r() is not None]
+        return not self._leases
+
+    def attach(self, snapshot) -> None:
+        self._leases.append(weakref.ref(snapshot))
+
+    def sync(self, words_list: Sequence[np.ndarray], stamps: np.ndarray,
+             pad_to: int) -> int:
+        """Copy in stale member streams; returns how many were copied."""
+        stale_all = pad_to != self.pad_to
+        copied = 0
+        for j, w in enumerate(words_list):
+            if not stale_all and self.stamps[j] == stamps[j]:
+                continue
+            self.words[j, :pad_to] = w
+            copied += 1
+        self.stamps[:] = stamps
+        self.pad_to = pad_to
+        return copied
+
+    def view(self) -> np.ndarray:
+        """Read-only (Cg, pad_to, 1+W) view, with ``_StackBuffer.view``'s rules."""
+        if self.capacity <= self.pad_to:
+            raise RuntimeError("group stack buffer leased without packet headroom")
+        v = self.words[:, : self.pad_to]
+        if v.flags.c_contiguous:
+            v = v.copy()
+        v.setflags(write=False)
+        return v
+
+
 class SnapshotBufferPool:
     """Copy-on-write stacked snapshot buffers for a mutable index.
 
@@ -364,21 +551,21 @@ class SnapshotBufferPool:
         self.headroom = headroom
         self.max_free = max_free
         self._buffers: list = []
+        self._group_buffers: list = []
 
     def __len__(self) -> int:
-        return len(self._buffers)
+        return len(self._buffers) + len(self._group_buffers)
 
-    def lease(self, padded: Sequence[bscsr_lib.BSCSRMatrix],
-              words: Optional[Sequence[np.ndarray]], stamps: np.ndarray,
-              pad_to: int, packets_multiple: int = 2) -> Tuple[_StackBuffer, int]:
-        """A free, synced buffer for these streams -> (buffer, copied count)."""
-        word_width = words[0].shape[1] if words is not None else 0
-        geometry = (
-            len(padded), padded[0].vals.shape[1], padded[0].vals.dtype,
-            padded[0].cols.dtype, padded[0].flags.shape[1], word_width,
-        )
+    def _take(self, buffers: list, geometry: tuple, pad_to: int, packets_multiple: int,
+              make) -> Tuple[list, object]:
+        """(buffers to keep, a free buffer of this geometry with headroom).
+
+        Free buffers of another geometry, with too little capacity or past
+        ``max_free`` are dropped; when every fitting buffer is still viewed by
+        a live snapshot, a fresh one gets ``headroom`` extra packets.
+        """
         buf, keep, free_kept = None, [], 0
-        for b in self._buffers:
+        for b in buffers:
             if b.is_free():
                 if (b.geometry != geometry or b.capacity <= pad_to
                         or free_kept >= self.max_free):
@@ -389,17 +576,37 @@ class SnapshotBufferPool:
             keep.append(b)
         if buf is None:
             extra = -(-int(pad_to * self.headroom) // packets_multiple)
-            cap = pad_to + max(packets_multiple, extra * packets_multiple)
-            buf = _StackBuffer(geometry, cap)
+            buf = make(geometry, pad_to + max(packets_multiple, extra * packets_multiple))
             keep.append(buf)
-        self._buffers = keep
+        return keep, buf
+
+    def lease(self, padded: Sequence[bscsr_lib.BSCSRMatrix],
+              words: Optional[Sequence[np.ndarray]], stamps: np.ndarray,
+              pad_to: int, packets_multiple: int = 2) -> Tuple[_StackBuffer, int]:
+        """A free, synced buffer for these streams -> (buffer, copied count)."""
+        word_width = words[0].shape[1] if words is not None else 0
+        geometry = (
+            len(padded), padded[0].vals.shape[1], padded[0].vals.dtype,
+            padded[0].cols.dtype, padded[0].flags.shape[1], word_width,
+        )
+        self._buffers, buf = self._take(self._buffers, geometry, pad_to, packets_multiple,
+                                        _StackBuffer)
         return buf, buf.sync(padded, words, stamps, pad_to)
 
-    def lease_group(self, *args, **kwargs):
-        raise NotImplementedError(
-            "width-class group stacks belong to mixed precision: "
-            "ROADMAP Queue 1 item 8"
-        )
+    def lease_group(self, cores: Tuple[int, ...], words_list: Sequence[np.ndarray],
+                    stamps: np.ndarray, pad_to: int, packets_multiple: int = 2
+                    ) -> Tuple[_GroupStackBuffer, int]:
+        """A free, synced width-class stack -> (buffer, copied count).
+
+        ``cores`` (the class's member partitions, in group order) is part of
+        the geometry key, so a promotion that moves a core between classes
+        lands in a fresh buffer.  Same capacity and aliasing rules as
+        ``lease``.
+        """
+        geometry = (tuple(cores), words_list[0].shape[1])
+        self._group_buffers, buf = self._take(self._group_buffers, geometry, pad_to,
+                                              packets_multiple, _GroupStackBuffer)
+        return buf, buf.sync(words_list, stamps, pad_to)
 
 
 def finalize_candidates_batched(
@@ -495,6 +702,74 @@ def _query_tensor(x, device, ndim: int) -> torch.Tensor:
     return x.contiguous()
 
 
+def uses_groups(packed: PackedPartitions) -> bool:
+    """True when the kernels stream ``packed``'s tagged width-class groups.
+
+    A mixed-precision snapshot in the split layout streams its f32 twins
+    instead, as the reference does.
+    """
+    return packed.groups is not None and packed.stream_layout == "fused"
+
+
+def kernel_words(packed: PackedPartitions) -> np.ndarray:
+    """The one fused word array a uniform dispatch streams: the snapshot's
+    fused words, or, for a mixed snapshot, its f32 twins fused."""
+    if packed.groups is None:
+        return packed.fused_words()
+    return bscsr_lib.fuse_words(packed.vals, packed.cols, packed.flags)
+
+
+def group_tensors(packed: PackedPartitions, device) -> Tuple[tuple, ...]:
+    """``(class name, cores, words)`` of each group, tensors on ``device``."""
+    return tuple(
+        (g.class_name, host_tensor(np.asarray(g.cores, np.int64), device),
+         host_tensor(g.words, device))
+        for g in packed.groups
+    )
+
+
+def grouped_local_topk(x: torch.Tensor, groups, *, n_cores: int, k: int, n_rows: int,
+                       batched: bool, tables=None, gather_mode: str = "take",
+                       **kernel_kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-precision top-k: one kernel call per width class.
+
+    ``groups`` is ``group_tensors``' tuple; ``tables`` optionally gives each
+    group's split table (the multi-query kernel).  Each group's per-core
+    scratchpads are scattered back into the snapshot's ``(C, [Q,] k)`` core
+    order; every core belongs to exactly one group.
+    """
+    shape = (n_cores, x.shape[0], k) if batched else (n_cores, k)
+    lv = torch.full(shape, NEG_INF, dtype=torch.float32, device=x.device)
+    lr = torch.full(shape, n_rows, dtype=torch.int32, device=x.device)
+    for i, (cname, cores, words) in enumerate(groups):
+        kw = dict(kernel_kw, k=k, n_rows=n_rows, fmt_name=cname)
+        if batched:
+            gv, gr = bscsr_topk_spmv_multiquery(
+                x, words, table=None if tables is None else tables[i], **kw)
+        else:
+            gv, gr = bscsr_topk_spmv(x, words, gather_mode=gather_mode, **kw)
+        lv[cores] = gv
+        lr[cores] = gr
+    return lv, lr
+
+
+def grouped_slot_sums(x: torch.Tensor, groups, *, n_cores: int, n_rows: int,
+                      tables=None, **kernel_kw) -> torch.Tensor:
+    """Mixed-precision accumulate: one kernel call per width class, each
+    group's per-core slot sums scattered back into ``(C, L)`` core order."""
+    sums = torch.zeros((n_cores, n_rows), dtype=torch.float32, device=x.device)
+    for i, (cname, cores, words) in enumerate(groups):
+        if tables is None:
+            split = dict(splits=spmv_splits(
+                words.device, words.shape[0], packets_per_step=kernel_kw["packets_per_step"],
+                block_size=kernel_kw["block_size"], m=x.shape[0]))
+        else:
+            split = dict(table=tables[i])
+        sums[cores] = bscsr_spmv(x, words, n_rows=n_rows, fmt_name=cname, **split,
+                                 **kernel_kw)
+    return sums
+
+
 def topk_spmv_blocked(
     x,
     packed: PackedPartitions,
@@ -505,14 +780,20 @@ def topk_spmv_blocked(
     inner_loop: str = "linear",
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One query through the single-query kernel, uploading the snapshot."""
-    words = host_tensor(packed.fused_words(), device)
-    lv, lr = bscsr_topk_spmv(
-        _query_tensor(x, device, 1), words, k=k, n_rows=packed.max_slots,
-        packets_per_step=packets_per_step, fmt_name=packed.value_format.name,
-        block_size=packed.block_size, gather_mode=resolve_gather_mode(gather_mode),
-        inner_loop=inner_loop,
-    )
+    """One query through the single-query kernel, uploading the snapshot.
+
+    A mixed-precision snapshot runs the kernel once per width-class group.
+    """
+    x = _query_tensor(x, device, 1)
+    kw = dict(k=k, n_rows=packed.max_slots, packets_per_step=packets_per_step,
+              block_size=packed.block_size, gather_mode=resolve_gather_mode(gather_mode),
+              inner_loop=inner_loop)
+    if uses_groups(packed):
+        lv, lr = grouped_local_topk(x, group_tensors(packed, device),
+                                    n_cores=packed.num_cores, batched=False, **kw)
+    else:
+        lv, lr = bscsr_topk_spmv(x, host_tensor(kernel_words(packed), device),
+                                 fmt_name=packed.value_format.name, **kw)
     return finalize_candidates(lv, lr, big_k=big_k, **finalize_tensors(packed, device))
 
 
@@ -525,13 +806,17 @@ def topk_spmv_batched(
     inner_loop: str = "linear",
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Q queries in ONE pass over the stream via the multi-query kernel."""
-    words = host_tensor(packed.fused_words(), device)
-    lv, lr = bscsr_topk_spmv_multiquery(
-        _query_tensor(xs, device, 2), words, k=k, n_rows=packed.max_slots,
-        packets_per_step=packets_per_step, fmt_name=packed.value_format.name,
-        block_size=packed.block_size, inner_loop=inner_loop,
-    )
+    """Q queries in ONE pass over the stream via the multi-query kernel
+    (one pass per width-class group of a mixed-precision snapshot)."""
+    xs = _query_tensor(xs, device, 2)
+    kw = dict(k=k, n_rows=packed.max_slots, packets_per_step=packets_per_step,
+              block_size=packed.block_size, inner_loop=inner_loop)
+    if uses_groups(packed):
+        lv, lr = grouped_local_topk(xs, group_tensors(packed, device),
+                                    n_cores=packed.num_cores, batched=True, **kw)
+    else:
+        lv, lr = bscsr_topk_spmv_multiquery(xs, host_tensor(kernel_words(packed), device),
+                                            fmt_name=packed.value_format.name, **kw)
     return finalize_candidates_batched(lv, lr, big_k=big_k,
                                        **finalize_tensors(packed, device))
 
@@ -654,18 +939,24 @@ def bscsr_spmv_blocked(
     device="cuda",
 ) -> torch.Tensor:
     """``y = alpha * A @ x + beta * y`` via the accumulate kernel, uploading
-    the snapshot.  Iterative workloads go through ``QueryExecutor.spmv``."""
+    the snapshot (one launch per width-class group of a mixed-precision
+    snapshot).  Iterative workloads go through ``QueryExecutor.spmv``."""
     if n_out is None:
         n_out = int(y.shape[0]) if y is not None else packed.n_rows_logical
     x = _query_tensor(x, device, 1)
-    words = host_tensor(packed.fused_words(), device)
-    sums = bscsr_spmv(
-        x, words, n_rows=packed.max_slots, packets_per_step=packets_per_step,
-        fmt_name=packed.value_format.name, block_size=packed.block_size,
-        gather_mode=resolve_gather_mode(gather_mode), inner_loop=inner_loop,
-        splits=spmv_splits(words.device, words.shape[0], packets_per_step=packets_per_step,
-                           block_size=packed.block_size, m=x.shape[0]),
-    )
+    kw = dict(packets_per_step=packets_per_step, block_size=packed.block_size,
+              gather_mode=resolve_gather_mode(gather_mode), inner_loop=inner_loop)
+    if uses_groups(packed):
+        sums = grouped_slot_sums(x, group_tensors(packed, device), n_cores=packed.num_cores,
+                                 n_rows=packed.max_slots, **kw)
+    else:
+        words = host_tensor(kernel_words(packed), device)
+        sums = bscsr_spmv(
+            x, words, n_rows=packed.max_slots, fmt_name=packed.value_format.name,
+            splits=spmv_splits(words.device, words.shape[0],
+                               packets_per_step=packets_per_step,
+                               block_size=packed.block_size, m=x.shape[0]),
+            **kw)
     if y is not None:
         y = torch.as_tensor(y, dtype=torch.float32, device=device)
     return accumulate_epilogue(sums, finalize_tensors(packed, device), n_out, alpha, beta, y)

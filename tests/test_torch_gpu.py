@@ -9,13 +9,21 @@ reference package cannot.  Every test is marked ``gpu`` and skips, with the
 reason, where ``torch.cuda.is_available()`` is false.  Dyadic fixtures
 (values on a 2**-7 grid, queries on a 2**-3 grid) are exact in f32 in any
 summation order, so kernel and plain version must agree bit for bit.
+
+The tagged width classes of mixed-precision snapshots (TAG4, TAG2 with
+BF16 and Q15 cores in one launch, TAG1) run through all three kernels
+against their plain versions and against the same snapshot's f32 twins
+streamed as one F32 stream.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import bscsr
 from repro_torch.core import topk_spmv as api
+from repro_torch.core.quantization import FORMAT_BY_CODE
 from repro_torch.core.similarity import SparseEmbeddingIndex
 from repro_torch.kernels import bscsr_topk_spmv as K
 from repro_torch.kernels import ops
@@ -348,3 +356,234 @@ def test_mq_split_kernel_holds_plain_bits_over_repeated_calls(cuda, k):
                    if not (torch.equal(v.view(torch.int32), want[0].view(torch.int32))
                            and torch.equal(r, want[1]))]
             assert not bad, f"Q={q} S={splits}: calls {bad} of 40 differ from plain"
+
+
+# ---------------------------------------------------------------------------
+# Tagged width classes (mixed precision)
+# ---------------------------------------------------------------------------
+
+# Eight cores: every class, and TAG2 with BF16 and Q15 cores in one launch.
+MIXED8 = ("F32", "BF16", "Q15", "Q7", "Q15", "BF16", "Q7", "F32")
+
+
+def mixed_pack(csr, block, t, formats=MIXED8):
+    packed = ops.pack_partitions(csr, len(formats), block, packets_multiple=t,
+                                 stream_layout="fused", value_formats=formats)
+    return packed, {g.class_name: g for g in packed.groups}
+
+
+def poison_tagged(words, block, rows_per_core, cores):
+    """Padding col ids of a tagged group poisoned (30,000 and -7): ids past
+    the last real row must contribute 0, in any section layout."""
+    out = words.copy()
+    for j, c in enumerate(cores):
+        member = FORMAT_BY_CODE[int(words[j, 0, 0])]
+        vals, cols, flags = bscsr.defuse_stream(words[j], block, member, np.int16,
+                                                tagged=True)
+        row_ids = np.cumsum(bscsr.unpack_bits(flags, block).reshape(-1)) - 1
+        pad = (row_ids >= rows_per_core[c]).reshape(cols.shape)
+        cols = cols.copy()
+        cols[pad] = 30_000
+        cols[pad & (np.arange(cols.size).reshape(cols.shape) % 2 == 1)] = -7
+        out[j] = bscsr.fuse_words(vals, cols, flags, tag=member.code)
+    return out
+
+
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 64), (256, 2, 512), (64, 2, 40_000)])
+def test_tagged_kernels_match_plain_bitwise(cuda, block, t, n_cols):
+    """Dyadic data: each kernel on TAG4, TAG2 and TAG1 equals its plain
+    version bit for bit, at every S the card picks, one and 64."""
+    packed, groups = mixed_pack(dyadic_csr(800, n_cols, seed=block + t + 20), block, t)
+    assert sorted(groups) == ["TAG1", "TAG2", "TAG4"]
+    assert {int(c) for c in groups["TAG2"].words[:, 0, 0]} == {1, 2}
+    rng = np.random.default_rng(block)
+    for name, g in groups.items():
+        w = torch.from_numpy(g.words)
+        kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=name,
+                  block_size=block)
+        for q in (1, 3, 64):
+            xs = torch.from_numpy((rng.integers(-16, 17, (q, n_cols)) / 8.0)
+                                  .astype(np.float32))
+            if q == 1:
+                assert_same_bits(K.bscsr_topk_spmv(xs[0].to(cuda), w.to(cuda), **kw),
+                                 K.bscsr_topk_spmv(xs[0], w, **kw), f"{name} single")
+            want = K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)
+            for splits in (None, 1, 64):
+                got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits,
+                                                   **kw)
+                torch.cuda.synchronize()
+                assert_same_bits(got, want, f"{name} Q={q} S={splits}")
+        akw = dict(n_rows=packed.max_slots, packets_per_step=t, fmt_name=name,
+                   block_size=block)
+        want = K.bscsr_spmv(xs[0], w, **akw).numpy()
+        for splits in (None, 1, 64):
+            got = K.bscsr_spmv(xs[0].to(cuda), w.to(cuda), splits=splits, **akw)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                          want.view(np.int32), err_msg=f"{name} S={splits}")
+
+
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 2000), (256, 2, 2000), (64, 2, 40_000)])
+def test_tagged_groups_match_f32_twins_one_split_bitwise(cuda, block, t, n_cols):
+    """Random data: the grouped tagged dispatch (one launch per class, at
+    each class's S) gives the bits of the f32 twins as one F32 stream, per
+    call and through the executor, and every S its S = 1 bits."""
+    csr = long_row_csr(600, n_cols, block, seed=block + t + 21, dyadic=False)
+    packed, groups = mixed_pack(csr, block, t)
+    twins = dataclasses.replace(packed, stream_layout="split")
+    xs = mq_queries(8, n_cols, seed=t, dyadic=False)
+    kw = dict(k=8, packets_per_step=t, device=cuda)
+    K.reset_launch_counts()
+    assert_same_bits(ops.topk_spmv_blocked(xs[0], packed, 16, **kw),
+                     ops.topk_spmv_blocked(xs[0], twins, 16, **kw), "single")
+    assert_same_bits(ops.topk_spmv_batched(xs, packed, 16, **kw),
+                     ops.topk_spmv_batched(xs, twins, 16, **kw), "batched")
+    got = ops.bscsr_spmv_blocked(xs[0], packed, packets_per_step=t, device=cuda)
+    want = ops.bscsr_spmv_blocked(xs[0], twins, packets_per_step=t, device=cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (K.bscsr_topk_spmv.launches, K.bscsr_topk_spmv_multiquery.launches,
+            K.bscsr_spmv.launches) == (4, 4, 4)     # three classes + the twins
+    for name, g in groups.items():
+        w = torch.from_numpy(g.words).to(cuda)
+        kwk = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=name,
+                   block_size=block)
+        one = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w, splits=1, **kwk)
+        for splits in (None, 2, 64):
+            assert_same_bits(K.bscsr_topk_spmv_multiquery(xs.to(cuda), w, splits=splits,
+                                                          **kwk), one, f"{name} S={splits}")
+
+
+@pytest.mark.parametrize("formats", [("BF16", "Q15", "Q15", "BF16"), ("Q7",) * 4,
+                                     ("F32", "F32", "BF16", "Q7")])
+def test_tagged_kernels_match_plain_bitwise_on_a_padded_budget(cuda, formats):
+    """All-negative dyadic scores, flag-free padding steps (whose rows hold
+    header 0), a doubled slot budget and poisoned padding ids: every kernel
+    on every class equals plain bit for bit, and no phantom slot enters."""
+    csr = long_row_csr(200, 512, 32, seed=13, dyadic=True)
+    csr = dataclasses.replace(csr, data=-np.abs(csr.data) - 1 / 128)
+    packed, groups = mixed_pack(csr, 32, 2, formats)
+    live = np.asarray(packed.candidate_slots)
+    n_rows = 2 * packed.max_slots
+    xs = mq_queries(5, 512, seed=14, dyadic=True).abs() + 0.125
+    for name, g in groups.items():
+        words = poison_tagged(g.words, 32, live, g.cores)
+        words = np.concatenate([words, np.zeros((len(g.cores), 8, words.shape[2]),
+                                                np.int32)], 1)
+        w = torch.from_numpy(words)
+        kw = dict(k=8, n_rows=n_rows, packets_per_step=2, fmt_name=name, block_size=32)
+        assert_same_bits(K.bscsr_topk_spmv(xs[0].to(cuda), w.to(cuda), **kw),
+                         K.bscsr_topk_spmv(xs[0], w, **kw), f"{name} single")
+        want = K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)
+        akw = dict(n_rows=n_rows, packets_per_step=2, fmt_name=name, block_size=32)
+        want_sums = K.bscsr_spmv(xs[0], w, **akw).numpy()
+        for splits in (None, 1, 3, 64):
+            got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits, **kw)
+            sums = K.bscsr_spmv(xs[0].to(cuda), w.to(cuda), splits=splits, **akw)
+            torch.cuda.synchronize()
+            assert_same_bits(got, want, f"{name} S={splits}")
+            gv, gr = to_np(got)
+            filled = gv > K.NEG_INF
+            slots = live[list(g.cores)][:, None, None]
+            assert (gr[filled] < np.broadcast_to(slots, gr.shape)[filled]).all()
+            np.testing.assert_array_equal(sums.cpu().numpy().view(np.int32),
+                                          want_sums.view(np.int32))
+
+
+def test_tagged_mq_split_kernel_breaks_ties_at_the_kth_place_like_plain(cuda):
+    """The tie fixture of the uniform test in one TAG2 launch with a BF16
+    and a Q15 core: every row scores 3/8, 1/2 or below 0."""
+    rng = np.random.default_rng(31)
+    lens = np.full(400, 3)
+    lens[::11] = rng.integers(40, 70, size=len(lens[::11]))
+    lens[5::13] = 4
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate([np.sort(rng.choice(80, int(n), replace=False))
+                          for n in lens]).astype(np.int32)
+    data = np.full(int(lens.sum()), 1 / 8, np.float32)
+    data[np.repeat(lens > 4, lens)] = -1 / 128
+    csr = bscsr.CSRMatrix(indptr, idx, data, (len(lens), 80))
+    packed = ops.pack_partitions(csr, 2, 32, packets_multiple=1, stream_layout="fused",
+                                 value_formats=("BF16", "Q15"))
+    (g,) = packed.groups
+    w = torch.from_numpy(g.words)
+    xs = torch.ones((3, 80))
+    xs[1, ::2] = 0.5
+    xs[2] = 2.0
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=1, fmt_name="TAG2",
+              block_size=32)
+    want = K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)
+    assert (want[0][:, 0] == 0.5).all()
+    for splits in (None, 1, 3, 64):
+        got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert_same_bits(got, want, f"S={splits}")
+
+
+def test_tagged_mq_split_kernel_holds_plain_bits_over_repeated_calls(cuda):
+    """The repeated-call fixture (scores climbing slowly with noise) in one
+    TAG2 launch with a BF16 and a Q15 core, 40 calls at each S."""
+    rng = np.random.default_rng(52)
+    n_rows, n_cols = 20_000, 512
+    indptr = np.arange(n_rows + 1, dtype=np.int64)
+    idx = rng.integers(0, n_cols, n_rows).astype(np.int32)
+    data = ((np.arange(n_rows) // 128 + rng.integers(0, 8, n_rows)) / 256).astype(np.float32)
+    csr = bscsr.CSRMatrix(indptr, idx, data, (n_rows, n_cols))
+    packed = ops.pack_partitions(csr, 2, 256, packets_multiple=2, stream_layout="fused",
+                                 value_formats=("Q15", "BF16"))
+    (g,) = packed.groups
+    w = torch.from_numpy(g.words)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name="TAG2",
+              block_size=256)
+    for q in (1, 8):
+        xs = torch.from_numpy(2.0 ** rng.integers(-1, 2, (q, n_cols))).float()
+        want = [t.to(cuda) for t in K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)]
+        xs, wc = xs.to(cuda), w.to(cuda)
+        for splits in (1, 2, 4):
+            outs = [K.bscsr_topk_spmv_multiquery(xs, wc, splits=splits, **kw)
+                    for _ in range(40)]
+            torch.cuda.synchronize()
+            bad = [i for i, (v, r) in enumerate(outs)
+                   if not (torch.equal(v.view(torch.int32), want[0].view(torch.int32))
+                           and torch.equal(r, want[1]))]
+            assert not bad, f"Q={q} S={splits}: calls {bad} of 40 differ from plain"
+
+
+def test_mixed_facade_on_the_card(cuda):
+    """A recall-targeted facade: query, query_batch, topk_spmv and an
+    accumulate step launch every kernel once per class, equal the plain
+    versions' answers, and ingest keeps the signature."""
+    csr = bscsr.synthetic_embedding_csr(8_000, 128, 12, "gamma", seed=5)
+    scales = np.where(np.arange(8_000) < 2_000, 1.0, 0.25).astype(np.float32)
+    csr = bscsr.scale_rows(csr, scales)
+    cfg = api.TopKSpMVConfig(big_k=20, k=8, num_partitions=8, device="cuda")
+    svc = SparseEmbeddingIndex(csr, cfg, recall_target=0.99)
+    cpu = SparseEmbeddingIndex(csr, dataclasses.replace(cfg, device="cpu"),
+                               recall_target=0.99)
+    packed = svc.index.packed
+    assert packed.is_heterogeneous and svc.index.partition_formats == cpu.index.partition_formats
+    n_groups = len(packed.groups)
+    xs = np.random.default_rng(6).standard_normal((8, 128)).astype(np.float32)
+    K.reset_launch_counts()
+    v, r = svc.query_batch(xs)
+    one = api.topk_spmv(svc.index, torch.from_numpy(xs[0]).to(cuda))
+    n_out = packed.n_rows_logical
+    ax = api.query_executor(cfg).spmv(torch.from_numpy(xs[0]).to(cuda), packed, alpha=1.0,
+                                      beta=0.0, y=torch.zeros(n_out, device=cuda))
+    torch.cuda.synchronize()
+    assert K.bscsr_topk_spmv.launches == n_groups
+    assert K.bscsr_topk_spmv_multiquery.launches == n_groups
+    assert K.bscsr_spmv.launches == n_groups
+    cv, cr = cpu.query_batch(xs)
+    np.testing.assert_allclose(v, cv, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(r, cr)
+    np.testing.assert_array_equal(one[1].cpu().numpy(), r[0])
+    cax = api.query_executor(cpu.config).spmv(xs[0], cpu.index.packed, alpha=1.0, beta=0.0,
+                                              y=np.zeros(n_out, np.float32))
+    np.testing.assert_allclose(ax.cpu().numpy(), cax.numpy(), rtol=1e-5, atol=1e-5)
+    retraces = svc.dispatch_info()["retraces"]
+    svc.upsert(np.random.default_rng(7).standard_normal((4, 128)).astype(np.float32) * 0.1)
+    svc.query_batch(xs)
+    svc.upsert(np.random.default_rng(8).standard_normal((4, 128)).astype(np.float32) * 0.1)
+    svc.query_batch(xs)
+    assert svc.index.partition_formats == cpu.index.partition_formats
+    assert svc.dispatch_info()["retraces"] <= retraces + 1

@@ -595,12 +595,6 @@ class TestWrapperRules:
                                   packets_per_step=2, fmt_name="F32", block_size=32)
         assert tkern.bscsr_topk_spmv.launches == 0
 
-    def test_tagged_classes_belong_to_a_later_slice(self):
-        words = np.zeros((1, 2, 1 + 1 + 16 + 16), np.int32)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tkern.bscsr_topk_spmv(torch.zeros(8), torch.from_numpy(words), k=2,
-                                  n_rows=1, fmt_name="TAG2", block_size=32)
-
     def test_rejects_bad_geometry(self):
         words = torch.zeros((1, 3, 1 + 16 + 32), dtype=torch.int32)
         with pytest.raises(ValueError, match="multiple of packets_per_step"):

@@ -163,11 +163,6 @@ class TestIndexAPI:
         assert ex.fn_builds == builds + 1
         assert ex.cache_info()["device_snapshots"] == 1
 
-    def test_recall_target_not_ported(self):
-        csr = jbscsr.synthetic_embedding_csr(50, N_COLS, 4, "gamma", seed=8)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ttopk.build_index(port_csr(csr), tcfg(recall_target=0.9))
-
     def test_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")
@@ -280,14 +275,13 @@ class TestFacade:
         if call in ("delete", "compact"):
             assert not {2, 40} & set(t.query_batch(xs)[1].reshape(-1).tolist())
 
-    @pytest.mark.parametrize("case", ["mesh", "n_shards", "recall_target", "from_index"])
+    @pytest.mark.parametrize("case", ["mesh", "n_shards", "from_index"])
     def test_later_slices_raise(self, facades, case):
         j, t = facades
         csr = port_csr(j.csr)
         call = {
             "mesh": lambda: TorchIndex(csr, tcfg(), mesh=object()),
             "n_shards": lambda: TorchIndex(csr, tcfg(), n_shards=2),
-            "recall_target": lambda: TorchIndex(csr, tcfg(), recall_target=0.9),
             "from_index": lambda: TorchIndex.from_index(t.index),
         }[case]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
