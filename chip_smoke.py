@@ -15,10 +15,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              the accumulate kernel must leave at exactly 0.0), flag-free
              padding packets, poisoned padding ids.  Dyadic fixtures must be
              bit-identical; random ones agree within rtol = atol = 1e-5 with
-             equal row ids outside near-ties.  The multi-query kernel (at
-             Q in {1, 3, 64}) and the accumulate kernel run at the card's S
-             blocks per core, at one and at 64, and every S must give the
-             bits of S = 1.  The same checks run on the tagged width classes
+             equal row ids outside near-ties.  All three kernels (the
+             multi-query one at Q in {1, 3, 64}) run at the card's S blocks
+             per core, at one and at 64, and every S must give the bits of
+             S = 1.  The same checks run on the tagged width classes
              of mixed-precision snapshots (TAG4, TAG2 with BF16 and Q15
              cores in one launch, TAG1; dyadic, random, all-negative under a
              padded budget, poisoned padding, ties at the k-th place), and
@@ -36,10 +36,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              upserts.  Both top-k kernels' launch counts must rise here, and
              the executor's host-to-device copies stay flat in steady state.
 4. timings   each top-k kernel at every Q the main path gives it on the main
-             path's streams before and after ingest (the multi-query kernel
-             at the card's S and at one split, in turns, with its S,
-             q_chunk and split-table build time printed; at the card's S
-             bit-identical to S = 1), and the accumulate kernel on phase 6's
+             path's streams before and after ingest, at the card's S and at
+             one split, in turns (with S, the multi-query q_chunk and the
+             split-table build time printed; at the card's S bit-identical
+             to S = 1 over repeated calls; the single-query kernel
+             bit-identical to the multi-query kernel at Q = 1), and the
+             accumulate kernel on phase 6's
              streams before and after the first mutation (run after phase 6;
              bit-identical to plain on dyadic values, within a stated
              rounding bound on random x, and at the card's S bit-identical
@@ -57,8 +59,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              format histogram, predicted and measured recall@8 (big_k = k,
              through the kernel, at least the target - 0.02), bytes per nnz
              beside uniform BF16, each kernel's device time per width class
-             and in sum at Q = 1, 8, 64 (and ``topk_spmv``, accumulate) with
-             its bound, before and after an ingest of 64 cold rows and 64
+             and in sum at Q = 1, 8, 64 (and ``topk_spmv``, accumulate, each
+             at the class's own S) with its bound, before and after an
+             ingest of 64 cold rows and 64
              deletes; before and after, each class's words through each
              kernel and its plain version (phase 4's tolerances), the
              facade's ``query`` / ``query_batch`` answers, ``topk_spmv`` and
@@ -251,23 +254,30 @@ def fixture_queries(rng, q, n_cols, bitwise, xsign):
 def stream_checks(torch, K, check, errs, name, w, fmt, block, t, n_rows, live, n_cols,
                   bitwise, xsign, rng):
     """One fused stream through all three kernels against their plain
-    versions: the single-query kernel at Q = 1, the multi-query kernel at
-    Q in {1, 3, 64} and S in {card, 1, 64} (and every S against its S = 1
-    bits), the accumulate kernel at the same S (slots that never complete
-    read exactly 0.0).  Returns the number of comparisons."""
+    versions: the single-query kernel at Q = 1 and the multi-query kernel at
+    Q in {1, 3, 64}, each at S in {card, 1, 64} (and every S against its
+    S = 1 bits), the accumulate kernel at the same S (slots that never
+    complete read exactly 0.0).  Returns the number of comparisons."""
     kw = dict(k=8, n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
     n_checks = 0
     for q in (1, 3, 64):
         x = torch.from_numpy(fixture_queries(rng, q, n_cols, bitwise, xsign)).to(w.device)
         if q == 1:
-            got = K.bscsr_topk_spmv(x[0], w, **kw)
+            # The single-query kernel at the card's S, at one split and at
+            # 64: each against the plain single walk, and every S against
+            # S = 1 bit for bit.
             want = K.bscsr_topk_spmv_plain(x[0], w, **kw)
-            torch.cuda.synchronize()
-            ok, err = compare(got, want, bitwise)
-            errs["bscsr_topk_spmv"] = max(errs["bscsr_topk_spmv"], err)
-            check.expect(ok, f"{name} Q=1: single-query kernel != plain (max err "
-                             f"{err:.3g})")
-            n_checks += 1
+            one = K.bscsr_topk_spmv(x[0], w, splits=1, **kw)
+            for splits in (None, 1, 64):
+                got = K.bscsr_topk_spmv(x[0], w, splits=splits, **kw)
+                torch.cuda.synchronize()
+                ok, err = compare(got, want, bitwise)
+                errs["bscsr_topk_spmv"] = max(errs["bscsr_topk_spmv"], err)
+                check.expect(ok, f"{name} Q=1 S={splits}: single-query kernel != plain "
+                                 f"(max err {err:.3g})")
+                check.expect(compare(got, one, True)[0],
+                             f"{name} Q=1 S={splits}: single-query kernel != its S=1 bits")
+                n_checks += 1
         # The multi-query kernel at the card's S, at one split and at 64:
         # each against plain, and every S against S = 1 bit for bit.
         want = K.bscsr_topk_spmv_multiquery_plain(x, w, **kw)
@@ -468,7 +478,7 @@ def kernel_registers(report: str) -> dict:
         if m:
             name = next((k for k in ("topk_spmv_mq_split_kernel", "topk_spmv_mq1_kernel",
                                      "topk_mq_merge_kernel",
-                                     "topk_spmv_kernel", "spmv_accum_kernel",
+                                     "topk_spmv_single_kernel", "spmv_accum_kernel",
                                      "spmv_fixup_kernel")
                          if k in m.group(1)), m.group(1))
             qc = re.search(r"ILi(\d+)E", m.group(1))      # the template's queries a block
@@ -717,30 +727,14 @@ def main() -> int:
         flops_ms = 2.0 * main_nnz * q / F32_FLOPS * 1e3
         return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
-    # The single-query kernel (topk_spmv) at Q = 1.
-    name = "bscsr_topk_spmv"
-    ms, ms_after = (time_cuda(torch, lambda: K.bscsr_topk_spmv(x1, w, **dict(kw, n_rows=n)))
-                    for _, w, n in snaps)
-    plain_ms, want = time_once(torch, lambda: K.bscsr_topk_spmv_plain(x1, words, **kw))
-    ok, err = compare(K.bscsr_topk_spmv(x1, words, **kw), want, bitwise=False)
-    check.expect(ok, f"{name} on the main path's streams differs from plain "
-                     f"(max err {err:.3g})")
-    errs[name] = max(errs[name], err)
-    bound_ms, bound_by = bound(1)
-    log(f"  {name} Q=1: {ms:.3f} ms, after ingest ({ingest_packets} packets per core) "
-        f"{ms_after:.3f} ms, plain {plain_ms:.1f} ms, max abs err {err:.3g}, bound "
-        f"{bound_ms:.3f} ms by {bound_by}")
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "q": 1, "ms_by_q": {1: ms}, "ms_after_ingest": ms_after,
-        "packets_after_ingest": ingest_packets,
-        "achieved_gb_per_s": words.numel() * 4 / (ms * 1e-3) / 1e9,
-        "queries_per_s": 1 / (ms * 1e-3),
-    }]
-    kernels.append(multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound))
-    kernels[-1]["packets_after_ingest"] = ingest_packets
+    kernels = [single_timing(torch, K, snaps, x1, kw, check, errs, launches, bound),
+               multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound)]
+    for entry in kernels:
+        entry["packets_after_ingest"] = ingest_packets
+    mq1 = kernels[1]["ms_by_q"][1], kernels[1]["ms_after_ingest_by_q"][1]
+    log(f"  bscsr_topk_spmv against the multi-query kernel at Q=1: {kernels[0]['ms']:.3f} / "
+        f"{mq1[0]:.3f} ms before ingest, {kernels[0]['ms_after_ingest']:.3f} / {mq1[1]:.3f} "
+        f"ms after")
     del snaps
     check.done()
 
@@ -803,6 +797,9 @@ def main() -> int:
             entry["mixed"][label + "_ingest"] = {
                 "ms_by_class": by_class, "ms_sum": total, "bound_ms": bound,
                 "plain_ms_by_class": {c: e[plain] for c, e in m["classes"].items()}}
+            if name == "bscsr_topk_spmv":
+                entry["mixed"][label + "_ingest"]["splits_by_class"] = {
+                    c: e["single_splits"] for c, e in m["classes"].items()}
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -812,6 +809,72 @@ def main() -> int:
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def single_timing(torch, K, snaps, x1, kw, check, errs, launches, bound) -> dict:
+    """The single-query kernel (``topk_spmv``) on the snapshots before and
+    after ingest, at the card's S (``single_splits``) and at one split,
+    timed in turns with the split tables built beforehand, as the executor
+    holds them.  At each snapshot the card's S must give the S = 1 bits and
+    the multi-query kernel's at Q = 1 (the same tree and fold), and
+    ``MQ_REPEATS`` more calls at each S the S = 1 bits again; before ingest
+    both are held to the plain single walk (the one full-size plain call).
+    """
+    name = "bscsr_topk_spmv"
+    t, block = kw["packets_per_step"], kw["block_size"]
+    by = {}
+    for label, words, n_rows in snaps:
+        kwl = dict(kw, n_rows=n_rows)
+        suffix = "_after_ingest" if label == "after ingest" else ""
+        splits = K.single_splits(words.device, words.shape[0], packets_per_step=t,
+                                 block_size=block, m=x1.shape[0], k=kw["k"],
+                                 width=words.shape[2], fmt_name=kw["fmt_name"])
+        mq_splits = K.topk_splits(words.device, words.shape[0], 1, packets_per_step=t,
+                                  block_size=block, m=x1.shape[0], q_chunk=1, k=kw["k"])
+        tabs = {s: K.spmv_split_table(words, packets_per_step=t, block_size=block,
+                                      splits=s) for s in {splits, mq_splits, 1}}
+        got = K.bscsr_topk_spmv(x1, words, table=tabs[splits], **kwl)
+        one = K.bscsr_topk_spmv(x1, words, table=tabs[1], **kwl)
+        mv, mr = K.bscsr_topk_spmv_multiquery(x1[None], words, table=tabs[mq_splits], **kwl)
+        torch.cuda.synchronize()
+        check.expect(compare(got, one, True)[0], f"{name} {label}: S={splits} and S=1 differ")
+        check.expect(compare(got, (mv[:, 0], mr[:, 0]), True)[0],
+                     f"{name} {label}: differs from the multi-query kernel at Q=1")
+        if not suffix:
+            by["plain_ms"], want = time_once(
+                torch, lambda: K.bscsr_topk_spmv_plain(x1, words, **kwl))
+            for s, out in ((splits, got), (1, one)):
+                ok, err = compare(out, want, bitwise=False)
+                errs[name] = max(errs[name], err)
+                check.expect(ok, f"{name} S={s} {label} differs from plain (max err "
+                                 f"{err:.3g})")
+        for s in (splits, 1):
+            reps = [K.bscsr_topk_spmv(x1, words, table=tabs[s], **kwl)
+                    for _ in range(MQ_REPEATS)]
+            torch.cuda.synchronize()
+            bad = sum(not compare(r, one, True)[0] for r in reps)
+            check.expect(bad == 0, f"{name} S={s} {label}: {bad} of {MQ_REPEATS} repeated "
+                                   f"calls differ from the S=1 bits")
+        # In turns: S, 1, 1, S.
+        turns = [time_cuda(torch, lambda: K.bscsr_topk_spmv(x1, words, table=tabs[s], **kwl))
+                 for s in (splits, 1, 1, splits)]
+        by["ms" + suffix] = (turns[0] + turns[3]) / 2
+        by["ms" + suffix + "_one_split"] = (turns[1] + turns[2]) / 2
+        by["splits" + suffix] = splits
+        log(f"  {name} Q=1 {label}: S={splits} {turns[0]:.3f} / {turns[3]:.3f} ms, S=1 "
+            f"{turns[1]:.3f} / {turns[2]:.3f} ms ({words.shape[1]} packets per core), "
+            f"ring of {K.SINGLE_RING_DEPTH} steps, max abs err {errs[name]:.3g}, bound "
+            f"{bound(1)[0]:.3f} ms")
+    ms = by["ms"]
+    bound_ms, bound_by = bound(1)
+    return {
+        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+        "plain_ms": by.pop("plain_ms"), "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "q": 1, "ms_by_q": {1: ms}, "ring_depth": K.SINGLE_RING_DEPTH,
+        **by, "achieved_gb_per_s": snaps[0][1].numel() * 4 / (ms * 1e-3) / 1e9,
+        "queries_per_s": 1 / (ms * 1e-3),
+    }
 
 
 def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) -> dict:
@@ -1088,8 +1151,13 @@ def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
                 entry["ms_by_q"][q] = time_cuda(torch, lambda: K.bscsr_topk_spmv_multiquery(
                     x, words, k=cfg.k, table=table, **kwc), MIXED_BUDGET_S)
                 entry["splits_by_q"][q] = splits
+            ssplits = K.single_splits(dev, cg, packets_per_step=t, block_size=block, m=n_cols,
+                                      k=cfg.k, width=words.shape[2], fmt_name=cname)
+            stable = K.spmv_split_table(words, packets_per_step=t, block_size=block,
+                                        splits=ssplits, header=1)
             entry["single_ms"] = time_cuda(torch, lambda: K.bscsr_topk_spmv(
-                x0, words, k=cfg.k, **kwc), MIXED_BUDGET_S)
+                x0, words, k=cfg.k, table=stable, **kwc), MIXED_BUDGET_S)
+            entry["single_splits"] = ssplits
             asplits = K.spmv_splits(dev, cg, packets_per_step=t, block_size=block, m=n_cols)
             atable = K.spmv_split_table(words, packets_per_step=t, block_size=block,
                                         splits=asplits, header=1)
@@ -1099,7 +1167,7 @@ def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
             out["classes"][cname] = entry
             log(f"  {label} {cname}: cores {entry['cores']}, {entry['packets']} packets, "
                 f"{entry['stream_bytes'] / 1e9:.4f} GB, S {entry['splits_by_q']} (accumulate "
-                f"{asplits}); multi-query Q=1/8/64 "
+                f"{asplits}, single-query {ssplits}); multi-query Q=1/8/64 "
                 + " / ".join(f"{entry['ms_by_q'][q]:.3f}" for q in (1, 8, 64))
                 + f" ms, single-query {entry['single_ms']:.3f} ms, accumulate "
                 f"{entry['accumulate_ms']:.4f} ms")

@@ -36,18 +36,10 @@
 //            asc), which is lax.top_k's order.  The result is independent of
 //            the order of the list, so the append may race.
 //   stage 4' (accumulate) a completed row's sum is stored at its slot.
-// In the single-query kernel stages 1-3 are one template (walk) with a
-// stage-4 struct plugged in; the multi-query and accumulate kernels have
-// their own walks (mq_walk, accum_walk), with the same arithmetic.  The next
-// step's words are loaded into registers before the current step's scans,
-// hiding part of the load latency.
-//
-// The stage-3 carry crosses packet boundaries, so the single-query kernel
-// walks a core's packets in order with ONE block (the TPU's sequential grid
-// axis becomes a loop inside the block).  A step costs about 1.2 us of scan
-// latency and 11 barriers, not bytes, so with c = 32 cores on 132 SMs a
-// one-block walk reaches a few percent of the byte bound.  The other two
-// kernels split each core's stream among blocks.
+// Each kernel has its own walk (single_walk, mq_walk, accum_walk) with the
+// same arithmetic: the products' prefix sums go up one shuffle tree (a
+// warp's 32 lanes, then the warps' totals, then each warp's offset added),
+// so the three kernels give the same bits on the same stream.
 //
 // The accumulate kernel splits each core's stream among S blocks (grid
 // C x S, S from the occupancy calculator: one wave fills the card).  A split
@@ -67,13 +59,13 @@
 // i-1) at R(b).  Each slot is still written once, with no float atomics, and
 // the output equals the one-block walk (S = 1) bit for bit for every S.
 // Within a step, accum_walk scans (flag, product) pairs in one pass with the
-// same shuffle tree as the top-k walk (same f32 association, same bits) and
-// double-buffers the carry, so a step costs 4 barriers instead of 11, and
-// it gathers x a step ahead.  The likely next limit is the bytes in
-// flight (PERF.md): each thread holds one step of words in registers, so 3
-// blocks of 512 threads per SM (about 40 registers each) keep about 12 KB per SM
-// in flight, which at HBM latency sustains well under 3.35 TB/s; a deeper
-// ring of steps in shared memory (cp.async) is the next step.
+// same shuffle tree as the top-k walks (same f32 association, same bits) and
+// double-buffers the carry, so a step costs 4 barriers, and it gathers x a
+// step ahead.  The likely next limit is the bytes in flight (PERF.md): each
+// thread holds one step of words in registers, so 3 blocks of 512 threads
+// per SM (about 40 registers each) keep about 12 KB per SM in flight, which
+// at HBM latency sustains well under 3.35 TB/s; the single-query kernel's
+// ring of steps in shared memory (below) is the candidate fix.
 //
 // The multi-query kernel (topk_spmv_mq1_kernel or topk_spmv_mq_split_kernel,
 // then topk_mq_merge_kernel) replaced a one-block walk per (core, chunk of 8
@@ -101,6 +93,35 @@
 // list.  Every S gives the bits of S = 1.  Within a step, stage 2 is one
 // scan pass for all queries of the block (mq_walk), so a step costs 3
 // barriers at any chunk width.
+//
+// The single-query kernel (topk_spmv_single_kernel, then the multi-query
+// kernel's fold at one query) replaced a one-block walk per core that
+// reached 1.8% of its byte bound: 32 of 132 SMs worked, a step cost 11
+// barriers, and each thread loaded its step's words into registers one step
+// ahead, about 2 KB a block in flight where 3.35 TB/s at about 1 us of
+// memory latency needs about 25 KB per SM.  It walks the same split table
+// on a grid of (core, split), S from the occupancy calculator (one wave),
+// cuts every walk at e_c, and hands its scratchpad, head piece and carry to
+// the fold's (C, S, 1, k) and (C, S, 1) buffers, so every S gives the bits
+// of S = 1, and of the multi-query kernel at Q = 1.  Its steps arrive
+// through a ring of D slots in shared memory: one thread stages step i + D
+// with one bulk copy of the tensor memory accelerator (cp.async.bulk, an
+// mbarrier per slot) once every thread has decoded step i, so D - 1 steps
+// are in flight while the block scans (about 15 KB a block at BF16 and
+// D = 8, three blocks an SM), and each thread decodes its nnz from shared
+// memory.  A bulk copy needs a 16-byte address and size, which a step of a
+// tagged stream (one word past its header) or of a small packet need not
+// have, so each copy moves the 16-byte-aligned span around its step and the
+// walk reads the step at its offset in the slot.  A step costs 2 barriers:
+// every warp scans the warps' totals itself (the same tree, the same bits),
+// the flag counts come from ballots and warp reductions, and stage 4 admits
+// against a copy of the scratchpad minimum and inserts two steps later with
+// one thread, as mq_walk does.  The decode is a template on the core's
+// format, without branches.  With the bytes arriving ahead, what bounds it
+// is the work per nnz (PERF.md): at the byte bound an SM must retire about
+// 6 nnz a nanosecond, some 35 instructions a thread per nnz, where the
+// shuffle trees, the barriers, the shared-memory loads and stage 3 take
+// several times that.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -139,108 +160,7 @@ struct Splits {
   int n;                    // S
 };
 
-struct Smem {
-  float* x;         // q_chunk * m (only when x_in_smem)
-  int* flag;        // TB
-  float* ps;        // TB
-  float* start;     // TB + 1: prefix before each segment's first nnz
-  int* warp_i;      // 32
-  float* warp_f;    // 32
-  float* acc_v;     // q_chunk * k, sorted by (total order desc, slot asc)
-  int* acc_r;       // q_chunk * k
-  float* carry;     // q_chunk: open-row partial sum per query
-  float* cand_v;    // q_chunk * (TB + 1)
-  int* cand_r;      // q_chunk * (TB + 1)
-  int* cand_n;      // q_chunk
-  int* misc;        // [0] carry row, [1] s_last
-};
-
 __host__ __device__ inline size_t align8(size_t n) { return (n + 7) & ~size_t(7); }
-
-__host__ __device__ inline size_t smem_bytes(int tb, int q_chunk, int k, int m,
-                                             int x_in_smem) {
-  size_t n = 0;
-  if (x_in_smem) n += align8(sizeof(float) * size_t(q_chunk) * m);
-  n += align8(sizeof(int) * tb) + align8(sizeof(float) * tb);
-  n += align8(sizeof(float) * (tb + 1)) + 2 * align8(sizeof(int) * 32);
-  n += 2 * align8(sizeof(float) * size_t(q_chunk) * k) + align8(sizeof(float) * q_chunk);
-  n += 2 * align8(sizeof(float) * size_t(q_chunk) * (tb + 1));
-  n += align8(sizeof(int) * q_chunk) + align8(sizeof(int) * 4);
-  return n;
-}
-
-__device__ inline Smem carve(unsigned char* base, int tb, int q_chunk, int k, int m,
-                             int x_in_smem) {
-  Smem s;
-  unsigned char* p = base;
-  auto take = [&p](size_t bytes) { unsigned char* r = p; p += align8(bytes); return r; };
-  s.x = x_in_smem ? reinterpret_cast<float*>(take(sizeof(float) * size_t(q_chunk) * m))
-                  : nullptr;
-  s.flag = reinterpret_cast<int*>(take(sizeof(int) * tb));
-  s.ps = reinterpret_cast<float*>(take(sizeof(float) * tb));
-  s.start = reinterpret_cast<float*>(take(sizeof(float) * (tb + 1)));
-  s.warp_i = reinterpret_cast<int*>(take(sizeof(int) * 32));
-  s.warp_f = reinterpret_cast<float*>(take(sizeof(float) * 32));
-  s.acc_v = reinterpret_cast<float*>(take(sizeof(float) * size_t(q_chunk) * k));
-  s.acc_r = reinterpret_cast<int*>(take(sizeof(int) * size_t(q_chunk) * k));
-  s.carry = reinterpret_cast<float*>(take(sizeof(float) * q_chunk));
-  s.cand_v = reinterpret_cast<float*>(take(sizeof(float) * size_t(q_chunk) * (tb + 1)));
-  s.cand_r = reinterpret_cast<int*>(take(sizeof(int) * size_t(q_chunk) * (tb + 1)));
-  s.cand_n = reinterpret_cast<int*>(take(sizeof(int) * q_chunk));
-  s.misc = reinterpret_cast<int*>(take(sizeof(int) * 4));
-  return s;
-}
-
-// Inclusive block-wide scans (blockDim.x a multiple of 32, at most 1024).
-__device__ inline int block_scan(int v, int* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += y;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? warp_tot[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < nwarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_tot[warp - 1];
-  __syncthreads();
-  return v;
-}
-
-__device__ inline float block_scan(float v, float* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    float y = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v = __fadd_rn(v, y);
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < nwarps ? warp_tot[lane] : 0.0f;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      float y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w = __fadd_rn(w, y);
-    }
-    if (lane < nwarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v = __fadd_rn(v, warp_tot[warp - 1]);
-  __syncthreads();
-  return v;
-}
 
 // Float total order as a signed int (-0.0 below +0.0), as lax.top_k ranks.
 __device__ inline int total_key(float v) {
@@ -255,19 +175,6 @@ __device__ inline bool ranks_before(int ka, int ra, int kb, int rb) {
 struct Raw {
   int flag_word, col_word, val_word;
 };
-
-__device__ inline Raw load_raw(const Params& p, int core, long long step, int tid) {
-  const long long pkt = step * p.per_step + tid / p.block;
-  const int j = tid % p.block;
-  const int32_t* row = p.words + (static_cast<long long>(core) * p.n_packets + pkt) * p.width;
-  const int wf = p.block >> 5;
-  Raw r;
-  r.flag_word = __ldg(row + (j >> 5));
-  r.col_word = __ldg(row + wf + (p.col_words == p.block ? j : (j >> 1)));
-  const int vj = p.fmt == 0 ? j : (p.fmt == 3 ? (j >> 2) : (j >> 1));  // kTag2: 2 bytes
-  r.val_word = __ldg(row + wf + p.col_words + vj);
-  return r;
-}
 
 // The format a core's value words decode as: p.fmt, except in the tagged
 // 2-byte class (kTag2), where BF16 and Q15 share 2-byte words and the core's
@@ -305,142 +212,6 @@ __device__ inline void decode(const Params& p, int fmt, const Raw& r, int j, int
                               0.0078125f); break;       // 2**-7
   }
 }
-
-// Stage 4 of the top-k kernels: a k-entry scratchpad per query.
-struct TopkStage {
-  __device__ void init(const Params& p, Smem& s, int tid, int tb, int nq) const {
-    for (int i = tid; i < nq * p.k; i += tb) {
-      s.acc_v[i] = kNegInf;
-      s.acc_r[i] = p.n_rows;
-    }
-  }
-  // A row that completed in this step: appended to the query's candidate
-  // list when strictly above the scratchpad minimum at the start of the step
-  // (the scratchpad changes only in end_step).
-  __device__ void row_done(const Params& p, Smem& s, int core, int q, int r,
-                           float c, int tb) const {
-    if (c > s.acc_v[q * p.k + p.k - 1]) {
-      const int at = atomicAdd(s.cand_n + q, 1);
-      s.cand_v[q * (tb + 1) + at] = c;
-      s.cand_r[q * (tb + 1) + at] = r;
-    }
-  }
-  // Each query's candidate list into its sorted scratchpad.
-  __device__ void end_step(const Params& p, Smem& s, int tid, int tb, int nq) const {
-    if (tid >= nq) return;
-    const int k = p.k;
-    float* av = s.acc_v + tid * k;
-    int* ar = s.acc_r + tid * k;
-    const float* cv = s.cand_v + tid * (tb + 1);
-    const int* cr = s.cand_r + tid * (tb + 1);
-    const int n = s.cand_n[tid];
-    for (int i = 0; i < n; ++i) {
-      const float c = cv[i];
-      const int r = cr[i];
-      const int kc = total_key(c);
-      if (!ranks_before(kc, r, total_key(av[k - 1]), ar[k - 1])) continue;
-      int pos = k - 1;
-      while (pos > 0 && ranks_before(kc, r, total_key(av[pos - 1]), ar[pos - 1])) {
-        av[pos] = av[pos - 1];
-        ar[pos] = ar[pos - 1];
-        --pos;
-      }
-      av[pos] = c;
-      ar[pos] = r;
-    }
-    s.cand_n[tid] = 0;
-  }
-  __device__ void finish(const Params& p, Smem& s, int core, int q0, int tid, int tb,
-                         int nq) const {
-    for (int i = tid; i < nq * p.k; i += tb) {
-      const int q = i / p.k;
-      const long long o = (static_cast<long long>(core) * p.nq + q0 + q) * p.k + i % p.k;
-      p.out_v[o] = s.acc_v[i];
-      p.out_r[o] = s.acc_r[i];
-    }
-  }
-};
-
-// Stages 1-3, shared by every kernel: one block walks core `core`'s packets
-// in order for queries q0 .. q0+nq-1 and hands each completed row to the
-// stage.
-template <typename Stage>
-__device__ void walk(const Params& p, int core, int q0, int nq, const Stage& stage) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tb = blockDim.x;
-  const int tid = threadIdx.x;
-  Smem s = carve(smem_raw, tb, p.q_chunk, p.k, p.m, p.x_in_smem);
-
-  if (p.x_in_smem) {
-    const float* xs = p.x + static_cast<long long>(q0) * p.m;
-    for (int i = tid; i < nq * p.m; i += tb) s.x[i] = xs[i];
-  }
-  stage.init(p, s, tid, tb, nq);
-  if (tid < nq) {
-    s.carry[tid] = 0.0f;
-    s.cand_n[tid] = 0;
-  }
-  if (tid == 0) s.misc[0] = -1;
-  __syncthreads();
-
-  const long long n_steps = p.n_packets / p.per_step;
-  const int j = tid % p.block;
-  const int fmt = core_fmt(p, core);
-  Raw next = load_raw(p, core, 0, tid);
-  for (long long step = 0; step < n_steps; ++step) {
-    const Raw cur = next;
-    if (step + 1 < n_steps) next = load_raw(p, core, step + 1, tid);
-    int f, col;
-    float v;
-    decode(p, fmt, cur, j, &f, &col, &v);
-    const bool oob = col < 0 || col >= p.m;
-    s.flag[tid] = f;
-    const int seg = block_scan(f, s.warp_i);   // barriers publish s.flag
-    if (tid == tb - 1) s.misc[1] = seg;
-    __syncthreads();
-    const int s_last = s.misc[1];
-    const int row0 = s.misc[0];
-    const bool is_last = tid == tb - 1 || s.flag[tid + 1] != 0;
-
-    for (int q = 0; q < nq; ++q) {
-      float xv = 0.0f;
-      if (!oob) {
-        xv = p.x_in_smem ? s.x[q * p.m + col]
-                         : __ldg(p.x + static_cast<long long>(q0 + q) * p.m + col);
-      }
-      const float ps = block_scan(__fmul_rn(v, xv), s.warp_f);
-      s.ps[tid] = ps;
-      __syncthreads();
-      if (f) s.start[seg] = tid > 0 ? s.ps[tid - 1] : 0.0f;
-      __syncthreads();
-      const float part = s.carry[q];
-      if (tid == 0 && f && row0 >= 0) {
-        // Segment 0 is empty: the carried row completes with its partial sum.
-        stage.row_done(p, s, core, q, row0, __fadd_rn(0.0f, part), tb);
-      }
-      float carry_out = 0.0f;  // set by the last thread: its segment is s_last
-      if (is_last) {
-        const float base = seg == 0 ? 0.0f : s.start[seg];
-        const float c = __fadd_rn(__fsub_rn(ps, base), seg == 0 ? part : 0.0f);
-        if (seg < s_last) {
-          const int r = row0 + seg;
-          if (r >= 0) stage.row_done(p, s, core, q, r, c, tb);
-        } else {
-          carry_out = c;
-        }
-      }
-      __syncthreads();  // every read of this query's carry and prefixes is done
-      if (tid == tb - 1) s.carry[q] = carry_out;
-    }
-
-    stage.end_step(p, s, tid, tb, nq);
-    if (tid == 0) s.misc[0] = row0 + s_last;
-    __syncthreads();
-  }
-  stage.finish(p, s, core, q0, tid, tb, nq);
-}
-
-__global__ void topk_spmv_kernel(Params p) { walk(p, blockIdx.x, 0, 1, TopkStage{}); }
 
 // A thread's place in the accumulate walk, fixed for the whole walk: its
 // packet row at the first step, the words per step, and the offsets of its
@@ -515,9 +286,9 @@ __device__ inline AccumSmem accum_carve(unsigned char* base, int tb, int m, int 
 //
 // The flag scan and the product scan are one pair scan: the top-k kernels'
 // shuffle tree for both (so the same f32 association and the same bits),
-// with 3 barriers instead of 6 plus 2; the prefixes are published by the
-// scan's last barrier; the carry and carry row are double-buffered, so a
-// step costs 4 barriers where the top-k walk costs 11.  The words are
+// with 3 barriers; the prefixes are published by the scan's last barrier;
+// the carry and carry row are double-buffered, so a step costs 4 barriers.
+// The words are
 // loaded two steps ahead and x gathered one step ahead (the gather depends
 // on the decoded column id), so neither load waits on the step's scans.
 __device__ void accum_walk(const Params& p, const Splits& sp, int core, int split,
@@ -752,11 +523,12 @@ __device__ inline void insert_sorted(float* av, int* ar, int k, float c, int r) 
 // completes in that step, but only the fold knows its carry: its head piece
 // goes to `heads`, and every split's final carry to `carries`.
 //
-// Stage 2 is one scan pass: every query's product goes up block_scan's warp
-// shuffle tree in the same loop, the warp totals are scanned by one warp per
-// column (the flag counts, then each query), and each thread adds its warp's
-// offset: block_scan's association for every query, so the bits of the
-// one-block walk.  The flags are counted from a warp ballot.  A segment's
+// Stage 2 is one scan pass: every query's product goes up the warp shuffle
+// tree in the same loop (each lane adds the lane d below it, d = 1, 2, 4,
+// 8, 16), the warp totals are scanned by one warp per column (the flag
+// counts, then each query) with the same tree, and each thread adds its
+// warp's offset: the association of the single-query and accumulate
+// walks, so the same bits.  The flags are counted from a warp ballot.  A segment's
 // start prefix is read at the nnz before its first, found in the ballots, so
 // no array of starts is published.  A step's candidates are inserted two
 // steps later (lists double-buffered by step parity), by one thread per
@@ -767,8 +539,7 @@ __device__ inline void insert_sorted(float* av, int* ar, int k, float c, int r) 
 // scratchpad ends the same.  Admission reads a copy of the minimum that the
 // inserting thread stores once its insertions are done (`thr`), never the
 // list that thread is writing.  One set of three barriers a step (warp
-// totals, scanned totals, prefixes) serves every query of the chunk, where
-// the one-block walk spends 4 + 6 per query + 1.
+// totals, scanned totals, prefixes) serves every query of the chunk.
 template <int QC>
 __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split, int q0,
                         int nq, long long first, int n_steps, int row_start, bool head) {
@@ -859,7 +630,7 @@ __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split
     }
     // ---- stage 2: one scan of the flag bits and every query's products ----
     // The flag scan is an integer count, so a ballot and a popcount give it
-    // without a shuffle tree; the products keep block_scan's tree.
+    // without a shuffle tree; the products keep the shuffle tree.
     const unsigned bits = __ballot_sync(0xffffffffu, f);
     unsigned* fw = s.fw + buf * 32;
     int seg = __popc(bits & (0xffffffffu >> (31 - lane)));
@@ -1083,8 +854,362 @@ __global__ void topk_mq_merge_kernel(Params p, MqSplits sp) {
   }
 }
 
-// The kernels that launch() serves; the multi-query kernel has its own.
-enum class Kind { kTopk, kAccumulate };
+// The single-query kernel's ring of steps: a third kernel argument, so the
+// shared Params keeps its width (a wider Params cost the top-k kernels 11%
+// at Q = 1 on an H100, PERF.md).
+struct Ring {
+  int depth;       // D slots (at least 2)
+  int step_words;  // words a step's walk reads, from its first (T*W, less
+                   // the next row's header word in a tagged stream)
+  int slot_words;  // a slot: the 16-byte-aligned span around a step
+};
+
+// The single-query walk's shared memory: the ring (first, so each slot is
+// 16-byte aligned) and its mbarriers, x (when it fits), the prefixes, the
+// warps' flag bits (by step parity) and product totals, the scratchpad, the
+// carry (by step parity) and admission threshold, and the candidate lists
+// (by step parity).
+struct SingleSmem {
+  int32_t* ring;             // depth * slot_words
+  unsigned long long* full;  // depth: slot d holds its step once complete
+  float* x;                  // m (only when x_in_smem)
+  float* ps;                 // TB
+  unsigned* fw;              // 2 * 32
+  float* warp_f;             // 32
+  float* acc_v;              // k, sorted by (total order desc, slot asc)
+  int* acc_r;                // k
+  float* carry;              // 2, then the threshold (single_walk's `thr`)
+  float* cand_v;             // 2 * (TB + 1)
+  int* cand_r;               // 2 * (TB + 1)
+  int* cand_n;               // 2
+};
+
+__host__ __device__ inline size_t single_smem_bytes(int tb, int k, int m, int x_in_smem,
+                                                    const Ring& ring) {
+  size_t n = sizeof(int32_t) * size_t(ring.depth) * ring.slot_words;
+  n += align8(sizeof(unsigned long long) * ring.depth);
+  n += x_in_smem ? align8(sizeof(float) * size_t(m)) : 0;
+  n += align8(sizeof(float) * tb) + align8(sizeof(unsigned) * 64) + align8(sizeof(float) * 32);
+  n += 2 * align8(sizeof(float) * k) + align8(sizeof(float) * 3);
+  n += 2 * align8(sizeof(float) * 2 * (tb + 1));
+  return n + align8(sizeof(int) * 2);
+}
+
+__device__ inline SingleSmem single_carve(unsigned char* base, int tb, int k, int m,
+                                          int x_in_smem, const Ring& ring) {
+  SingleSmem s;
+  unsigned char* p = base;
+  auto take = [&p](size_t bytes) { unsigned char* r = p; p += align8(bytes); return r; };
+  s.ring = reinterpret_cast<int32_t*>(take(sizeof(int32_t) * size_t(ring.depth) * ring.slot_words));
+  s.full = reinterpret_cast<unsigned long long*>(take(sizeof(unsigned long long) * ring.depth));
+  s.x = x_in_smem ? reinterpret_cast<float*>(take(sizeof(float) * size_t(m))) : nullptr;
+  s.ps = reinterpret_cast<float*>(take(sizeof(float) * tb));
+  s.fw = reinterpret_cast<unsigned*>(take(sizeof(unsigned) * 64));
+  s.warp_f = reinterpret_cast<float*>(take(sizeof(float) * 32));
+  s.acc_v = reinterpret_cast<float*>(take(sizeof(float) * k));
+  s.acc_r = reinterpret_cast<int*>(take(sizeof(int) * k));
+  s.carry = reinterpret_cast<float*>(take(sizeof(float) * 3));
+  s.cand_v = reinterpret_cast<float*>(take(sizeof(float) * 2 * (tb + 1)));
+  s.cand_r = reinterpret_cast<int*>(take(sizeof(int) * 2 * (tb + 1)));
+  s.cand_n = reinterpret_cast<int*>(take(sizeof(int) * 2));
+  return s;
+}
+
+__device__ inline uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Step `step` of `core` into a ring slot: one bulk copy of the 16-byte-
+// aligned span around the step, whose arrival completes the slot's
+// mbarrier.  The span reads at most 12 bytes on either side of the step,
+// inside 16-byte blocks that hold stream words, so never an unmapped page.
+__device__ inline void stage_step(const Params& p, const Ring& ring, int32_t* slot,
+                                  unsigned long long* full, int core, long long step) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(
+      p.words + (static_cast<long long>(core) * p.n_packets + step * p.per_step) * p.width);
+  const uintptr_t lo = at & ~uintptr_t(15);
+  const uint32_t bytes =
+      static_cast<uint32_t>(((at + 4u * ring.step_words + 15u) & ~uintptr_t(15)) - lo);
+  const uint32_t bar = shared_addr(full);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(shared_addr(slot)), "l"(static_cast<unsigned long long>(lo)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Until the slot's fill of parity `parity` has arrived.
+__device__ inline void wait_full(unsigned long long* full, uint32_t parity) {
+  const uint32_t bar = shared_addr(full);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred ready;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, ready;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Stages 1-4 of the single-query kernel: block (core, split) walks n_steps
+// steps of its core from `first`, from carry row `row_start`, carry 0.0
+// and an empty scratchpad, and stores the scratchpad in its slice of
+// pad_v / pad_r; in head mode (a split after the first) the head piece of
+// the row open at `first` goes to `heads` and every split's final carry to
+// `carries`, as in mq_walk, and the fold joins them.
+//
+// The steps come through the ring: thread 0 stages step i + D into the slot
+// of step i after the step's first barrier (every thread decoded step i a
+// step earlier), and each thread waits on the slot's mbarrier before it
+// decodes the next step from it.  Stage 2 keeps mq_walk's association: the
+// products go up the warp shuffle tree, every warp scans the 16 or so warp
+// totals with the same tree (no barrier for one warp to publish them), and
+// each thread adds its warp's offset.  The flag counts are exact integers,
+// so a ballot, a popcount and two warp reductions give a thread's segment
+// and the step's last one.  Stage 4 is mq_walk's at one query: admission
+// against `thr`, a copy of the scratchpad minimum that may lag, and
+// insertion by thread 0 two steps later.  Two barriers a step: warp totals
+// published, prefixes published.  The carry row is a register of every
+// thread (each knows the step's segment count).
+template <int FMT>
+__device__ void single_walk(const Params& p, const MqSplits& sp, const Ring& ring, int core,
+                            int split, long long first, int n_steps, int row_start,
+                            bool head) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tb = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = tb >> 5;
+  const int k = p.k;
+  const int cap = tb + 1;  // candidates one step can bring
+  SingleSmem s = single_carve(smem_raw, tb, k, p.m, p.x_in_smem, ring);
+  volatile float* thr = s.carry + 2;
+  if (tid == 0) {
+    for (int d = 0; d < ring.depth; ++d) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(shared_addr(s.full + d)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.x_in_smem) {
+    for (int i = tid; i < p.m; i += tb) s.x[i] = p.x[i];
+  }
+  for (int i = tid; i < k; i += tb) {
+    s.acc_v[i] = kNegInf;
+    s.acc_r[i] = p.n_rows;
+  }
+  if (tid < 2) s.cand_n[tid] = 0;
+  if (tid == 0) {
+    *thr = kNegInf;
+    s.carry[0] = 0.0f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int d = 0; d < ring.depth && d < n_steps; ++d) {
+      stage_step(p, ring, s.ring + d * ring.slot_words, s.full + d, core, first + d);
+    }
+  }
+
+  // The thread's words in a step: packet tid / B of it, nnz j of the packet,
+  // and the shifts that decode its column id and value (decode's, without
+  // its branches): an int16 id or a 2-byte value is the half j & 1 of its
+  // word, a Q7 value the byte j & 3.
+  const int j = tid % p.block, wf = p.block >> 5;
+  const int row = (tid / p.block) * p.width;
+  const bool wide = p.col_words == p.block;
+  const int off_f = row + (j >> 5);
+  const int off_c = row + wf + (wide ? j : (j >> 1));
+  const int off_v = row + wf + p.col_words + (FMT == 0 ? j : (FMT == 3 ? (j >> 2) : (j >> 1)));
+  const int flag_bit = j & 31;
+  const int col_shl = wide ? 0 : 16 - (j & 1) * 16, col_shr = wide ? 0 : 16;
+  const int val_shl = FMT == 3 ? 24 - (j & 3) * 8 : 16 - (j & 1) * 16;
+  auto decode_raw = [&](const Raw& r, int* flag, int* c, float* val) {
+    *flag = (r.flag_word >> flag_bit) & 1;
+    *c = static_cast<int>(static_cast<unsigned>(r.col_word) << col_shl) >> col_shr;
+    const unsigned w = static_cast<unsigned>(r.val_word);
+    if (FMT == 0) {
+      *val = __uint_as_float(w);
+    } else if (FMT == 1) {
+      *val = __uint_as_float((w << val_shl) & 0xffff0000u);
+    } else if (FMT == 2) {
+      *val = __fmul_rn(static_cast<float>(static_cast<int>(w << val_shl) >> 16),
+                       3.0517578125e-05f);  // 2**-15
+    } else {
+      *val = __fmul_rn(static_cast<float>(static_cast<int>(w << val_shl) >> 24),
+                       0.0078125f);         // 2**-7
+    }
+  };
+  const int step_words = p.per_step * p.width;
+  // The step's first word lies `shift` words into its slot's 16-byte span.
+  int shift = static_cast<int>(
+      ((reinterpret_cast<uintptr_t>(p.words) >> 2) +
+       static_cast<uintptr_t>((static_cast<long long>(core) * p.n_packets + first * p.per_step) *
+                              p.width)) & 3u);
+  int slot = 0;
+  uint32_t parity = 0;
+  auto next_raw = [&]() {
+    wait_full(s.full + slot, parity);
+    const int32_t* w = s.ring + slot * ring.slot_words + shift;
+    const Raw r{w[off_f], w[off_c], w[off_v]};
+    shift = (shift + step_words) & 3;
+    if (++slot == ring.depth) {
+      slot = 0;
+      parity ^= 1u;
+    }
+    return r;
+  };
+  auto gather = [&](int c) {
+    return static_cast<unsigned>(c) < static_cast<unsigned>(p.m)
+               ? (p.x_in_smem ? s.x[c] : __ldg(p.x + c)) : 0.0f;
+  };
+  // The candidates of the step of parity `b` into the sorted scratchpad
+  // (mq_walk's insert at one query); then the threshold copy.
+  auto insert = [&](int b) {
+    const int n = s.cand_n[b];
+    for (int i = 0; i < n; ++i) {
+      insert_sorted(s.acc_v, s.acc_r, k, s.cand_v[b * cap + i], s.cand_r[b * cap + i]);
+    }
+    s.cand_n[b] = 0;
+    *thr = s.acc_v[k - 1];
+  };
+  float* heads = sp.heads + core * sp.n + split;
+  int f, col;
+  float v;
+  decode_raw(next_raw(), &f, &col, &v);
+  float xv = gather(col);
+  int row0 = row_start;
+  int spare = 0;  // thread 0: the slot of step i, the next to refill
+  for (int i = 0; i < n_steps; ++i) {
+    const int buf = i & 1;
+    // The candidates of step i - 2, whose appends ended before step i - 1's
+    // first barrier, while the other warps decode.
+    if (tid == 0) insert(buf);
+    float ps = __fmul_rn(v, xv);
+    // The next step's nnz is decoded and its x gathered now.
+    int f_next = 0;
+    if (i + 1 < n_steps) {
+      decode_raw(next_raw(), &f_next, &col, &v);
+      xv = gather(col);
+    }
+    // ---- stage 2 ----
+    const unsigned bits = __ballot_sync(0xffffffffu, f);
+    unsigned* fw = s.fw + buf * 32;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, ps, d);
+      if (lane >= d) ps = __fadd_rn(ps, y);
+    }
+    if (lane == 31) {
+      fw[warp] = bits;
+      s.warp_f[warp] = ps;
+    }
+    __syncthreads();  // publishes the warps' flag bits and totals
+    if (tid == 0) {
+      if (i + ring.depth < n_steps) {
+        stage_step(p, ring, s.ring + spare * ring.slot_words, s.full + spare, core,
+                   first + i + ring.depth);
+      }
+      if (++spare == ring.depth) spare = 0;
+    }
+    float tot = lane < nwarps ? s.warp_f[lane] : 0.0f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, tot, d);
+      if (lane >= d) tot = __fadd_rn(tot, y);
+    }
+    const unsigned count = lane < nwarps ? __popc(fw[lane]) : 0u;
+    const int seg = __popc(bits & (0xffffffffu >> (31 - lane))) +
+                    static_cast<int>(__reduce_add_sync(0xffffffffu, lane < warp ? count : 0u));
+    const int s_last = static_cast<int>(__reduce_add_sync(0xffffffffu, count));
+    const float offset = __shfl_sync(0xffffffffu, tot, (warp + 31) & 31);  // warp - 1's
+    if (warp > 0) ps = __fadd_rn(ps, offset);
+    // The nnz after this one opens a segment (the last nnz of the step
+    // always closes one).
+    const bool is_last =
+        lane < 31 ? ((bits >> (lane + 1)) & 1u) != 0 : (warp + 1 == nwarps || (fw[warp + 1] & 1u));
+    s.ps[tid] = ps;
+    __syncthreads();  // publishes the prefixes
+    // ---- stages 3 and 4 ----
+    const bool at_head = head && i == 0;
+    auto row_done = [&](int r, float c) {
+      // A candidate: strictly above the scratchpad minimum, which may not
+      // hold the previous step's candidates yet (a lower threshold).
+      if (c > *thr) {
+        const int at = atomicAdd(s.cand_n + buf, 1);
+        s.cand_v[buf * cap + at] = c;
+        s.cand_r[buf * cap + at] = r;
+      }
+    };
+    if (tid == 0 && f) {
+      // Segment 0 is empty: the carried row completes with its partial sum.
+      if (at_head) {
+        *heads = 0.0f;
+      } else if (row0 >= 0) {
+        row_done(row0, __fadd_rn(0.0f, s.carry[buf]));
+      }
+    }
+    if (is_last) {
+      // The segment's first nnz: the last flag bit at or before this one
+      // (none for segment 0, whose prefix starts at 0.0).
+      int start = 0;
+      if (seg > 0) {
+        unsigned m = bits & (0xffffffffu >> (31 - lane));
+        int w = warp;
+        while (m == 0) m = fw[--w];
+        start = w * 32 + 31 - __clz(static_cast<int>(m));
+      }
+      const float base = start > 0 ? s.ps[start - 1] : 0.0f;
+      const float piece = __fsub_rn(ps, base);
+      const float c = __fadd_rn(piece, seg == 0 ? s.carry[buf] : 0.0f);
+      const int r = row0 + seg;
+      if (seg == s_last) {
+        s.carry[buf ^ 1] = c;  // thread tb - 1: the open row goes on
+      } else if (at_head && seg == 0) {
+        *heads = piece;
+      } else if (r >= 0) {
+        row_done(r, c);
+      }
+    }
+    row0 += s_last;
+    f = f_next;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    insert(0);  // the last two steps' candidates
+    insert(1);
+  }
+  __syncthreads();
+  const long long out = (static_cast<long long>(core) * sp.n + split) * k;
+  for (int i = tid; i < k; i += tb) {
+    sp.pad_v[out + i] = s.acc_v[i];
+    sp.pad_r[out + i] = s.acc_r[i];
+  }
+  if (tid == tb - 1) sp.carries[core * sp.n + split] = s.carry[n_steps & 1];
+}
+
+// Block (core, split) walks one split, decoding its core's format (a
+// template argument, so the decode has no branch); an empty split
+// (trailing) holds no row, so its scratchpad stays empty.  Registers: held
+// to 40, so 3 blocks of 512 threads share an SM, as in topk_spmv_mq1_kernel.
+__global__ void __maxnreg__(40) topk_spmv_single_kernel(Params p, MqSplits sp, Ring ring) {
+  const int core = blockIdx.x, split = blockIdx.y;
+  const int32_t* b = sp.bounds + core * (sp.n + 1) + split;
+  if (b[0] >= b[1]) {
+    const long long out = (static_cast<long long>(core) * sp.n + split) * p.k;
+    for (int i = threadIdx.x; i < p.k; i += blockDim.x) {
+      sp.pad_v[out + i] = kNegInf;
+      sp.pad_r[out + i] = p.n_rows;
+    }
+    return;
+  }
+  const int first = b[0], n_steps = b[1] - b[0], row = sp.head_row[core * sp.n + split];
+  switch (core_fmt(p, core)) {
+    case 0: single_walk<0>(p, sp, ring, core, split, first, n_steps, row, split > 0); break;
+    case 1: single_walk<1>(p, sp, ring, core, split, first, n_steps, row, split > 0); break;
+    case 2: single_walk<2>(p, sp, ring, core, split, first, n_steps, row, split > 0); break;
+    default: single_walk<3>(p, sp, ring, core, split, first, n_steps, row, split > 0); break;
+  }
+}
 
 // Dynamic shared memory of a launch whose layout takes bytes_of(x_in_smem)
 // bytes; x stays in global memory when keeping it in shared memory would
@@ -1102,18 +1227,33 @@ size_t plan_smem(BytesOf bytes_of, int* x_in_smem) {
   return bytes;
 }
 
-size_t plan_smem(Kind kind, int tb, int q_chunk, int k, int m, int* x_in_smem) {
-  return plan_smem(
-      [&](int in_smem) {
-        return kind == Kind::kAccumulate ? accum_smem_bytes(tb, m, in_smem)
-                                         : smem_bytes(tb, q_chunk, k, m, in_smem);
-      },
-      x_in_smem);
+// A kernel's shared memory, planned, and its attribute set: the bytes, or 0
+// when they do not fit.
+template <class Kernel, class BytesOf>
+size_t prepare(Kernel kernel, BytesOf bytes_of, int* x_in_smem) {
+  const size_t bytes = plan_smem(bytes_of, x_in_smem);
+  if (bytes == 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  return err == cudaSuccess ? bytes : 0;
 }
 
-const void* kernel_of(Kind kind) {
-  return kind == Kind::kTopk ? reinterpret_cast<const void*>(topk_spmv_kernel)
-                             : reinterpret_cast<const void*>(spmv_accum_kernel);
+size_t accum_prepare(int tb, int m, int* x_in_smem) {
+  return prepare(spmv_accum_kernel, [&](int in) { return accum_smem_bytes(tb, m, in); },
+                 x_in_smem);
+}
+
+size_t single_prepare(int tb, int k, int m, const Ring& ring, int* x_in_smem) {
+  return prepare(topk_spmv_single_kernel,
+                 [&](int in) { return single_smem_bytes(tb, k, m, in, ring); }, x_in_smem);
+}
+
+// The multi-query kernel's shared memory and its attribute, for QC queries
+// a block.
+template <int QC>
+size_t mq_prepare(int tb, int k, int m, int* x_in_smem) {
+  return prepare(mq_kernel<QC>(), [&](int in) { return mq_smem_bytes(tb, QC, k, m, in); },
+                 x_in_smem);
 }
 
 bool bad_geometry(const Params& p) {
@@ -1122,35 +1262,12 @@ bool bad_geometry(const Params& p) {
          p.n_packets % p.per_step != 0 || p.n_packets < p.per_step;
 }
 
-int launch(Kind kind, Params p, const Splits& sp, cudaStream_t stream) {
-  const int tb = p.block * p.per_step;
-  if (bad_geometry(p) || (kind == Kind::kAccumulate && sp.n < 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t bytes = plan_smem(kind, tb, p.q_chunk, p.k, p.m, &p.x_in_smem);
-  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel_of(kind), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (kind == Kind::kTopk) {
-    topk_spmv_kernel<<<p.n_cores, tb, bytes, stream>>>(p);
-  } else {
-    spmv_accum_kernel<<<dim3(p.n_cores, sp.n), tb, bytes, stream>>>(p, sp);
-    if (sp.n > 1) spmv_fixup_kernel<<<p.n_cores, 32, 0, stream>>>(p, sp);
-  }
-  return static_cast<int>(cudaGetLastError());
+Ring make_ring(int depth, int step_words) {
+  return Ring{depth, step_words, (4 * step_words + 12 + 15) / 16 * 4};
 }
 
-// The multi-query kernel's shared memory and its attribute, for QC queries
-// a block: the bytes, or 0 when they do not fit.
-template <int QC>
-size_t mq_prepare(int tb, int k, int m, int* x_in_smem) {
-  const size_t bytes =
-      plan_smem([&](int in_smem) { return mq_smem_bytes(tb, QC, k, m, in_smem); }, x_in_smem);
-  if (bytes == 0) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      mq_kernel<QC>(), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  return err == cudaSuccess ? bytes : 0;
+bool bad_ring(const Params& p, const Ring& ring) {
+  return ring.depth < 2 || ring.step_words < 1 || ring.step_words > p.per_step * p.width;
 }
 
 template <int QC>
@@ -1183,15 +1300,35 @@ Params topk_params(const float* x, const int32_t* words, float* out_v, int32_t* 
 
 }  // namespace
 
-extern "C" int bscsr_topk_spmv_launch(const float* x, const int32_t* words, float* out_v,
-                                      int32_t* out_r, int n_cores, long long n_packets,
-                                      int width, int m, int nq, int q_chunk, int block,
-                                      int per_step, int col_words, int fmt, int k,
-                                      int n_rows, void* stream) {
-  return launch(Kind::kTopk,
-                topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, 1, 1,
-                            block, per_step, col_words, fmt, k, n_rows),
-                Splits{}, static_cast<cudaStream_t>(stream));
+// Single-query mode: out (C, k); bounds (C, S+1) and head_row (C, S) int32
+// from the split table; pad_v / pad_r (C, S, 1, k) scratch (for S = 1 the
+// output itself); heads and carries (C, S, 1) f32 scratch; a ring of
+// `depth` steps of `step_words` words.  Launches the split walk and, for
+// S > 1, the fold at one query.
+extern "C" int bscsr_topk_spmv_launch(
+    const float* x, const int32_t* words, float* out_v, int32_t* out_r,
+    const int32_t* bounds, const int32_t* head_row, float* pad_v, int32_t* pad_r,
+    float* heads, float* carries, int n_cores, int splits, long long n_packets, int width,
+    int m, int block, int per_step, int col_words, int fmt, int k, int n_rows, int depth,
+    int step_words, void* stream) {
+  Params p = topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, 1, 1, block,
+                         per_step, col_words, fmt, k, n_rows);
+  const MqSplits sp{bounds, head_row, pad_v, pad_r, heads, carries, splits};
+  const Ring ring = make_ring(depth, step_words);
+  if (bad_geometry(p) || bad_ring(p, ring) || splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tb = block * per_step;
+  const size_t bytes = single_prepare(tb, k, m, ring, &p.x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  topk_spmv_single_kernel<<<dim3(n_cores, splits), tb, bytes, s>>>(p, sp, ring);
+  if (splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topk_mq_merge_kernel<<<n_cores, 32, 16 * size_t(k), s>>>(p, sp);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Multi-query mode: out (C, Q, k); bounds (C, S+1) and head_row (C, S) int32
@@ -1228,11 +1365,17 @@ extern "C" int bscsr_spmv_launch(const float* x, const int32_t* words, float* ou
                                  long long n_packets, int width, int m, int block,
                                  int per_step, int col_words, int fmt, int n_rows,
                                  void* stream) {
-  return launch(Kind::kAccumulate,
-                topk_params(x, words, out, nullptr, n_cores, n_packets, width, m, 1, 1,
-                            block, per_step, col_words, fmt, 1, n_rows),
-                Splits{bounds, head_row, heads, carries, splits},
-                static_cast<cudaStream_t>(stream));
+  Params p = topk_params(x, words, out, nullptr, n_cores, n_packets, width, m, 1, 1, block,
+                         per_step, col_words, fmt, 1, n_rows);
+  const Splits sp{bounds, head_row, heads, carries, splits};
+  if (bad_geometry(p) || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tb = block * per_step;
+  const size_t bytes = accum_prepare(tb, m, &p.x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  spmv_accum_kernel<<<dim3(n_cores, splits), tb, bytes, s>>>(p, sp);
+  if (splits > 1) spmv_fixup_kernel<<<n_cores, 32, 0, s>>>(p, sp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Accumulate blocks of T*B threads that one SM holds at once, for an x of
@@ -1240,14 +1383,28 @@ extern "C" int bscsr_spmv_launch(const float* x, const int32_t* words, float* ou
 extern "C" int bscsr_spmv_resident_blocks(int block, int per_step, int m, int* blocks) {
   const int tb = block * per_step;
   int x_in_smem = 0;
-  const size_t bytes = plan_smem(Kind::kAccumulate, tb, 1, 1, m, &x_in_smem);
-  if (tb % 32 != 0 || tb > 1024 || bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(spmv_accum_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tb % 32 != 0 || tb > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = accum_prepare(tb, m, &x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, spmv_accum_kernel, tb, bytes));
+}
+
+// Single-query blocks of T*B threads that one SM holds at once, for an x of
+// width m, k entries a scratchpad and a ring of `depth` steps of
+// `step_words` words.
+extern "C" int bscsr_topk_spmv_resident_blocks(int block, int per_step, int m, int k,
+                                               int depth, int step_words, int* blocks) {
+  const int tb = block * per_step;
+  const Ring ring = make_ring(depth, step_words);
+  int x_in_smem = 0;
+  if (tb % 32 != 0 || tb > 1024 || k < 1 || depth < 2 || step_words < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = single_prepare(tb, k, m, ring, &x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, topk_spmv_single_kernel, tb, bytes));
 }
 
 // Multi-query blocks of T*B threads, q_chunk queries each, that one SM holds

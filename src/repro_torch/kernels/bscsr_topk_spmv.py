@@ -10,14 +10,15 @@ Three kernels, each the port of one Pallas TPU kernel of
 All three take the fused word stream ``(C, P, W)`` int32 (``flags | cols |
 vals`` per packet, see ``core/bscsr.py``).  Split-layout snapshots reach
 them as ``fused_words()``, which is bit-identical.  The CUDA source is
-``repro_torch/csrc/bscsr_topk_spmv.cu``.  In the single-query kernel one CTA
-per core walks its packets in order, because the stage-3 row carry crosses
-packet boundaries.  The other two split each core's stream among S CTAs at
-steps that hold a flag bit (``spmv_split_table``) and stop at the core's
-last flagged step.  The accumulate kernel joins the splits with an exact
-carry fix-up; the multi-query kernel gives each split its own scratchpads
-and folds them in split order, with each split's head row scored as head
-piece + the previous split's carry.  Every S gives the single walk's bits.
+``repro_torch/csrc/bscsr_topk_spmv.cu``.  All three split each core's
+stream among S CTAs at steps that hold a flag bit (``spmv_split_table``)
+and stop at the core's last flagged step, though the stage-3 row carry
+crosses packet boundaries.  The accumulate kernel joins the splits with an
+exact carry fix-up; the two top-k kernels give each split its own
+scratchpads and fold them in split order (one fold kernel serves both),
+with each split's head row scored as head piece + the previous split's
+carry.  Every S gives the single walk's bits.  The single-query kernel
+stages its steps through a ring in shared memory with bulk copies.
 
 A mixed-precision snapshot streams one tagged word array per storage-width
 class (``fmt_name`` TAG4, TAG2 or TAG1): each packet row leads with one
@@ -44,9 +45,8 @@ queries with a Python loop over steps.
   stage 4' (accumulate mode) each completed row is stored at its slot
 
 Stages 1-3 are shared by all three (``_plain_steps`` here; in the CUDA
-source ``walk`` for the single-query kernel, and ``mq_walk`` and
-``accum_walk``, with the same arithmetic and fewer barriers, for the other
-two).
+source ``single_walk``, ``mq_walk`` and ``accum_walk``, with the same
+arithmetic).
 
 Stage 4 ranks as ``lax.top_k`` does: float total order (-0.0 below +0.0),
 lower position first on ties, which puts scratchpad entries before
@@ -361,13 +361,20 @@ def _walk_plain_split(x: torch.Tensor, words: torch.Tensor, table, *, k: int, n_
 
 
 def bscsr_topk_spmv_plain(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
-                          block_size=256, gather_mode="take", inner_loop="linear"):
-    """Plain PyTorch version of :func:`bscsr_topk_spmv` -> (C, k) each."""
-    fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
-                                 gather_mode, inner_loop)
-    v, r = _walk_plain(x.reshape(1, -1), words, k=k, n_rows=n_rows,
-                       packets_per_step=packets_per_step, fmt=fmt, block=block_size,
-                       col_words=col_words)
+                          block_size=256, gather_mode="take", inner_loop="linear",
+                          splits=None, table=None):
+    """Plain PyTorch version of :func:`bscsr_topk_spmv` -> (C, k) each.
+
+    With neither ``splits`` nor ``table`` it is the single walk; with either
+    it walks each split with its own scratchpad and folds them in order, as
+    the kernel's blocks do (``_walk_plain_split`` at one query), which gives
+    the single walk's bits.
+    """
+    _resolve(fmt_name, words, block_size, packets_per_step, k, gather_mode, inner_loop)
+    v, r = bscsr_topk_spmv_multiquery_plain(
+        x.reshape(1, -1), words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+        fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop, splits=splits,
+        table=table)
     return v[:, 0], r[:, 0]
 
 
@@ -561,10 +568,10 @@ def build_library(verbose: bool = False) -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # x, words, out_v, out_r, C, P, W, M, Q, q_chunk, B, T, col_words, fmt, k,
-    # n_rows, stream
-    lib.bscsr_topk_spmv_launch.argtypes = [p, p, p, p, i, ll, i, i, i, i, i, i, i, i, i, i,
-                                           p]
+    # x, words, out_v, out_r, bounds, head_row, pad_v, pad_r, heads, carries, C,
+    # S, P, W, M, B, T, col_words, fmt, k, n_rows, ring depth, step words, stream
+    lib.bscsr_topk_spmv_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, ll, i, i, i, i,
+                                           i, i, i, i, i, i, p]
     lib.bscsr_topk_spmv_launch.restype = i
     # x, words, out_v, out_r, bounds, head_row, pad_v, pad_r, heads, carries, C,
     # S, P, W, M, Q, q_chunk, B, T, col_words, fmt, k, n_rows, stream
@@ -579,6 +586,9 @@ def _library() -> ctypes.CDLL:
     # B, T, M, out: resident accumulate blocks per SM
     lib.bscsr_spmv_resident_blocks.argtypes = [i, i, i, p]
     lib.bscsr_spmv_resident_blocks.restype = i
+    # B, T, M, k, ring depth, step words, out: resident single-query blocks per SM
+    lib.bscsr_topk_spmv_resident_blocks.argtypes = [i, i, i, i, i, i, p]
+    lib.bscsr_topk_spmv_resident_blocks.restype = i
     # B, T, M, q_chunk, k, out: resident multi-query blocks per SM
     lib.bscsr_topk_spmv_mq_resident_blocks.argtypes = [i, i, i, i, i, p]
     lib.bscsr_topk_spmv_mq_resident_blocks.restype = i
@@ -608,33 +618,71 @@ def _check_tile(packets_per_step: int, block_size: int) -> None:
         raise ValueError(f"T*B={tb} exceeds the kernel's {MAX_TILE_NNZ} nnz per step")
 
 
+def _step_words(packets_per_step: int, width: int, fmt) -> int:
+    """Words of a step that the single-query kernel stages, from its first:
+    T rows, less the header word of the next row in a tagged stream (the
+    kernel's words start one word past the first header)."""
+    return packets_per_step * width - _header_words(fmt)
+
+
 def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
-                    block_size=256, gather_mode="take", inner_loop="linear"):
+                    block_size=256, gather_mode="take", inner_loop="linear",
+                    splits=None, table=None):
     """Per-core top-k of one query over the fused streams -> (C, k) vals, slots.
 
     ``n_rows`` is the per-core slot budget; it only names the sentinel slot
-    of unfilled scratchpad entries.  CPU tensors run the plain version.
+    of unfilled scratchpad entries.  The kernel walks each core's stream
+    with S blocks, one per split of ``table`` (:func:`spmv_split_table`;
+    built here when not given, with ``splits`` or, when that is None,
+    :func:`single_splits` blocks), its steps staged through a ring of
+    ``SINGLE_RING_DEPTH`` steps in shared memory, and the multi-query
+    kernel's fold joins the splits at one query.  Every S gives the single
+    walk's bits.  One launch is counted per call, the fold included.  CPU
+    tensors run the plain version, at ``PLAIN_SPLITS`` when neither
+    ``splits`` nor a table is given.
     """
+    if x.dim() != 1:
+        raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
     if words.device.type == "cpu" and x.device.type == "cpu":
+        if table is None and splits is None:
+            splits = PLAIN_SPLITS
         return bscsr_topk_spmv_plain(
             x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
-            inner_loop=inner_loop)
+            inner_loop=inner_loop, splits=splits, table=table)
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
                               gather_mode, inner_loop)
     _check_cuda_args(x, words)
-    if x.dim() != 1:
-        raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
     _check_tile(packets_per_step, block_size)
     n_cores, n_packets, width = words.shape
-    out_v = torch.empty((n_cores, k), dtype=torch.float32, device=words.device)
-    out_r = torch.empty((n_cores, k), dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
+    dev = words.device
+    if table is None:
+        if splits is None:
+            splits = single_splits(dev, n_cores, packets_per_step=packets_per_step,
+                                   block_size=block_size, m=x.shape[0], k=k, width=width,
+                                   fmt_name=fmt_name)
+        table = spmv_split_table(words, packets_per_step=packets_per_step,
+                                 block_size=block_size, splits=splits,
+                                 header=_header_words(fmt))
+    bounds, head_row = _check_table(table, words, splits)
+    n_splits = head_row.shape[1]
+    out_v = torch.empty((n_cores, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((n_cores, k), dtype=torch.int32, device=dev)
+    if n_splits == 1:                  # (C, 1, 1, k) is the output's layout
+        pad_v, pad_r = out_v, out_r
+    else:
+        pad_v = torch.empty((n_cores, n_splits, 1, k), dtype=torch.float32, device=dev)
+        pad_r = torch.empty((n_cores, n_splits, 1, k), dtype=torch.int32, device=dev)
+    heads = torch.empty((n_cores, n_splits, 1), dtype=torch.float32, device=dev)
+    carries = torch.empty_like(heads)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().bscsr_topk_spmv_launch(
             x.data_ptr(), _kernel_words(words, fmt), out_v.data_ptr(), out_r.data_ptr(),
-            n_cores, n_packets, width, x.shape[-1], 1, 1, block_size,
-            packets_per_step, col_words, _FMT_IDS[fmt_name], k, n_rows, stream,
+            bounds.data_ptr(), head_row.data_ptr(), pad_v.data_ptr(), pad_r.data_ptr(),
+            heads.data_ptr(), carries.data_ptr(), n_cores, n_splits, n_packets, width,
+            x.shape[0], block_size, packets_per_step, col_words, _FMT_IDS[fmt_name], k,
+            n_rows, SINGLE_RING_DEPTH, _step_words(packets_per_step, width, fmt), stream,
         )
     if err != 0:
         raise RuntimeError(f"bscsr_topk_spmv_launch failed: CUDA error {err}")
@@ -643,6 +691,11 @@ def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
 
 
 bscsr_topk_spmv.launches = 0
+
+# Steps of the single-query kernel's ring in shared memory: D - 1 steps are
+# in flight while a block scans one, about 15 KB a block for BF16 at B = 256
+# and T = 2, so three blocks an SM keep some 44 KB in flight.
+SINGLE_RING_DEPTH = 8
 
 # Queries one CTA carries through the stream pass.  Each thread keeps one
 # product per query of its chunk in registers, and one set of barriers a step
@@ -791,6 +844,21 @@ def topk_splits(device, n_cores: int, n_chunks: int, *, packets_per_step: int,
     """
     return _one_wave(device, n_cores * n_chunks, "bscsr_topk_spmv_mq_resident_blocks",
                      block_size, packets_per_step, m, q_chunk, k)
+
+
+def single_splits(device, n_cores: int, *, packets_per_step: int, block_size: int, m: int,
+                  k: int, width: int, fmt_name: str) -> int:
+    """S, the blocks that walk each of ``n_cores`` streams of ``width``-word
+    packets in the single-query kernel on ``device``.
+
+    On the card: the kernel's blocks one SM holds at once (the occupancy
+    calculator, for this T*B, x width, k and a ring of ``SINGLE_RING_DEPTH``
+    steps) times the SM count, over the core count, so one wave of blocks
+    fills the card.  On the CPU: ``PLAIN_SPLITS``.
+    """
+    step_words = _step_words(packets_per_step, width, STREAM_FORMATS[fmt_name])
+    return _one_wave(device, n_cores, "bscsr_topk_spmv_resident_blocks", block_size,
+                     packets_per_step, m, k, SINGLE_RING_DEPTH, step_words)
 
 
 def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",

@@ -48,6 +48,7 @@ from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
     query_chunks,
+    single_splits,
     spmv_split_table,
     spmv_splits,
     topk_splits,
@@ -114,8 +115,8 @@ class DeviceSnapshot:
         self._split_tables: dict = {}
 
     def split_table(self, packets_per_step: int, splits: int, group: int = 0):
-        """The split table of fused stream ``group`` (the accumulate and
-        multi-query kernels walk it), built on the device once per (T, S,
+        """The split table of fused stream ``group`` (all three kernels
+        walk it), built on the device once per (T, S,
         group): no upload, and a fixed shape, so neither ``h2d_copies`` nor
         the signature moves.  A width-class group's rows lead with a header
         word, which the table skips."""
@@ -317,7 +318,16 @@ class QueryExecutor:
                       block_size=snap.block_size, inner_loop=self.inner_loop)
 
         def tables(s: DeviceSnapshot, x):
-            """Each stream's split table at its own S (a group's core count)."""
+            """Each stream's split table at its own S (a group's core count):
+            the single-query kernel's S for one query, the multi-query
+            kernel's for a batch."""
+            names = ([s.fmt_name] if s.groups is None
+                     else [name for name, _, _ in s.groups])
+            if x.dim() == 1:
+                return [s.split_table(t, single_splits(
+                    words.device, words.shape[0], packets_per_step=t, block_size=s.block_size,
+                    m=x.shape[0], k=k, width=words.shape[2], fmt_name=name), i)
+                    for i, (words, name) in enumerate(zip(s.streams, names))]
             q_chunk, n_chunks = query_chunks(x.shape[0])
             return [s.split_table(t, topk_splits(words.device, words.shape[0], n_chunks,
                                                  packets_per_step=t, block_size=s.block_size,
@@ -329,8 +339,7 @@ class QueryExecutor:
             def run(x, s: DeviceSnapshot):
                 lv, lr = ops.grouped_local_topk(
                     x, s.groups, n_cores=s.num_cores, batched=q is not None,
-                    tables=None if q is None else tables(s, x),
-                    gather_mode=self.gather_mode, **kwargs)
+                    tables=tables(s, x), gather_mode=self.gather_mode, **kwargs)
                 return finalize(lv, lr, big_k=big_k, **s.finalize)
 
             return run
@@ -339,8 +348,8 @@ class QueryExecutor:
         if q is None:
 
             def run(x, s: DeviceSnapshot):
-                lv, lr = bscsr_topk_spmv(x, s.streams[0], gather_mode=self.gather_mode,
-                                         **kwargs)
+                lv, lr = bscsr_topk_spmv(x, s.streams[0], table=tables(s, x)[0],
+                                         gather_mode=self.gather_mode, **kwargs)
                 return finalize(lv, lr, big_k=big_k, **s.finalize)
 
             return run

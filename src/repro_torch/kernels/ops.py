@@ -734,7 +734,8 @@ def grouped_local_topk(x: torch.Tensor, groups, *, n_cores: int, k: int, n_rows:
     """Mixed-precision top-k: one kernel call per width class.
 
     ``groups`` is ``group_tensors``' tuple; ``tables`` optionally gives each
-    group's split table (the multi-query kernel).  Each group's per-core
+    group's split table, at the kernel's S for that group's core count
+    (without it each kernel call builds its own).  Each group's per-core
     scratchpads are scattered back into the snapshot's ``(C, [Q,] k)`` core
     order; every core belongs to exactly one group.
     """
@@ -742,10 +743,10 @@ def grouped_local_topk(x: torch.Tensor, groups, *, n_cores: int, k: int, n_rows:
     lv = torch.full(shape, NEG_INF, dtype=torch.float32, device=x.device)
     lr = torch.full(shape, n_rows, dtype=torch.int32, device=x.device)
     for i, (cname, cores, words) in enumerate(groups):
-        kw = dict(kernel_kw, k=k, n_rows=n_rows, fmt_name=cname)
+        kw = dict(kernel_kw, k=k, n_rows=n_rows, fmt_name=cname,
+                  table=None if tables is None else tables[i])
         if batched:
-            gv, gr = bscsr_topk_spmv_multiquery(
-                x, words, table=None if tables is None else tables[i], **kw)
+            gv, gr = bscsr_topk_spmv_multiquery(x, words, **kw)
         else:
             gv, gr = bscsr_topk_spmv(x, words, gather_mode=gather_mode, **kw)
         lv[cores] = gv

@@ -359,6 +359,171 @@ def test_mq_split_kernel_holds_plain_bits_over_repeated_calls(cuda, k):
 
 
 # ---------------------------------------------------------------------------
+# The single-query kernel's split walk
+# ---------------------------------------------------------------------------
+
+def single_card(x, w, **kw):
+    return K.bscsr_topk_spmv(x, w, **kw)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 2000), (256, 2, 2000), (64, 2, 40_000)])
+def test_single_split_kernel_matches_one_split_bitwise(cuda, fmt, block, t, n_cols):
+    """Random data: the single-query kernel at the card's S, at 2 and at 64
+    gives its S = 1 bits, and the multi-query kernel's at Q = 1 (the same
+    shuffle tree and fold), and S = 1 agrees with plain within 1e-5."""
+    csr = long_row_csr(300, n_cols, block, seed=block + t + 3, dyadic=False)
+    packed = ops.pack_partitions(csr, 4, block, fmt, packets_multiple=t,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=fmt,
+              block_size=block)
+    x = mq_queries(1, n_cols, seed=t + 1, dyadic=False).to(cuda)
+    one = single_card(x[0], w, splits=1, **kw)
+    assert (one[0] > K.NEG_INF).any()
+    for splits in (None, 2, 64):
+        assert_same_bits(single_card(x[0], w, splits=splits, **kw), one, f"S={splits}")
+    for splits in (None, 1):
+        mv, mr = K.bscsr_topk_spmv_multiquery(x, w, splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert_same_bits((mv[:, 0], mr[:, 0]), one, f"multi-query Q=1 S={splits}")
+    want = K.bscsr_topk_spmv_plain(x[0], w, **kw)
+    np.testing.assert_allclose(one[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 64), (32, 2, 64), (64, 1, 512),
+                                            (64, 2, 40_000), (256, 1, 512), (256, 2, 512)])
+def test_single_split_kernel_matches_plain_bitwise(cuda, fmt, block, t, n_cols):
+    """Dyadic data at B in {32, 64, 256} and T in {1, 2} (steps of 132 to
+    3,136 bytes, most not 16-byte aligned), and with 40,000 columns (x in
+    global memory): every S gives the plain single walk's bits."""
+    csr = dyadic_csr(400, n_cols, seed=block + 7 * t)
+    packed = ops.pack_partitions(csr, 4, block, fmt, packets_multiple=t,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=fmt,
+              block_size=block)
+    x = mq_queries(1, n_cols, seed=block, dyadic=True)[0]
+    want = K.bscsr_topk_spmv_plain(x, w, **kw)
+    for splits in (None, 1, 3, 64):
+        got = single_card(x.to(cuda), w.to(cuda), splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert_same_bits(got, want, f"S={splits}")
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_single_split_kernel_matches_plain_bitwise_on_a_padded_budget(cuda, fmt):
+    """All-negative dyadic scores, flag-free padding steps and a doubled slot
+    budget: every S gives the plain walk's bits and no phantom slot enters."""
+    csr = long_row_csr(200, 512, 32, seed=15, dyadic=True)
+    csr = dataclasses.replace(csr, data=-np.abs(csr.data) - 1 / 128)
+    packed = ops.pack_partitions(csr, 4, 32, fmt, packets_multiple=2,
+                                 stream_layout="fused")
+    words = np.concatenate(
+        [packed.words, np.zeros((4, 8, packed.words.shape[2]), np.int32)], 1)
+    n_rows = 2 * packed.max_slots
+    kw = dict(k=8, n_rows=n_rows, packets_per_step=2, fmt_name=fmt, block_size=32)
+    w = torch.from_numpy(words)
+    x = mq_queries(1, 512, seed=16, dyadic=True)[0].abs() + 0.125
+    want = K.bscsr_topk_spmv_plain(x, w, **kw)
+    live = np.asarray(packed.candidate_slots)
+    for splits in (None, 1, 3, 64):
+        got = single_card(x.to(cuda), w.to(cuda), splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert_same_bits(got, want, f"S={splits}")
+        gv, gr = to_np(got)
+        filled = gv > K.NEG_INF
+        assert (gv[filled] <= 0).all() and (gv[filled] < 0).any()   # empty rows: 0
+        assert (gr[filled] < np.broadcast_to(live[:, None], gr.shape)[filled]).all()
+
+
+def test_single_split_kernel_breaks_ties_at_the_kth_place_like_plain(cuda):
+    """The multi-query tie fixture at one query: every row scores 3/8, 1/2
+    or below 0 at x = 1, so the scratchpad is a tie broken by the lower slot
+    in every split, in the fold and against the lagging threshold."""
+    rng = np.random.default_rng(30)
+    lens = np.full(400, 3)
+    lens[::11] = rng.integers(40, 70, size=len(lens[::11]))
+    lens[5::13] = 4
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = np.concatenate([np.sort(rng.choice(80, int(n), replace=False))
+                          for n in lens]).astype(np.int32)
+    data = np.full(int(lens.sum()), 1 / 8, np.float32)
+    data[np.repeat(lens > 4, lens)] = -1 / 128
+    csr = bscsr.CSRMatrix(indptr, idx, data, (len(lens), 80))
+    packed = ops.pack_partitions(csr, 2, 32, "F32", packets_multiple=1,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=1, fmt_name="F32",
+              block_size=32)
+    for scale in (1.0, 0.5, 2.0):
+        x = torch.ones(80)
+        x[::2] *= scale
+        want = K.bscsr_topk_spmv_plain(x, w, **kw)
+        if scale == 1.0:
+            assert (want[0][:, 0] == 0.5).all()
+        for splits in (None, 1, 3, 64):
+            got = single_card(x.to(cuda), w.to(cuda), splits=splits, **kw)
+            torch.cuda.synchronize()
+            assert_same_bits(got, want, f"x scale {scale} S={splits}")
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_single_split_kernel_holds_plain_bits_over_repeated_calls(cuda, k):
+    """The multi-query repeated-call fixture at one query, 16 warps a block:
+    scores climb slowly with noise, so every step brings candidates while
+    other warps may still admit the previous step's rows near the k-th
+    place; 40 calls at each S must give the plain bits."""
+    rng = np.random.default_rng(60 + k)
+    n_rows, n_cols = 20_000, 512
+    indptr = np.arange(n_rows + 1, dtype=np.int64)
+    idx = rng.integers(0, n_cols, n_rows).astype(np.int32)
+    data = ((np.arange(n_rows) // 128 + rng.integers(0, 8, n_rows)) / 64).astype(np.float32)
+    csr = bscsr.CSRMatrix(indptr, idx, data, (n_rows, n_cols))
+    packed = ops.pack_partitions(csr, 2, 256, "F32", packets_multiple=2,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words)
+    kw = dict(k=k, n_rows=packed.max_slots, packets_per_step=2, fmt_name="F32",
+              block_size=256)
+    x = torch.from_numpy(2.0 ** rng.integers(-1, 2, n_cols)).float()
+    want = [t.to(cuda) for t in K.bscsr_topk_spmv_plain(x, w, **kw)]
+    x, wc = x.to(cuda), w.to(cuda)
+    for splits in (None, 1, 2, 4):
+        outs = [single_card(x, wc, splits=splits, **kw) for _ in range(40)]
+        torch.cuda.synchronize()
+        bad = [i for i, (v, r) in enumerate(outs)
+               if not (torch.equal(v.view(torch.int32), want[0].view(torch.int32))
+                       and torch.equal(r, want[1]))]
+        assert not bad, f"S={splits}: calls {bad} of 40 differ from plain"
+
+
+def test_single_split_kernel_counts_one_launch_per_call(cuda):
+    """One launch per call at any S (the fold included); S from the
+    occupancy calculator fills one wave."""
+    csr = long_row_csr(100, 256, 32, seed=17, dyadic=True)
+    packed = ops.pack_partitions(csr, 2, 32, "F32", packets_multiple=2,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    x = torch.ones(256, device=cuda)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name="F32",
+              block_size=32)
+    table = K.spmv_split_table(w, packets_per_step=2, block_size=32, splits=4)
+    K.reset_launch_counts()
+    single_card(x, w, **kw)
+    single_card(x, w, splits=1, **kw)
+    single_card(x, w, table=table, **kw)
+    torch.cuda.synchronize()
+    assert K.bscsr_topk_spmv.launches == 3
+    assert K.bscsr_topk_spmv_multiquery.launches == K.bscsr_spmv.launches == 0
+    splits = K.single_splits(cuda, 2, packets_per_step=2, block_size=32, m=256, k=8,
+                             width=w.shape[2], fmt_name="F32")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert splits >= sms // 2
+
+
+# ---------------------------------------------------------------------------
 # Tagged width classes (mixed precision)
 # ---------------------------------------------------------------------------
 
@@ -546,6 +711,32 @@ def test_tagged_mq_split_kernel_holds_plain_bits_over_repeated_calls(cuda):
                    if not (torch.equal(v.view(torch.int32), want[0].view(torch.int32))
                            and torch.equal(r, want[1]))]
             assert not bad, f"Q={q} S={splits}: calls {bad} of 40 differ from plain"
+
+
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 64), (256, 2, 512), (64, 2, 40_000)])
+def test_tagged_single_split_kernel_matches_plain_bitwise(cuda, block, t, n_cols):
+    """The single-query kernel on TAG4, TAG2 (BF16 and Q15 cores in one
+    launch, its core's header read by every split) and TAG1: dyadic data
+    gives the plain walk's bits at every S, random data the S = 1 bits."""
+    packed, groups = mixed_pack(dyadic_csr(800, n_cols, seed=block + t + 40), block, t)
+    rand, rgroups = mixed_pack(long_row_csr(600, n_cols, block, seed=block + t + 41,
+                                            dyadic=False), block, t)
+    for name, g in groups.items():
+        w = torch.from_numpy(g.words)
+        kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=name,
+                  block_size=block)
+        x = mq_queries(1, n_cols, seed=block + 1, dyadic=True)[0]
+        want = K.bscsr_topk_spmv_plain(x, w, **kw)
+        for splits in (None, 1, 3, 64):
+            assert_same_bits(single_card(x.to(cuda), w.to(cuda), splits=splits, **kw), want,
+                             f"{name} dyadic S={splits}")
+        w = torch.from_numpy(rgroups[name].words).to(cuda)
+        kw["n_rows"] = rand.max_slots
+        x = mq_queries(1, n_cols, seed=block + 2, dyadic=False)[0].to(cuda)
+        one = single_card(x, w, splits=1, **kw)
+        for splits in (None, 2, 64):
+            assert_same_bits(single_card(x, w, splits=splits, **kw), one,
+                             f"{name} random S={splits}")
 
 
 def test_mixed_facade_on_the_card(cuda):

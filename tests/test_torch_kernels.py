@@ -560,6 +560,205 @@ class TestTopkSplit:
         assert (v == tkern.NEG_INF).all() and (r == 4).all() and v.shape == (2, 2, 3)
 
 
+def single(words, x, splits=None, table=None, **kw):
+    """The single-query wrapper on the CPU: the plain split walk."""
+    v, r = tkern.bscsr_topk_spmv(torch.from_numpy(x), torch.from_numpy(words), splits=splits,
+                                 table=table, **kw)
+    return v.numpy(), r.numpy()
+
+
+def single_walk(words, x, **kw):
+    """The single walk: the plain version with no splits and no table."""
+    v, r = tkern.bscsr_topk_spmv_plain(torch.from_numpy(x), torch.from_numpy(words), **kw)
+    return v.numpy(), r.numpy()
+
+
+def flagged_steps(words, t, block, header=0):
+    """The most steps holding a flag bit on any core."""
+    flags = words[..., header : header + block // 32] != 0
+    return int(flags.reshape(words.shape[0], -1, t * (block // 32)).any(-1).sum(-1).max())
+
+
+def tagged_words(csr, formats, block, t):
+    """The one width-class group of a snapshot whose cores take ``formats``."""
+    tp = tops.pack_partitions(csr, len(formats), block, packets_multiple=t,
+                              stream_layout="fused", value_formats=formats)
+    (g,) = tp.groups
+    return np.ascontiguousarray(g.words), g.class_name, tp
+
+
+# One width class each: TAG2 holds BF16 and Q15 cores in one stream.
+TAGGED = {"TAG4": ("F32",) * 3, "TAG2": ("BF16", "Q15", "BF16"), "TAG1": ("Q7",) * 3}
+
+
+class TestSingleSplit:
+    """The single-query kernel's split walk (S blocks per core, each with its
+    own scratchpad, joined in order by the multi-query kernel's fold at one
+    query) equals the single walk bit for bit, on random data too: it is
+    the specification the CUDA kernel is transcribed from."""
+
+    @pytest.mark.parametrize("fmt", FORMATS + list(TAGGED))
+    @pytest.mark.parametrize("block,t", [(32, 1), (64, 2)])
+    def test_split_walk_equals_single_walk(self, fmt, block, t):
+        for kind, dyadic in (("long", False), ("aligned", False), ("long", True)):
+            csr = split_csr(kind, block, 2000, seed=block + t + len(fmt), dyadic=dyadic)
+            if fmt in TAGGED:
+                words, fmt_name, tp = tagged_words(csr, TAGGED[fmt], block, t)
+                header = 1
+            else:
+                words, tp = split_words(csr, 3, block, fmt, t)
+                fmt_name, header = fmt, 0
+            kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=t, fmt_name=fmt_name,
+                      block_size=block)
+            x = (dyadic_queries(1, 2000, seed=t) if dyadic
+                 else random_queries(1, 2000, seed=t))[0]
+            want = single_walk(words, x, **kw)
+            assert (want[0] > tkern.NEG_INF).any()
+            past = flagged_steps(words, t, block, header) + 3   # more splits than steps
+            for splits in (1, 2, 3, 5, past):
+                assert_bitwise(single(words, x, splits, **kw), want)
+
+    @pytest.mark.parametrize("splits", [2, 5, 64])
+    def test_all_negative_padded_budget(self, splits):
+        """Every score < 0, a slot budget past the live count and flag-free
+        padding steps (cut at e_c): no phantom slot enters the scratchpad."""
+        csr = split_csr("long", 32, 64, seed=3, sign=-1, dyadic=True)
+        words, tp = split_words(csr, 2, 32, "Q7", 2, pad_steps=4)
+        x = dyadic_queries(1, 64, seed=4, positive=True)[0]
+        kw = dict(k=8, n_rows=4 * tp.max_slots, packets_per_step=2, fmt_name="Q7",
+                  block_size=32)
+        want = single_walk(words, x, **kw)
+        got = single(words, x, splits, **kw)
+        assert_bitwise(got, want)
+        filled = got[0] > tkern.NEG_INF
+        assert (got[0][filled] <= 0).all() and (got[0][filled] < 0).any()
+        assert (got[1][~filled] == kw["n_rows"]).all()
+        live = np.append(np.asarray(tp.candidate_slots), 0)
+        for c in range(words.shape[0]):
+            assert (got[1][c][filled[c]] < live[c]).all()
+
+    @pytest.mark.parametrize("t", [1, 2])
+    def test_row_spanning_packets_and_short_cores(self, t):
+        rng = np.random.default_rng(6)
+        lens = np.array([3, 150, 2, 0, 5, 1, 4])
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(200, n, replace=False))
+                              for n in lens if n]).astype(np.int32)
+        data = (rng.integers(-128, 128, int(lens.sum())) / 128.0).astype(np.float32)
+        csr = jbscsr.CSRMatrix(indptr, idx, data, (7, 200))
+        words, slots = fused_words(csr, 3, 32, "Q15", t)
+        x = dyadic_queries(1, 200, seed=7)[0]
+        kw = dict(k=8, n_rows=slots, packets_per_step=t, fmt_name="Q15", block_size=32)
+        want = single_walk(words, x, **kw)
+        assert (want[1] == slots).any()
+        for splits in (2, 5, 64):
+            assert_bitwise(single(words, x, splits, **kw), want)
+
+    @pytest.mark.parametrize("splits", [2, 5, 64])
+    def test_signed_zero_scores(self, splits):
+        words, slots, xs = TestDyadicBitIdentical.signed_zero_fixture()
+        kw = dict(k=12, n_rows=slots, packets_per_step=1, fmt_name="Q7", block_size=32)
+        for x in xs:
+            want = single_walk(words, x, **kw)
+            assert_bitwise(single(words, x, splits, **kw), want)
+        assert (want[0] == 0).any()
+
+    def test_poisoned_padding_ids(self):
+        csr = split_csr("long", 32, 64, seed=10, dyadic=True)
+        words, tp = split_words(csr, 2, 32, "BF16", 2, flagless_core=False)
+        dirty = poison_padding(words, 32, "BF16", np.asarray(tp.candidate_slots))
+        assert not np.array_equal(dirty, words)
+        x = random_queries(1, 64, seed=11)[0]
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=2, fmt_name="BF16",
+                  block_size=32)
+        want = single_walk(words, x, **kw)
+        for splits in (2, 5, 64):
+            assert_bitwise(single(dirty, x, splits, **kw), want)
+
+    @pytest.mark.parametrize("splits", [2, 3, 7, 64])
+    def test_ties_at_the_kth_place_across_splits(self, splits):
+        """Most rows score exactly 3/8 at x = 1: the k-th place is a tie that
+        the fold must break by the lower slot across every split boundary,
+        and the head rows tie too; then a query with half weights."""
+        rng = np.random.default_rng(30)
+        lens = np.full(90, 3)
+        lens[::11] = rng.integers(40, 70, size=len(lens[::11]))
+        lens[5::13] = 4
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(80, int(n), replace=False))
+                              for n in lens]).astype(np.int32)
+        data = np.full(int(lens.sum()), 1 / 8, np.float32)
+        data[np.repeat(lens > 4, lens)] = -1 / 128
+        csr = tbscsr.CSRMatrix(indptr, idx, data, (len(lens), 80))
+        words, tp = split_words(csr, 2, 32, "F32", 1)
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=1, fmt_name="F32",
+                  block_size=32)
+        bounds, _ = tkern.spmv_split_table(torch.from_numpy(words), packets_per_step=1,
+                                           block_size=32, splits=splits)
+        assert (bounds[:2, 1] < bounds[:2, -1]).all()               # more than one split
+        for scale in (1.0, 0.5):
+            x = np.ones(80, np.float32)
+            x[::2] = scale
+            want = single_walk(words, x, **kw)
+            if scale == 1.0:
+                assert (want[0][:2, -1] == 3 / 8).all()             # the k-th place ties
+            assert_bitwise(single(words, x, splits, **kw), want)
+
+    @pytest.mark.parametrize("fmt", ["BF16", "Q7"])
+    def test_wrapper_on_the_cpu_against_pallas(self, fmt):
+        """The wrapper with neither splits nor a table walks PLAIN_SPLITS splits
+        on the CPU; against the reference's Pallas kernel (interpret mode) it
+        is bit for bit on dyadic data and within rtol = atol = 1e-5 (the
+        reference's tolerance between summation orders) on random data."""
+        csr = dyadic_csr(n_rows=150, seed=33, max_len=40, empty_every=6)
+        words, slots = fused_words(csr, 2, 32, fmt, 2)
+        bounds, _ = tkern.spmv_split_table(torch.from_numpy(words), packets_per_step=2,
+                                           block_size=32, splits=tkern.PLAIN_SPLITS)
+        assert (bounds[:, 2] < bounds[:, -1]).all()                 # the fold joins splits
+        kw = dict(k=8, n_rows=slots, packets_per_step=2, fmt_name=fmt, block_size=32)
+        xs = dyadic_queries(1, 64, seed=34)
+        assert_bitwise(plain(xs, words, False, **kw), pallas(xs, words, False, **kw))
+        rand = jbscsr.synthetic_embedding_csr(300, 64, 9, "gamma", seed=35)
+        words, slots = fused_words(rand, 2, 32, fmt, 2)
+        kw["n_rows"] = slots
+        xs = random_queries(1, 64, seed=36)
+        assert_close_rows(plain(xs, words, False, **kw), pallas(xs, words, False, **kw))
+
+    def test_splits_and_executor_tables_on_the_cpu(self):
+        """S is PLAIN_SPLITS on the CPU; the executor's single-query path walks
+        a split table built once per snapshot, with no upload."""
+        from repro_torch.core import topk_spmv as ttopk
+        from repro_torch.kernels import executor as texec
+
+        assert tkern.single_splits("cpu", 32, packets_per_step=2, block_size=256, m=512,
+                                   k=8, width=264, fmt_name="BF16") == tkern.PLAIN_SPLITS
+        words = torch.zeros((2, 4, 1 + 16 + 32), dtype=torch.int32)
+        v, r = tkern.bscsr_topk_spmv(torch.zeros(64), words, k=3, n_rows=4,
+                                     packets_per_step=2, fmt_name="F32", block_size=32)
+        assert (v == tkern.NEG_INF).all() and (r == 4).all() and v.shape == (2, 3)
+        csr = dyadic_csr(n_rows=200, seed=37, max_len=30)
+        cfg = ttopk.TopKSpMVConfig(big_k=10, k=8, num_partitions=2, block_size=32,
+                                   device="cpu")
+        idx = ttopk.build_index(tbscsr.CSRMatrix(csr.indptr, csr.indices, csr.data,
+                                                 csr.shape), cfg)
+        ex = texec.QueryExecutor(big_k=10, k=8, device="cpu")
+        x = torch.from_numpy(dyadic_queries(1, 64, seed=38)[0])
+        tkern.reset_launch_counts()
+        first = ex.query(x, idx.packed)
+        snap = texec.device_snapshot(idx.packed, "fused", "cpu")
+        tables = dict(snap._split_tables)
+        pins = ex.h2d_copies
+        for _ in range(2):
+            assert_bitwise(tuple(t.numpy() for t in ex.query(x, idx.packed)),
+                           tuple(t.numpy() for t in first))
+        assert ex.h2d_copies == pins and ex.retraces == 0
+        assert list(snap._split_tables) == list(tables) == [(2, tkern.PLAIN_SPLITS)]
+        assert all(snap._split_tables[key] is tables[key] for key in tables)
+        want = ttopk.topk_spmv(idx, x, use_kernel=False)
+        assert_bitwise(tuple(t.numpy() for t in first), tuple(t.numpy() for t in want))
+        assert tkern.bscsr_topk_spmv.launches == 0
+
+
 class TestWrapperRules:
     def test_inner_loops_and_gather_modes_share_one_rule(self):
         csr = dyadic_csr(seed=16)
