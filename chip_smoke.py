@@ -9,14 +9,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              prints each kernel's registers (``-Xptxas -v``).
 2. parity    each kernel against its plain PyTorch version on the card, on
              small fixtures: all four value formats, int16 and int32 column
-             ids, Q in {1, 3, 64}, B in {32, 256}, T in {1, 2}, empty rows, a
+             ids, Q in {1, 3, 37, 64}, B in {32, 256}, T in {1, 2}, empty rows, a
              row spanning several packets, cores with fewer than k rows, all
              negative scores under a padded slot budget (whose phantom slots
              the accumulate kernel must leave at exactly 0.0), flag-free
              padding packets, poisoned padding ids.  Dyadic fixtures must be
              bit-identical; random ones agree within rtol = atol = 1e-5 with
              equal row ids outside near-ties.  All three kernels (the
-             multi-query one at Q in {1, 3, 64}) run at the card's S blocks
+             multi-query one at Q in {1, 3, 37, 64}: 37 is five chunks, the
+             last one ragged, as the serving frontend coalesces) run at the card's S blocks
              per core, at one and at 64, and every S must give the bits of
              S = 1.  The same checks run on the tagged width classes
              of mixed-precision snapshots (TAG4, TAG2 with BF16 and Q15
@@ -84,8 +85,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              ``topk_eigen(3)`` on the "ba" operator at 1024 nodes with float64
              residuals at most 1e-4.  The accumulate kernel's launch count
              must rise here; ``PPR_SPLIT`` prints a device iteration's time.
+7. serving   run after phase 4, on phase 3's facade after its ingest (10M
+             rows, BF16, c = 32): ``StreamingSimilarityService`` with a
+             ``DurableIndexStore`` under ``.chip_tmp/`` (its construction
+             writes the anchoring checkpoint).  A burst of 37 ``submit``s and
+             ``flush()`` through a fixed-target frontend is one pass of
+             Q = 37, bit for bit equal to ``query_batch`` of the same
+             queries and each held to the oracle; then open-loop traffic
+             (four threads, 64 submits each, through the adaptive frontend)
+             while the main thread ingests 64 rows and deletes 64 ids
+             through the service (WAL-logged): every answer 100 finite
+             scores over valid rows, no deleted id in a request submitted
+             after the delete returned, 64 more submits held to the oracle,
+             passes, Q histogram, flush reasons and host latency p50 / p99
+             printed; then a third ingest under ``FaultPlan({"wal.append":
+             0})`` (a torn record, not applied), and
+             ``StreamingSimilarityService.recover`` from a fresh store on the
+             same directory: 2 records replayed, ``export_state`` equal to
+             the live index's array for array, ``query_batch`` of phase 3's
+             64 queries bit for bit equal, the same signature, no retrace
+             and ``h2d_copies`` up by the re-pin only.  The multi-query
+             kernel's launches must rise here.
    summary   a ``MIXED`` line, the ``kernels`` JSON line (each kernel's
-             classes and its mixed-path times), the card's name and power
+             classes and its mixed-path times; the multi-query kernel's
+             launches count phases 3 and 7), the card's name and power
              limit, and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
@@ -102,8 +125,10 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -123,6 +148,9 @@ REPLACES = {
 # Clock cycles of the sleep that holds the stream while time_cuda queues
 # its launches (about 50 ms: longer than 50 calls take to enqueue).
 HOLD_CYCLES = 100_000_000
+# Phase 2's query counts: 37 is four full chunks and a ragged fifth, as the
+# serving frontend coalesces.
+PARITY_QS = (1, 3, 37, 64)
 # Extra calls of the multi-query kernel at each S, Q and snapshot of phase 4
 # that must repeat the S = 1 bits.
 MQ_REPEATS = 10
@@ -255,12 +283,12 @@ def stream_checks(torch, K, check, errs, name, w, fmt, block, t, n_rows, live, n
                   bitwise, xsign, rng):
     """One fused stream through all three kernels against their plain
     versions: the single-query kernel at Q = 1 and the multi-query kernel at
-    Q in {1, 3, 64}, each at S in {card, 1, 64} (and every S against its
+    Q in {1, 3, 37, 64}, each at S in {card, 1, 64} (and every S against its
     S = 1 bits), the accumulate kernel at the same S (slots that never
     complete read exactly 0.0).  Returns the number of comparisons."""
     kw = dict(k=8, n_rows=n_rows, packets_per_step=t, fmt_name=fmt, block_size=block)
     n_checks = 0
-    for q in (1, 3, 64):
+    for q in PARITY_QS:
         x = torch.from_numpy(fixture_queries(rng, q, n_cols, bitwise, xsign)).to(w.device)
         if q == 1:
             # The single-query kernel at the card's S, at one split and at
@@ -748,11 +776,22 @@ def main() -> int:
     for q, x in ((1, x1[:, None]), (64, x64.T.contiguous())):
         yard[f"q{q}_ms"] = time_cuda(
             torch, lambda: torch.topk(torch.sparse.mm(mat, x), cfg.big_k, dim=0))
-    del mat, crow, col, val, words, svc, index
+    del mat, crow, col, val, words
     gc.collect()
     torch.cuda.empty_cache()
     log("YARDSTICK exact-search score pass torch.sparse.mm(csr, x) + torch.topk: "
         + json.dumps(yard))
+
+    # ---- phase 7: the serving plane on phase 3's facade ----
+    t0 = time.time()
+    serving = serving_phase(torch, K, api, svc, xs64, deleted, np.random.default_rng(args.seed + 7),
+                            ROOT / ".chip_tmp" / "serving_store")
+    log(f"  serving phase {time.time() - t0:.1f} s")
+    kernels[1]["launches_serving_path"] = serving["launches"]
+    kernels[1]["launches"] += serving["launches"]
+    del svc, index
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- phase 5: mixed precision at the query cell's size ----
     if args.rows != 10_000_000 or args.seed != 0:
@@ -1289,6 +1328,246 @@ def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
             "bytes_per_nnz": bpn, "value_bytes_per_nnz": vbpn,
             "bf16_bytes_per_nnz": bf16_bytes / nnz0,
             "bf16_value_bytes_per_nnz": bf16_value_bytes / nnz0, "end_to_end": e2e}
+
+
+def held_to_oracle(torch, api, index, check, answers, deleted, what) -> float:
+    """Each (x, (values, rows)) answer against the torch oracle (phase 3's
+    tolerances): 100 finite scores over valid rows, no deleted id.  Returns
+    the largest absolute error."""
+    worst = 0.0
+    for x, (v, r) in answers:
+        v, r = np.asarray(v), np.asarray(r)
+        check.expect(v.shape == (index.config.big_k,) and bool(np.isfinite(v).all())
+                     and bool((r >= 0).all()) and bool((r < index.n_rows_total).all()),
+                     f"{what}: an answer is not {index.config.big_k} finite scores over "
+                     f"valid rows")
+        want = api.topk_spmv(index, torch.from_numpy(x), use_kernel=False)
+        ok, err = compare((torch.from_numpy(v), torch.from_numpy(r)), want, bitwise=False)
+        worst = max(worst, err)
+        check.expect(ok, f"{what}: an answer differs from the oracle (max err {err:.3g})")
+        check.expect(not deleted & set(r.tolist()), f"{what}: a deleted row id was returned")
+    return worst
+
+
+def serving_phase(torch, K, api, svc, xs64, deleted, rng, root, device="cuda") -> dict:
+    """Phase 7: the serving plane over phase 3's facade (after its ingest).
+
+    A ``StreamingSimilarityService`` with a ``DurableIndexStore`` under
+    ``root`` (its construction writes the anchoring checkpoint): a burst of
+    37 through a fixed-target frontend, open-loop traffic from four threads
+    while the main thread ingests and deletes through the service, then a
+    torn WAL record and recovery from a fresh store on the same directory.
+    ``device="cpu"`` rehearses every check but the kernel launch count on
+    the plain versions.  Returns the multi-query kernel's launches in this
+    phase and the numbers of the ``SERVING`` line.
+    """
+    from repro_torch.core.faults import FaultInjected, FaultPlan
+    from repro_torch.core.persistence import DurableIndexStore
+    from repro_torch.kernels import executor as executor_lib
+    from repro_torch.serve import FrontendConfig, StreamingSimilarityService
+
+    check = Check("serving")
+    on_card = torch.device(device).type == "cuda"
+    index, executor = svc.index, api.query_executor(svc.config)
+    n_cols = svc.n_cols
+    deleted = set(deleted)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {}
+    try:
+        K.reset_launch_counts()
+        # 1. A fixed burst: 37 submits and flush() make one pass of Q = 37.
+        fixed = StreamingSimilarityService(
+            svc, store=DurableIndexStore(root, device=device),
+            frontend=FrontendConfig(adaptive=False, target_batch=64, max_batch=64))
+        store = fixed.store
+        out["checkpoint"] = dict(store.last_checkpoint)
+        log(f"  anchoring checkpoint: {out['checkpoint']['bytes']} bytes, export_state "
+            f"{out['checkpoint']['export_s']:.2f} s, write {out['checkpoint']['write_s']:.2f} s")
+        burst = rng.standard_normal((37, n_cols)).astype(np.float32)
+        futs = [fixed.submit(x) for x in burst]
+        fixed.flush()
+        got = [f.result(timeout=600) for f in futs]
+        info = fixed.frontend.info()
+        fixed.close()
+        check.expect(info["batch_histogram"] == {37: 1} and info["flushes"] == 1,
+                     f"the burst of 37 ran as passes {info['batch_histogram']}")
+        want = svc.query_batch(burst)
+        check.expect(all(np.array_equal(v.view(np.int32), want[0][i].view(np.int32))
+                         and np.array_equal(r, want[1][i]) for i, (v, r) in enumerate(got)),
+                     "the Q = 37 pass differs from query_batch of the same queries")
+        worst = held_to_oracle(torch, api, index, check, list(zip(burst, got)), deleted,
+                               "burst")
+        log(f"  burst: one pass of Q = 37 ({info['flush_reasons']}), bit for bit equal to "
+            f"query_batch; vs the oracle max abs err {worst:.3g}")
+
+        # 2. Open-loop traffic while ingesting: each thread's first 32
+        # submits arrive about 20 ms apart while the main thread ingests and
+        # deletes, its last 32 about 2 ms apart once the delete returned.
+        live = StreamingSimilarityService(
+            svc, store=store, frontend=FrontendConfig(flush_deadline_s=0.005, max_batch=64))
+        queries = rng.standard_normal((4, 64, n_cols)).astype(np.float32)
+        gaps = rng.exponential(1.0, (4, 64)) * np.where(np.arange(64) < 32, 0.02, 0.002)
+        records = [[None] * 64 for _ in range(4)]
+        done_at = {}
+        delete_done = threading.Event()
+        launches0 = K.bscsr_topk_spmv_multiquery.launches
+
+        def client(i):
+            for j in range(64):
+                if j == 32:
+                    delete_done.wait(timeout=600)
+                after = delete_done.is_set()
+                t = time.perf_counter()
+                fut = live.submit(queries[i, j])
+                fut.add_done_callback(
+                    lambda f, key=(i, j): done_at.__setitem__(key, time.perf_counter()))
+                records[i][j] = (fut, after, t)
+                time.sleep(gaps[i, j])
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(4)]
+        for t in threads:
+            t.start()
+        n_total = index.n_rows_total
+        t0 = time.perf_counter()
+        new_ids = live.ingest(rng.standard_normal((64, n_cols)).astype(np.float32))
+        ingest_s = time.perf_counter() - t0
+        victims = [int(g) for g in rng.choice(n_total, 96, replace=False)
+                   if int(g) not in deleted][:64]
+        t0 = time.perf_counter()
+        live.delete(victims)
+        delete_s = time.perf_counter() - t0
+        delete_done.set()
+        deleted |= set(victims)
+        for t in threads:
+            t.join(timeout=600)
+        check.expect(not any(t.is_alive() for t in threads), "a client thread did not finish")
+        check.expect(list(new_ids) == list(range(n_total, n_total + 64)),
+                     "ingest did not assign the next 64 ids")
+        n_after, lat = 0, {False: [], True: []}
+        for i in range(4):
+            for j in range(64):
+                fut, after, t = records[i][j]
+                v, r = fut.result(timeout=600)
+                lat[after].append((done_at[(i, j)] - t) * 1e3)
+                check.expect(v.shape == (svc.config.big_k,) and bool(np.isfinite(v).all())
+                             and bool((r >= 0).all()) and bool((r < index.n_rows_total).all()),
+                             "traffic: an answer is not 100 finite scores over valid rows")
+                bad = (deleted if after else deleted - set(victims)) & set(r.tolist())
+                check.expect(not bad, f"traffic: deleted ids {sorted(bad)[:4]} returned "
+                                      f"(submitted {'after' if after else 'before'} the "
+                                      f"delete returned)")
+                n_after += after
+        check.expect(n_after >= 128, f"only {n_after} requests submitted after the delete")
+        tail = [live.submit(x) for x in xs64]
+        tail = [f.result(timeout=600) for f in tail]
+        worst = held_to_oracle(torch, api, index, check, list(zip(xs64, tail)), deleted,
+                               "after the traffic")
+        traffic_launches = K.bscsr_topk_spmv_multiquery.launches - launches0
+        info = live.dispatch_info()
+        fe = info["frontend"]
+        both = lat[False] + lat[True]
+        out["traffic"] = {
+            "requests": 256 + 64, "submitted_after_delete": n_after,
+            "passes": fe["flushes"], "batch_histogram": fe["batch_histogram"],
+            "flush_reasons": fe["flush_reasons"],
+            "latency_ms_p50": float(np.percentile(both, 50)),
+            "latency_ms_p99": float(np.percentile(both, 99)),
+            "latency_ms_max": float(np.max(both)),
+            # Requests submitted while the ingest and delete ran, and after.
+            "latency_ms_p50_p99_during_ingest": [float(np.percentile(lat[False], q))
+                                                 for q in (50, 99)],
+            "latency_ms_p50_p99_after_delete": [float(np.percentile(lat[True], q))
+                                                for q in (50, 99)],
+            "ingest_s": ingest_s, "delete_s": delete_s, "launches": traffic_launches}
+        log(f"  traffic: 4 threads x 64 submits while ingest of 64 rows ({ingest_s:.2f} s) "
+            f"and delete of 64 ({delete_s:.2f} s); {n_after} submitted after the delete; "
+            f"{fe['flushes']} passes, Q histogram {fe['batch_histogram']}, flush reasons "
+            f"{fe['flush_reasons']}; host latency enqueue to result p50 "
+            f"{out['traffic']['latency_ms_p50']:.2f} ms, p99 "
+            f"{out['traffic']['latency_ms_p99']:.2f} ms (submitted during the ingest and "
+            f"delete: {out['traffic']['latency_ms_p50_p99_during_ingest']}, after: "
+            f"{out['traffic']['latency_ms_p50_p99_after_delete']}); 64 more submits vs the "
+            f"oracle max "
+            f"abs err {worst:.3g}; multi-query launches {traffic_launches}")
+        check.expect(not on_card or traffic_launches == fe["flushes"] > 0,
+                     f"{traffic_launches} multi-query launches for {fe['flushes']} passes")
+
+        # 3. Crash and recover: a torn third ingest, then a fresh store.
+        version, n_total = index.version, index.n_rows_total
+        with FaultPlan({"wal.append": 0}) as plan:
+            try:
+                live.ingest(rng.standard_normal((64, n_cols)).astype(np.float32))
+            except FaultInjected:
+                pass
+        check.expect(plan.fired == [("wal.append", 0)] and index.version == version
+                     and index.n_rows_total == n_total,
+                     "the torn third ingest was applied or did not tear")
+        live.close()
+        log("SERVICE " + json.dumps(info["service"]))
+        log("FRONTEND " + json.dumps(fe))
+        del live, fixed, store
+        t0 = time.perf_counter()
+        live_meta, live_arrays = index.export_state()
+        export_s = time.perf_counter() - t0
+        live_answers = svc.query_batch(xs64)
+        copies, retraces = executor.h2d_copies, executor.retraces
+        t0 = time.perf_counter()
+        rec = StreamingSimilarityService.recover(DurableIndexStore(root, device=device))
+        recover_s = time.perf_counter() - t0
+        timings = dict(rec.store.last_recovery)
+        rec_meta, rec_arrays = rec.index.index.export_state()
+        check.expect(rec.replayed_records == 2, f"{rec.replayed_records} records replayed, "
+                                                f"not 2")
+        check.expect(rec_meta == live_meta, "the recovered meta differs from the live index's")
+        same = sorted(rec_arrays) == sorted(live_arrays) and all(
+            rec_arrays[k].dtype == live_arrays[k].dtype
+            and np.array_equal(rec_arrays[k], live_arrays[k]) for k in live_arrays)
+        check.expect(same, "the recovered export_state differs from the live index's")
+        del live_arrays, rec_arrays
+        # The first query on the recovered snapshot pins it (uploads its
+        # words and finalize tensors, builds its split table), as the first
+        # pass after every mutation does; the second is a steady one.
+        t0 = time.perf_counter()
+        rec_answers = rec.index.query_batch(xs64)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rec.index.query_batch(xs64)
+        steady_ms = (time.perf_counter() - t0) * 1e3
+        check.expect(np.array_equal(rec_answers[0].view(np.int32),
+                                    live_answers[0].view(np.int32))
+                     and np.array_equal(rec_answers[1], live_answers[1]),
+                     "the recovered answers differ from the live service's")
+        check.expect(rec.index.index.packed.signature_info() == index.packed.signature_info(),
+                     "the recovered signature differs")
+        pin = executor_lib.device_snapshot(rec.index.index.packed, "fused", executor.device)
+        check.expect(executor.retraces == retraces,
+                     f"{executor.retraces - retraces} retraces on resume")
+        check.expect(executor.h2d_copies - copies == pin.uploads,
+                     f"h2d_copies rose by {executor.h2d_copies - copies}, the re-pin is "
+                     f"{pin.uploads}")
+        out["recovery"] = dict(timings, recover_s=recover_s, live_export_s=export_s,
+                               replayed=rec.replayed_records,
+                               h2d_copies=executor.h2d_copies - copies,
+                               first_query_batch_q64_ms=first_ms,
+                               steady_query_batch_q64_ms=steady_ms)
+        log(f"  recovery: {rec.replayed_records} records replayed; read "
+            f"{timings['read_s']:.2f} s, from_state {timings['from_state_s']:.2f} s, replay "
+            f"{timings['replay_s']:.2f} s, recover() {recover_s:.2f} s in all; the live "
+            f"index's export_state {export_s:.2f} s; export_state, answers and signature "
+            f"equal; retraces +0, h2d_copies +{executor.h2d_copies - copies} (the re-pin); "
+            f"query_batch Q=64 {first_ms:.1f} ms with the pin, {steady_ms:.1f} ms after")
+        log("RECOVERED_SERVICE " + json.dumps(rec.dispatch_info()["service"]))
+        del rec, pin
+        out["launches"] = K.bscsr_topk_spmv_multiquery.launches
+        log(f"  multi-query kernel launches in the serving phase: {out['launches']}")
+        check.expect(not on_card or out["launches"] > 0,
+                     "bscsr_topk_spmv_multiquery was not launched in the serving phase")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("SERVING " + json.dumps(out))
+    check.done()
+    return out
 
 
 def ulp_gap(a: np.ndarray, b: np.ndarray):

@@ -1,15 +1,17 @@
-"""Carry a packed snapshot across from the reference package.
+"""Carry a packed snapshot or a durable state across from the reference package.
 
 The state of this system is its packed snapshot (there are no weights): the
 per-core streams plus the slot bookkeeping.  ``packed_from_arrays`` builds
 the port's ``PackedPartitions`` from plain numpy fields, so both packages can
 answer over the identical snapshot.  A 16-bit value stream may arrive in any
 2-byte dtype (the reference keeps bf16 as ``ml_dtypes.bfloat16``); its bytes
-are kept and viewed as ``uint16``.
+are kept and viewed as ``uint16``.  ``state_from_reference`` does the same
+for a mutable index's ``export_state`` output, so a store the reference's
+``DurableIndexStore`` wrote recovers in this package.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import numpy as np
 
@@ -63,3 +65,18 @@ def packed_from_arrays(fields: Mapping) -> PackedPartitions:
         stream_layout=str(fields.get("stream_layout", "split")),
         **kw,
     )
+
+
+def state_from_reference(meta: Mapping, arrays: Mapping, device: str = "cuda"
+                         ) -> Tuple[dict, dict]:
+    """A reference ``(meta, arrays)`` state as this package's.
+
+    The config loses ``interpret`` and gains ``device``; bf16 arrays are
+    viewed as ``uint16`` bits.  Everything else (schema 1, array names,
+    caps) is shared.
+    """
+    config = {k: v for k, v in meta["config"].items() if k != "interpret"}
+    config["device"] = device
+    out = {k: (np.asarray(a).view(np.uint16) if np.asarray(a).dtype.name == "bfloat16"
+               else np.asarray(a)) for k, a in arrays.items()}
+    return dict(meta, config=config), out

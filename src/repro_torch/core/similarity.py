@@ -9,9 +9,10 @@ can be ``upsert``-ed and ``delete``-d while serving (delta tile-packets and
 tombstones, no re-encode), ``compact()`` reclaims the churn, and the graph
 workloads (``personalized_pagerank``, ``topk_eigen``) run over the rows as a
 square operator.  ``recall_target`` gives each partition its own value
-format (mixed precision, ``core/adaptive.py``).  The sharded plane
-(``mesh=``, ``n_shards > 1``) and the recovery constructor (``from_index``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+format (mixed precision, ``core/adaptive.py``).  ``from_index`` wraps an
+index that ``core/persistence.py`` recovered.  The sharded plane
+(``mesh=``, ``n_shards > 1``) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -77,16 +78,34 @@ class SparseEmbeddingIndex:
         self.index = topk_lib.MutableTopKSpMVIndex(csr, self.config)
 
     @property
+    def is_sharded(self) -> bool:
+        """Always False: the sharded plane is not ported (ROADMAP Queue 1 item 3)."""
+        return False
+
+    @property
+    def replica_factor(self) -> int:
+        """Query fan-out of one kernel pass: 1 for a single-device index."""
+        return 1
+
+    @property
     def n_cols(self) -> int:
         """Feature dimension served by the backing index."""
         return self.index.n_cols
 
     @classmethod
     def from_index(cls, index, nnz_per_row: int = 32) -> "SparseEmbeddingIndex":
-        raise NotImplementedError(
-            "from_index recovers a persisted index; persistence is not ported "
-            "yet: ROADMAP Queue 1 item 2"
-        )
+        """Wrap an already-built backing index: the recovery constructor.
+
+        ``persistence.DurableIndexStore.recover()`` returns a bare
+        ``MutableTopKSpMVIndex``; this attaches the facade to it without
+        re-encoding anything.
+        """
+        obj = cls.__new__(cls)
+        obj.config = index.config
+        obj.nnz_per_row = nnz_per_row
+        obj.index = index
+        obj.csr, _ = index.live_csr()
+        return obj
 
     @classmethod
     def from_dense(

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import adaptive as adaptive_lib
 from repro_torch.core import bscsr as bscsr_lib
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import partition as partition_lib
 from repro_torch.core.precision_model import expected_precision, min_partitions_for_precision
 from repro_torch.kernels import executor as executor_lib
@@ -111,6 +112,14 @@ def _assign_formats(csr: bscsr_lib.CSRMatrix, num_partitions: int, config: TopKS
     )
 
 
+def _quantized_planes(exact: list, formats) -> Tuple[list, list]:
+    """Mixed precision: the native plane (each exact F32 stream re-quantized
+    into its partition's format) and its f32 twins, both exact functions of
+    ``exact`` and ``formats``."""
+    native = [bscsr_lib.requantize_stream(e, FORMATS[f]) for e, f in zip(exact, formats)]
+    return native, [bscsr_lib.dequantize_stream(n) for n in native]
+
+
 def build_index(csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig) -> TopKSpMVIndex:
     """Pack a collection; with ``config.recall_target`` each partition gets
     the format ``adaptive.assign_partition_formats`` chooses for it."""
@@ -158,8 +167,13 @@ class MutableTopKSpMVIndex:
     format, which the tagged width-class groups stream) and ``_streams``
     (the native values exactly dequantized: the f32 twins the oracle and the
     pad/stack machinery read).  Refresh re-scores mutated partitions and only
-    ever promotes; ``compact`` re-assigns every format.  ``export_state`` /
-    ``from_state`` and the fault hooks are ROADMAP Queue 1 item 2.
+    ever promotes; ``compact`` re-assigns every format.
+
+    Crash safety: ``export_state`` / ``from_state`` round-trip the whole
+    state (``core/persistence.py`` writes it to disk), and refresh and
+    compact call ``faults.fault_point`` where a crash would be interesting.
+    A fault anywhere before the one assignment that swaps in a snapshot
+    leaves the previous snapshot serving bit for bit.
     """
 
     def __init__(self, csr: bscsr_lib.CSRMatrix, config: TopKSpMVConfig):
@@ -179,8 +193,10 @@ class MutableTopKSpMVIndex:
         self.last_refresh_promoted = 0
         if config.recall_target is not None:
             self._fmt = F32  # the split twin plane is uniformly f32
-            self._set_planes([bscsr_lib.encode_bscsr(p, config.block_size, F32)
-                              for p in parts], *_assign_formats(csr, c, config))
+            fmt_plan, self._calib = _assign_formats(csr, c, config)
+            self._part_fmts = list(fmt_plan.formats)
+            self._exact = [bscsr_lib.encode_bscsr(p, config.block_size, F32) for p in parts]
+            self._native, self._streams = _quantized_planes(self._exact, self._part_fmts)
         else:
             self._streams = [
                 bscsr_lib.encode_bscsr(p, config.block_size, self._fmt) for p in parts
@@ -221,16 +237,6 @@ class MutableTopKSpMVIndex:
         self.last_compact_parallel = False
         self._refresh()
 
-    def _set_planes(self, exact: list, fmt_plan, calib) -> None:
-        """Mixed precision: the formats and calibration, and the native and
-        twin planes quantized from the exact (F32) streams."""
-        self._part_fmts = list(fmt_plan.formats)
-        self._calib = calib
-        self._exact = exact
-        self._native = [bscsr_lib.requantize_stream(e, FORMATS[f])
-                        for e, f in zip(exact, self._part_fmts)]
-        self._streams = [bscsr_lib.dequantize_stream(n) for n in self._native]
-
     def _reset_padded_cache(self) -> None:
         """Invalidate the per-partition padded-stream (+ fused words) cache."""
         c = len(self._streams)
@@ -260,25 +266,36 @@ class MutableTopKSpMVIndex:
 
     # -- snapshot bookkeeping ------------------------------------------------
 
-    def _refresh(self) -> None:
+    def _refresh(self, preserve_caps: bool = False) -> None:
         """Swap in a fresh immutable snapshot (bumps the version counter).
 
+        ``preserve_caps`` is the checkpoint-restore mode: the churn-stable
+        packet cap and width-class caps were restored verbatim from the
+        saved state and are used as they are, so a recovered index keeps
+        the crashed process's padded shapes and executor signature.
+
         Everything builds into locals; the served ``self._packed`` is
-        replaced by one assignment at the end.  Only partitions whose stream
-        mutated since the last snapshot are re-padded, unless the common
-        packet count changed.  With ``churn_stable`` the packet cap is the
-        exact step-aligned count at build/compact and jumps to the
-        power-of-two bucket at the first mutation, so steady ingest after it
-        changes the padded shapes only when a bucket doubles.  The padded
-        tail is flag-free zero packets, which the kernels stream as a
-        continuation of the open sentinel row.
+        replaced by one assignment at the end.  A fault before it (the
+        ``refresh.cow_rewrite`` and ``refresh.swap`` points) leaves the
+        previous snapshot serving bit for bit, and a retry (``refresh``)
+        converges: the padded caches and COW leases depend only on the
+        stream state, and a dropped lease is released with its snapshot.
+
+        Only partitions whose stream mutated since the last snapshot are
+        re-padded, unless the common packet count changed.  With
+        ``churn_stable`` the packet cap is the exact step-aligned count at
+        build/compact and jumps to the power-of-two bucket at the first
+        mutation, so steady ingest after it changes the padded shapes only
+        when a bucket doubles.  The padded tail is flag-free zero packets,
+        which the kernels stream as a continuation of the open sentinel
+        row.
 
         Mixed precision: mutated partitions are first re-scored against the
         stored calibration and the worst promoted up the byte ladder if the
         recall budget is breached (promote only, so benign upserts keep the
         format vector and the executor signature).  The tagged width-class
-        groups pad to their own per-class caps, re-fuse only dirty, re-capped
-        or re-formatted partitions, and stack copy-on-write too.
+        groups pad to their own per-class caps, re-fuse only re-padded,
+        re-capped or re-formatted partitions, and stack copy-on-write too.
         """
         hetero = self._part_fmts is not None
         # A mixed-precision snapshot never carries uniform fused words: its
@@ -305,7 +322,9 @@ class MutableTopKSpMVIndex:
         max_p = max(e.num_packets for e in self._streams)
         max_p = max(-(-max_p // mult) * mult, mult)
         if self.config.churn_stable:
-            if self._packet_cap < 0:
+            if preserve_caps and self._packet_cap >= 0:
+                pass                              # restore: the saved cap holds
+            elif self._packet_cap < 0:
                 self._packet_cap = max_p          # anchor refresh: exact
             else:                                 # mutation refresh: bucket
                 self._packet_cap = max(
@@ -320,13 +339,19 @@ class MutableTopKSpMVIndex:
             padded = bscsr_lib.pad_packets(self._streams[ci], max_p)
             self._padded_streams[ci] = padded
             self._padded_words[ci] = bscsr_lib.fuse_stream(padded) if fused else None
+            # Its tagged words re-fuse in _refresh_groups, also on a retry
+            # after a fault past the clearing of the dirty set.
+            self._padded_tagged[ci] = None
         self._padded_max_p = max_p
         self._dirty = set()
         self.last_refresh_repadded = len(dirty)
         self.total_repadded += len(dirty)
+        # Padded streams rebuilt and the dirty set cleared, stacked buffers
+        # not yet written: a retry re-stacks from the same caches.
+        faults_lib.fault_point("refresh.cow_rewrite")
         groups, fmt_codes, group_bufs, group_copied = None, None, [], 0
         if hetero:
-            groups, group_bufs, group_copied = self._refresh_groups(dirty, mult)
+            groups, group_bufs, group_copied = self._refresh_groups(mult, preserve_caps)
             fmt_codes = np.array([FORMATS[f].code for f in self._part_fmts], np.int32)
 
         num_slots = np.array([len(s) for s in self._slots], dtype=np.int32)
@@ -386,6 +411,9 @@ class MutableTopKSpMVIndex:
             )
         for gbuf in group_bufs:
             gbuf.attach(new_packed)
+        # The fresh snapshot exists and the served one is still the old one:
+        # a fault here drops ``new_packed`` (its leases release with it).
+        faults_lib.fault_point("refresh.swap")
         self._packed = new_packed
         self.last_refresh_group_copied = group_copied
         self.total_group_copied += group_copied
@@ -393,21 +421,24 @@ class MutableTopKSpMVIndex:
         self.total_copied += copied
         self._version += 1
 
-    def _refresh_groups(self, dirty: set, mult: int):
+    def _refresh_groups(self, mult: int, preserve_caps: bool):
         """The tagged width-class groups of a refresh -> (groups, leased
         buffers, member streams copied).
 
         Each class pads to its own packet cap (anchored exactly at
-        build/compact, bucketed by mutations, like ``_packet_cap``), so a
-        narrow class never inherits the widest one's packets.  Only dirty,
-        re-capped or re-formatted partitions re-fuse.
+        build/compact, bucketed by mutations, like ``_packet_cap``, and kept
+        as restored under ``preserve_caps``), so a narrow class never
+        inherits the widest one's packets.  Only re-padded, re-capped or
+        re-formatted partitions re-fuse.
         """
         nat: dict = {}
         for n in self._native:
             cname = width_class_of(n.value_format).name
             nat[cname] = max(nat.get(cname, 0), max(-(-n.num_packets // mult) * mult, mult))
         if self.config.churn_stable:
-            if self._class_caps is None:
+            if preserve_caps and self._class_caps is not None:
+                pass                                  # restore: the saved caps hold
+            elif self._class_caps is None:
                 self._class_caps = dict(nat)          # anchor refresh: exact
             else:                                     # mutation refresh: bucket
                 for cname, p in nat.items():
@@ -421,8 +452,7 @@ class MutableTopKSpMVIndex:
             cname = width_class_of(n.value_format).name
             cap = caps[cname]
             cached = self._padded_tagged[ci]
-            if (ci in dirty or cached is None or cached[0] != cap
-                    or cached[1] != n.value_format.name):
+            if cached is None or cached[0] != cap or cached[1] != n.value_format.name:
                 words = bscsr_lib.fuse_stream(bscsr_lib.pad_packets(n, cap), tagged=True)
                 self._padded_tagged[ci] = (cap, n.value_format.name, words)
             by_class.setdefault(cname, []).append(ci)
@@ -445,7 +475,8 @@ class MutableTopKSpMVIndex:
         return tuple(groups), bufs, copied
 
     def refresh(self) -> None:
-        """Rebuild and swap the serving snapshot."""
+        """Rebuild and swap the serving snapshot: the retry after a refresh
+        interrupted between a mutation and the swap."""
         self._refresh()
 
     @property
@@ -665,12 +696,19 @@ class MutableTopKSpMVIndex:
         else:
             streams = [encode(p) for p in parts]
         self.last_compact_parallel = parallel
+        planes = None
         if self._part_fmts is not None:
             # The full re-assignment, the one place formats may demote: a fresh
             # calibration over the live rows, then the three planes anew.
             # ``self._fmt`` is F32 here, so ``streams`` is the exact plane.
-            self._set_planes(streams, *_assign_formats(csr, plan.num_partitions,
-                                                        self.config))
+            fmt_plan, calib = _assign_formats(csr, plan.num_partitions, self.config)
+            fmts = list(fmt_plan.formats)
+            planes = (fmts, calib, streams) + _quantized_planes(streams, fmts)
+        # Everything above is in locals: a fault up to here leaves the index
+        # and its served snapshot as they were.
+        faults_lib.fault_point("compact.swap")
+        if planes is not None:
+            self._part_fmts, self._calib, self._exact, self._native, self._streams = planes
         else:
             self._streams = streams
         self._base_packets = max(e.num_packets for e in streams)
@@ -689,6 +727,165 @@ class MutableTopKSpMVIndex:
         self._dead_nnz = 0
         self._tombstone_slots = 0
         self._refresh()
+
+    # -- durable state (core/persistence.py writes and reads it) -------------
+
+    def export_state(self) -> Tuple[dict, dict]:
+        """The whole logical and stream state as (json-able meta, named arrays).
+
+        Schema 1, with the reference's array names, so ``from_state``
+        rebuilds this index bit for bit, churn-stable caps included (the
+        restored snapshot keeps the padded shapes and executor signature).
+        The config is this package's (``device`` in place of the reference's
+        ``interpret``).  A mixed-precision index stores only its exact F32
+        plane, the format vector and the calibration: the native and twin
+        planes are exact functions of them.
+        """
+        hetero = self._part_fmts is not None
+        plane = self._exact if hetero else self._streams
+        arrays: dict = {}
+        stream_meta = []
+        for ci, s in enumerate(plane):
+            arrays[f"s{ci}_vals"] = s.vals
+            arrays[f"s{ci}_cols"] = s.cols
+            arrays[f"s{ci}_flags"] = s.flags
+            stream_meta.append({"n_rows": int(s.n_rows), "nnz": int(s.nnz),
+                                "fmt": s.value_format.name})
+        arrays["slot_lens"] = np.asarray([len(s) for s in self._slots], np.int64)
+        arrays["slots"] = np.concatenate(
+            [np.asarray(s, np.int64) for s in self._slots] + [np.zeros(0, np.int64)])
+        gids = np.sort(np.fromiter(self._rows, np.int64, len(self._rows)))
+        rows = self._rows_csr(gids.tolist())
+        arrays["row_gids"] = gids
+        arrays["row_lens"] = np.diff(rows.indptr).astype(np.int64)
+        arrays["row_cols"] = rows.indices.astype(np.int32, copy=False)
+        arrays["row_vals"] = rows.data.astype(np.float32, copy=False)
+        self._deleted.grow(self._next_gid)
+        arrays["deleted"] = self._deleted.bits[: max(self._next_gid, 1)].copy()
+        calib_meta = None
+        if self._calib is not None:
+            c = self._calib
+            arrays["calib_queries"] = c.queries
+            arrays["calib_thresholds"] = c.thresholds
+            arrays["calib_losses"] = c.losses
+            for fname, arr in c.quant_thresholds.items():
+                arrays[f"calib_qt_{fname}"] = arr
+            calib_meta = {"k": int(c.k), "budget": float(c.budget),
+                          "quant_fmts": sorted(c.quant_thresholds)}
+        meta = {
+            "schema": 1,
+            "config": dataclasses.asdict(self.config),
+            "n_cols": int(self._n_cols),
+            "plan_rows": int(self._plan.n_rows),
+            "plan_partitions": int(self._plan.num_partitions),
+            "next_gid": int(self._next_gid),
+            "live_nnz": int(self._live_nnz),
+            "delta_nnz": int(self._delta_nnz),
+            "dead_nnz": int(self._dead_nnz),
+            "tombstone_slots": int(self._tombstone_slots),
+            "base_packets": int(self._base_packets),
+            "version": int(self._version),
+            "packet_cap": int(self._packet_cap),
+            "class_caps": ({k: int(v) for k, v in self._class_caps.items()}
+                           if self._class_caps is not None else None),
+            "part_fmts": list(self._part_fmts) if hetero else None,
+            "streams": stream_meta,
+            "calib": calib_meta,
+        }
+        return meta, arrays
+
+    @classmethod
+    def from_state(cls, meta: dict, arrays: dict, device: str = "cuda"
+                   ) -> "MutableTopKSpMVIndex":
+        """Rebuild an index from ``export_state`` output, serving on ``device``.
+
+        The restored snapshot answers bit for bit like the exported one and
+        has the same signature, so resuming re-pins it with zero retraces.
+        A state the reference package wrote goes through
+        ``repro_torch.convert.state_from_reference`` first.
+        """
+        if meta.get("schema") != 1:
+            raise ValueError(f"unsupported state schema: {meta.get('schema')}")
+        if "interpret" in meta["config"]:
+            raise ValueError("this state was written by the reference package; convert it "
+                             "with repro_torch.convert.state_from_reference")
+        config = TopKSpMVConfig(**dict(meta["config"], device=device))
+        hetero = meta["part_fmts"] is not None
+        obj = cls.__new__(cls)
+        obj.config = config
+        obj._n_cols = int(meta["n_cols"])
+        obj._fmt = F32 if hetero else FORMATS[config.value_format]
+        obj._plan = partition_lib.PartitionPlan.build(meta["plan_rows"],
+                                                      meta["plan_partitions"])
+        plane = [
+            bscsr_lib.BSCSRMatrix(
+                vals=arrays[f"s{ci}_vals"], cols=arrays[f"s{ci}_cols"],
+                flags=arrays[f"s{ci}_flags"], n_rows=int(sm["n_rows"]),
+                n_cols=obj._n_cols, nnz=int(sm["nnz"]), block_size=config.block_size,
+                value_format=FORMATS[sm["fmt"]])
+            for ci, sm in enumerate(meta["streams"])
+        ]
+        obj.last_refresh_promoted = 0
+        obj._part_fmts = obj._calib = obj._exact = obj._native = None
+        if hetero:
+            obj._part_fmts = list(meta["part_fmts"])
+            obj._exact = plane
+            obj._native, obj._streams = _quantized_planes(plane, obj._part_fmts)
+            cm = meta["calib"]
+            if cm is not None:
+                obj._calib = adaptive_lib.PrecisionCalibration(
+                    queries=arrays["calib_queries"],
+                    thresholds=arrays["calib_thresholds"],
+                    k=int(cm["k"]),
+                    budget=float(cm["budget"]),
+                    losses=np.array(arrays["calib_losses"]),
+                    quant_thresholds={f: arrays[f"calib_qt_{f}"] for f in cm["quant_fmts"]},
+                )
+        else:
+            obj._streams = plane
+        obj._base_packets = int(meta["base_packets"])
+        bounds = np.concatenate([[0], np.cumsum(arrays["slot_lens"])]).tolist()
+        flat = arrays["slots"]
+        obj._slots = [flat[a:b].tolist() for a, b in zip(bounds[:-1], bounds[1:])]
+        invalid = int(bscsr_lib.INVALID_ROW)
+        obj._loc = {
+            gid: (ci, si)
+            for ci, slots in enumerate(obj._slots)
+            for si, gid in enumerate(slots)
+            if gid != invalid
+        }
+        cols, vals = arrays["row_cols"], arrays["row_vals"]
+        bounds = np.concatenate([[0], np.cumsum(arrays["row_lens"])]).tolist()
+        obj._rows = {
+            gid: (cols[a:b], vals[a:b])
+            for gid, a, b in zip(arrays["row_gids"].tolist(), bounds[:-1], bounds[1:])
+        }
+        obj._next_gid = int(meta["next_gid"])
+        obj._deleted = bscsr_lib.TombstoneBitmap(bits=np.array(arrays["deleted"], dtype=bool))
+        obj._deleted.grow(obj._next_gid)
+        obj._live_nnz = int(meta["live_nnz"])
+        obj._delta_nnz = int(meta["delta_nnz"])
+        obj._dead_nnz = int(meta["dead_nnz"])
+        obj._tombstone_slots = int(meta["tombstone_slots"])
+        obj._version = int(meta["version"]) - 1  # _refresh bumps it back
+        obj._packed = None
+        obj._live_csr_cache = None
+        obj._buffer_pool = kernel_ops.SnapshotBufferPool()
+        obj._stamp_counter = 0
+        obj._reset_padded_cache()
+        obj.last_refresh_repadded = 0
+        obj.total_repadded = 0
+        obj.last_refresh_copied = 0
+        obj.total_copied = 0
+        obj.last_refresh_group_copied = 0
+        obj.total_group_copied = 0
+        obj.last_compact_parallel = False
+        # The churn-stable caps as saved, then the snapshot around them.
+        obj._packet_cap = int(meta["packet_cap"])
+        if meta["class_caps"] is not None:
+            obj._class_caps = {k: int(v) for k, v in meta["class_caps"].items()}
+        obj._refresh(preserve_caps=True)
+        return obj
 
 
 def query_executor(config: TopKSpMVConfig) -> executor_lib.QueryExecutor:

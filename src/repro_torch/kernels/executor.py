@@ -31,10 +31,15 @@
   same uploads are counted, so the rule is testable there).  The query
   itself is per-call input, not snapshot state, and is not counted.  A
   steady-state dispatch adds 0 to it.
+* One executor serves every thread of the process (a serving frontend
+  dispatches from its own thread while callers query from theirs), so its
+  caches and counters change under a lock; the query functions run outside
+  it.
 """
 from __future__ import annotations
 
 import functools
+import threading
 import weakref
 from typing import Tuple
 
@@ -172,6 +177,7 @@ class QueryExecutor:
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self._lock = threading.Lock()   # caches and counters
         self._fns: dict = {}
         self._pinned: set = set()
         self._last_sig: dict = {}
@@ -188,6 +194,10 @@ class QueryExecutor:
         ``q`` is None for the single-query fn, the Q bucket for a batch, or
         ``("spmv", n_out)`` for the accumulate paths.
         """
+        with self._lock:
+            return self._prepare(packed, q, path)
+
+    def _prepare(self, packed: ops.PackedPartitions, q, path: str):
         if path not in PATHS:
             raise ValueError(f"path must be one of {PATHS}, got {path!r}")
         layout = "split" if path in ("reference", "accumulate_ref") else "fused"
@@ -225,8 +235,9 @@ class QueryExecutor:
         x = self._on_device(x)
         if x.dim() != 1:
             raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
-        fn, snap = self.prepare(packed, None, path)
-        self.dispatches += 1
+        with self._lock:
+            fn, snap = self._prepare(packed, None, path)
+            self.dispatches += 1
         return fn(x, snap)
 
     def query_batched(self, xs, packed: ops.PackedPartitions, path: str = "kernel"
@@ -237,14 +248,15 @@ class QueryExecutor:
             raise ValueError(f"xs must be a non-empty (Q, M) batch, got {tuple(xs.shape)}")
         q = xs.shape[0]
         bucket = _q_bucket(q)
-        builds_before = self.fn_builds
-        fn, snap = self.prepare(packed, bucket, path)
-        if self.fn_builds == builds_before:
-            if bucket != q:
-                self.q_bucket_hits += 1
-            else:
-                self.q_exact_hits += 1
-        self.dispatches += 1
+        with self._lock:
+            builds_before = self.fn_builds
+            fn, snap = self._prepare(packed, bucket, path)
+            if self.fn_builds == builds_before:
+                if bucket != q:
+                    self.q_bucket_hits += 1
+                else:
+                    self.q_exact_hits += 1
+            self.dispatches += 1
         return fn(xs, snap)
 
     def spmv(self, x, packed: ops.PackedPartitions, *, alpha, beta, y,
@@ -275,11 +287,16 @@ class QueryExecutor:
         if x.dim() != 1 or y.dim() != 1:
             raise ValueError(f"x and y must be vectors, got {tuple(x.shape)} and "
                              f"{tuple(y.shape)}")
-        fn, snap = self.prepare(packed, ("spmv", int(y.shape[0])), path)
-        self.dispatches += 1
+        with self._lock:
+            fn, snap = self._prepare(packed, ("spmv", int(y.shape[0])), path)
+            self.dispatches += 1
         return fn(x, alpha, beta, y, snap)
 
     def cache_info(self) -> dict:
+        with self._lock:
+            return self._cache_info()
+
+    def _cache_info(self) -> dict:
         self._pinned &= set(_DEVICE_CACHE.keys())
         return {
             "compiled_fns": len(self._fns),

@@ -7,6 +7,7 @@ inputs, made from a seed with numpy.
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from repro_torch.kernels import ops as tops
 
 FORMATS = ["F32", "BF16", "Q15", "Q7"]
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+SRC_PORT = Path(SRC) / "repro_torch"
 
 
 def as_bytes(a: np.ndarray) -> bytes:
@@ -226,17 +228,19 @@ class TestPrecisionModel:
 
 
 def test_import_hygiene():
-    """The port and its entry points import neither jax nor repro."""
+    """Every module of the port imports neither jax, repro nor ml_dtypes."""
+    modules = sorted(
+        ".".join(("repro_torch",) + path.relative_to(SRC_PORT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for path in SRC_PORT.rglob("*.py"))
+    assert {"repro_torch.core.adaptive", "repro_torch.core.persistence",
+            "repro_torch.serve.streaming", "repro_torch.utils.watchdog"} <= set(modules)
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.convert\n"
-        "import repro_torch.core.bscsr, repro_torch.core.partition\n"
-        "import repro_torch.core.precision_model, repro_torch.core.quantization\n"
-        "import repro_torch.core.similarity, repro_torch.core.topk_spmv\n"
-        "import repro_torch.kernels.bscsr_topk_spmv, repro_torch.kernels.executor\n"
-        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
-        "import repro_torch.core.graph, repro_torch.serve.graph_ranking\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -778,3 +778,153 @@ def test_mixed_facade_on_the_card(cuda):
     svc.query_batch(xs)
     assert svc.index.partition_formats == cpu.index.partition_formats
     assert svc.dispatch_info()["retraces"] <= retraces + 1
+
+
+# ---------------------------------------------------------------------------
+# Ragged Q (the serving frontend coalesces any Q from 1 to max_batch)
+# ---------------------------------------------------------------------------
+
+RAGGED_QS = [9, 37, 63]     # full chunks of 8 and a ragged last one
+
+
+@pytest.mark.parametrize("fmt", ["BF16", "Q7"])
+@pytest.mark.parametrize("q", RAGGED_QS)
+def test_mq_kernel_at_ragged_q_matches_plain_bitwise(cuda, fmt, q):
+    """Dyadic data: every S gives the plain walk's bits when the last query
+    chunk is short."""
+    assert K.query_chunks(q)[0] * (K.query_chunks(q)[1] - 1) < q
+    csr = long_row_csr(300, 512, 32, seed=q, dyadic=True)
+    packed = ops.pack_partitions(csr, 4, 32, fmt, packets_multiple=2, stream_layout="fused")
+    w = torch.from_numpy(packed.words)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name=fmt, block_size=32)
+    xs = mq_queries(q, 512, seed=q + 1, dyadic=True)
+    want = K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)
+    for splits in (None, 1, 64):
+        got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert_same_bits(got, want, f"Q={q} S={splits}")
+
+
+@pytest.mark.parametrize("fmt", ["BF16", "Q7"])
+@pytest.mark.parametrize("q", RAGGED_QS)
+def test_mq_kernel_at_ragged_q_on_random_data(cuda, fmt, q):
+    """Random data: the card's S gives the S = 1 bits, which agree with
+    plain within rtol = atol = 1e-5; the first chunk's bits are those of a
+    call with those 8 queries alone."""
+    csr = long_row_csr(300, 2000, 256, seed=q + 2, dyadic=False)
+    packed = ops.pack_partitions(csr, 4, 256, fmt, packets_multiple=2, stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name=fmt, block_size=256)
+    xs = mq_queries(q, 2000, seed=q + 3, dyadic=False).to(cuda)
+    one = K.bscsr_topk_spmv_multiquery(xs, w, splits=1, **kw)
+    for splits in (None, 64):
+        assert_same_bits(K.bscsr_topk_spmv_multiquery(xs, w, splits=splits, **kw), one,
+                         f"Q={q} S={splits}")
+    want = K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)
+    np.testing.assert_allclose(one[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    eight = K.bscsr_topk_spmv_multiquery(xs[:8].contiguous(), w, splits=1, **kw)
+    assert_same_bits((one[0][:, :8], one[1][:, :8]), eight, "the first chunk")
+
+
+@pytest.mark.parametrize("q", RAGGED_QS)
+def test_tagged_mq_kernel_at_ragged_q(cuda, q):
+    """Each width class (TAG4, TAG2, TAG1) at a ragged Q: dyadic bit for bit
+    against plain at every S; random at the card's S equal to S = 1 and
+    within rtol = atol = 1e-5 of plain."""
+    for dyadic in (True, False):
+        n_cols = 512 if dyadic else 2000
+        csr = (dyadic_csr(800, n_cols, seed=q + 20) if dyadic
+               else long_row_csr(600, n_cols, 64, seed=q + 21, dyadic=False))
+        packed, groups = mixed_pack(csr, 64 if not dyadic else 32, 2)
+        xs = mq_queries(q, n_cols, seed=q, dyadic=dyadic)
+        for name, g in groups.items():
+            w = torch.from_numpy(g.words)
+            kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name=name,
+                      block_size=64 if not dyadic else 32)
+            want = K.bscsr_topk_spmv_multiquery_plain(xs, w, **kw)
+            one = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=1, **kw)
+            for splits in (None, 64):
+                got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits,
+                                                   **kw)
+                torch.cuda.synchronize()
+                assert_same_bits(got, one, f"{name} Q={q} S={splits}")
+            if dyadic:
+                assert_same_bits(one, want, f"{name} Q={q} plain")
+            else:
+                np.testing.assert_allclose(one[0].cpu().numpy(), want[0].cpu().numpy(),
+                                           rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The serving plane on the card, at test size
+# ---------------------------------------------------------------------------
+
+def serving_facade(cuda, n_rows=20_000):
+    csr = bscsr.synthetic_embedding_csr(n_rows, 128, 12, "gamma", seed=3)
+    return SparseEmbeddingIndex(csr, api.TopKSpMVConfig(
+        big_k=20, k=8, value_format="BF16", num_partitions=8, device="cuda"))
+
+
+def test_frontend_burst_on_the_card(cuda):
+    """37 submits and flush() make one pass of Q = 37: one launch of the
+    multi-query kernel, bit for bit equal to query_batch."""
+    from repro_torch.serve import FrontendConfig, StreamingSimilarityService
+
+    svc = serving_facade(cuda)
+    xs = np.random.default_rng(37).standard_normal((37, 128)).astype(np.float32)
+    want = svc.query_batch(xs)
+    service = StreamingSimilarityService(svc, frontend=FrontendConfig(
+        adaptive=False, target_batch=64, max_batch=64, flush_deadline_s=30.0))
+    try:
+        K.reset_launch_counts()
+        futs = [service.submit(x) for x in xs]
+        service.flush()
+        got = [f.result(timeout=120) for f in futs]
+        assert service.frontend.info()["batch_histogram"] == {37: 1}
+        assert K.bscsr_topk_spmv_multiquery.launches == 1
+    finally:
+        service.close()
+    for i, (v, r) in enumerate(got):
+        np.testing.assert_array_equal(v.view(np.int32), want[0][i].view(np.int32))
+        np.testing.assert_array_equal(r, want[1][i])
+
+
+def test_recovery_round_trip_on_the_card(cuda, tmp_path):
+    """Ingest and delete through a durable service, a torn third ingest,
+    then recovery onto the card: 2 records replayed, equal state, the same
+    bits and signature, no retrace, h2d_copies up by the re-pin only."""
+    from repro_torch.core.faults import FaultInjected, FaultPlan
+    from repro_torch.core.persistence import DurableIndexStore
+    from repro_torch.kernels import executor as executor_lib
+    from repro_torch.serve import StreamingSimilarityService
+
+    svc = serving_facade(cuda)
+    rng = np.random.default_rng(38)
+    service = StreamingSimilarityService(svc, store=DurableIndexStore(tmp_path))
+    service.ingest(rng.standard_normal((16, 128)).astype(np.float32))
+    service.delete([1, 5, 20_003])
+    with FaultPlan({"wal.append": 0}):
+        with pytest.raises(FaultInjected):
+            service.ingest(rng.standard_normal((16, 128)).astype(np.float32))
+    xs = rng.standard_normal((9, 128)).astype(np.float32)
+    live = service.search(xs)
+    meta, arrays = svc.index.export_state()
+    ex = api.query_executor(svc.config)
+    copies, retraces = ex.h2d_copies, ex.retraces
+    K.reset_launch_counts()
+    rec = StreamingSimilarityService.recover(DurableIndexStore(tmp_path))
+    assert rec.replayed_records == 2
+    got = rec.search(xs)
+    assert K.bscsr_topk_spmv_multiquery.launches == 1
+    np.testing.assert_array_equal(got[0].view(np.int32), live[0].view(np.int32))
+    np.testing.assert_array_equal(got[1], live[1])
+    assert not {1, 5, 20_003} & set(got[1].reshape(-1).tolist())
+    rmeta, rarrays = rec.index.index.export_state()
+    assert rmeta == meta and sorted(rarrays) == sorted(arrays)
+    for name in arrays:
+        np.testing.assert_array_equal(rarrays[name], arrays[name], err_msg=name)
+    assert rec.index.index.packed.signature_info() == svc.index.packed.signature_info()
+    pin = executor_lib.device_snapshot(rec.index.index.packed, "fused", ex.device)
+    assert ex.retraces == retraces
+    assert ex.h2d_copies - copies == pin.uploads

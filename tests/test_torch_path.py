@@ -277,12 +277,21 @@ class TestFacade:
 
     @pytest.mark.parametrize("case", ["mesh", "n_shards", "from_index"])
     def test_later_slices_raise(self, facades, case):
+        """The sharded plane raises naming its ROADMAP item; ``from_index``
+        (ported with the serving plane) wraps the index it is given."""
         j, t = facades
         csr = port_csr(j.csr)
+        if case == "from_index":
+            wrapped = TorchIndex.from_index(t.index, nnz_per_row=t.nnz_per_row)
+            assert wrapped.index is t.index and wrapped.config == t.config
+            assert not wrapped.is_sharded and wrapped.replica_factor == 1
+            xs = np.random.default_rng(9).standard_normal((3, N_COLS)).astype(np.float32)
+            for a, b in zip(wrapped.query_batch(xs), t.query_batch(xs)):
+                np.testing.assert_array_equal(a, b)
+            return
         call = {
             "mesh": lambda: TorchIndex(csr, tcfg(), mesh=object()),
             "n_shards": lambda: TorchIndex(csr, tcfg(), n_shards=2),
-            "from_index": lambda: TorchIndex.from_index(t.index),
         }[case]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
