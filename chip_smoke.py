@@ -106,10 +106,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              64 queries bit for bit equal, the same signature, no retrace
              and ``h2d_copies`` up by the re-pin only.  The multi-query
              kernel's launches must rise here.
-   summary   a ``MIXED`` line, the ``kernels`` JSON line (each kernel's
-             classes and its mixed-path times; the multi-query kernel's
-             launches count phases 3 and 7), the card's name and power
-             limit, and the result line.
+8. sharded   run after phase 7 and before phase 5 (phase 3's facade freed):
+             phase 3's collection and config behind
+             ``SparseEmbeddingIndex(csr, cfg, n_shards=4)`` (8 partitions a
+             shard, cut: none); phase 3's mutations replayed (the ingest of
+             64 rows, the 64 deletes, three upserts of 8): ``query`` and
+             ``query_batch`` at Q = 1, 8, 64 and ``index.query`` (the
+             single-query kernel) bit for bit equal to phase 3's answers
+             before, between and after them, the same ids assigned,
+             ``h2d_copies`` equal to the shard pins' tensors and flat in
+             steady state, no retrace within the buckets.  Failover: one
+             Q = 64 batch under ``FaultPlan({"dispatch.shard": 0})`` equals
+             the full answers restricted to shards 1-3's rows, the health
+             fields say so, and ``recover_shard(0)`` re-pins shard 0 alone
+             (timed with the first query after it) and gives the full
+             answers back.  Phase 6's graph cell on 4 shards: a cold
+             ``rank(seeds=[5, 17, 4242], top_k=10)``, one accumulate launch
+             per shard and iteration; phase 6 holds its single-device cold
+             rank to it bit for bit, in as many iterations.  The approximate
+             head at Qwen2.5-3B's vocabulary and width (read from
+             ``src/repro/configs/qwen25_3b.py``; a random embedding from
+             ``--seed``), ``TopKHeadConfig`` defaults, unsharded and on 4
+             shards: ``topk_logits_batch`` of 64 hidden states bit for bit
+             equal, ``topk_logits(use_kernel=True)`` within phase 4's
+             tolerance of the plain answer, overlap@64 against
+             ``exact_topk_logits`` beside ``partition_precision``.  Every
+             kernel must launch here; then each kernel's device time per
+             shard and in sum, beside phase 4's single-device time and the
+             bound.
+   summary   ``SHARDED`` and ``MIXED`` lines, the ``kernels`` JSON line
+             (each kernel's classes, its mixed-path and per-shard times;
+             ``launches`` counts phases 3, 6, 7 and 8, with phase 7's and
+             8's also apart), the card's name and power limit, and the
+             result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
@@ -169,6 +198,11 @@ GRAPH_SEEDS = [5, 17, 4242]
 # eigenvalues lie so close that deflated power iteration does not reach
 # tol = 1e-5 within 3000 steps; 1024 is the largest power of two that does.
 EIGEN_NODES = 1024
+# Phase 8: the query cell, the graph cell and the head on four shards; the
+# head at Qwen2.5-3B's vocabulary and width, read from the repo's config.
+SHARDS = 4
+QWEN25_3B_CONFIG = "src/repro/configs/qwen25_3b.py"
+HEAD_EXACT = 16               # hidden states held to exact_topk_logits for overlap@64
 
 
 def log(*args) -> None:
@@ -489,6 +523,17 @@ def host_ms_per_call(torch, fn, reps=50):
     return host
 
 
+def median_ms(fn, reps=5) -> float:
+    """Host-clock median ms of ``fn`` (which returns host arrays) after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def time_once(torch, fn):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -645,6 +690,8 @@ def main() -> int:
             answers += [(xs64[0], tuple(t.cpu().numpy() for t in direct))]
         return answers
 
+    # Phase 8 replays this path on four shards and holds its answers to these.
+    kept = {"before": (single[0], batch8, batch64, tuple(t.cpu().numpy() for t in direct))}
     answers = all_answers(single, batch8, batch64, direct)
     worst = against_oracle(answers)
     log(f"  {len(answers)} answers vs the torch oracle: max abs err {worst:.3g}")
@@ -665,18 +712,9 @@ def main() -> int:
                      "query() output is not 100 finite scores over valid rows")
 
     # End-to-end host-clock latency of the facade (after warm-up).
-    def host_ms(fn, reps=5):
-        fn()
-        t = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            t.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(t))
-
-    e2e = {"query_ms": host_ms(lambda: svc.query(xs64[0])),
-           "query_batch_q8_ms": host_ms(lambda: svc.query_batch(xs64[:8])),
-           "query_batch_q64_ms": host_ms(lambda: svc.query_batch(xs64))}
+    e2e = {"query_ms": median_ms(lambda: svc.query(xs64[0])),
+           "query_batch_q8_ms": median_ms(lambda: svc.query_batch(xs64[:8])),
+           "query_batch_q64_ms": median_ms(lambda: svc.query_batch(xs64))}
     log("END_TO_END " + json.dumps(e2e))
 
     # Serve while ingesting: 64 new rows, 64 deleted, then the same queries.
@@ -701,16 +739,19 @@ def main() -> int:
     single = [svc.query(xs64[i]) for i in range(3)]
     batch8 = svc.query_batch(xs64[:8])
     batch64 = svc.query_batch(xs64)
+    kept["after_ingest"] = (single[0], batch8, batch64)
     answers = all_answers(single, batch8, batch64)
     worst = against_oracle(answers, deleted)
     first_retraces = executor.retraces - retraces_before
     signature_after = index.packed.signature_info()
+    kept["mutations"] = {"new_rows": new_rows, "deleted": sorted(deleted), "upserts": []}
     for i in range(3):                            # further ingest: no retrace
-        svc.upsert(rng.standard_normal((8, 512)).astype(np.float32))
-        svc.query(xs64[i])
-        svc.query_batch(xs64[:8])
-        svc.query_batch(xs64)
+        rows8 = rng.standard_normal((8, 512)).astype(np.float32)
+        kept["mutations"]["upserts"].append(rows8)
+        svc.upsert(rows8)
+        last = (svc.query(xs64[i]), svc.query_batch(xs64[:8]), svc.query_batch(xs64))
         api.topk_spmv(svc.index, torch.from_numpy(xs64[i]).cuda(), use_kernel=False)
+    kept["after_upserts"] = last
     later_retraces = executor.retraces - retraces_before - first_retraces
     stats = svc.stats()
     torch.cuda.synchronize()
@@ -793,6 +834,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 8: the query cell, the graph cell and the head on 4 shards ----
+    from repro_torch.core import graph
+    from repro_torch.serve import GraphRankingService
+
+    gcsr = graph_operator(graph, GRAPH_NODES)
+    phase4 = {"mq_ms_by_q": kernels[1]["ms_after_ingest_by_q"],
+              "single_ms": kernels[0]["ms_after_ingest"]}
+    t0 = time.time()
+    sharded = sharded_phase(torch, K, api, graph, SparseEmbeddingIndex, GraphRankingService,
+                            csr, cfg, xs64, kept, phase4, gcsr, args.seed)
+    log(f"  sharded phase {time.time() - t0:.1f} s")
+    for entry in kernels:
+        entry["launches_sharded_path"] = sharded["launches"][entry["name"]]
+        entry["launches"] += sharded["launches"][entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phase 5: mixed precision at the query cell's size ----
     if args.rows != 10_000_000 or args.seed != 0:
         csr = bscsr.synthetic_embedding_csr(10_000_000, 512, 20.0, "gamma", seed=0)
@@ -804,15 +862,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: the graph path at full width ----
-    from repro_torch.core import graph
-    from repro_torch.serve import GraphRankingService
-
     gsvc, spmv_launches, pre = graph_phase(K, api, graph, SparseEmbeddingIndex,
-                                           GraphRankingService)
+                                           GraphRankingService, csr=gcsr,
+                                           sharded_cold=sharded["ppr"])
     launches["bscsr_spmv"] = spmv_launches
 
     # ---- phase 4 (continued): the accumulate kernel on phase 6's streams ----
     kernels.append(accumulate_timing(torch, K, bscsr, gsvc, pre, errs, launches))
+    kernels[2]["launches_sharded_path"] = sharded["launches"]["bscsr_spmv"]
+    kernels[2]["launches"] += sharded["launches"]["bscsr_spmv"]
     log(f"total {time.time() - t_start:.1f} s")
 
     # ---- summary ----
@@ -839,6 +897,17 @@ def main() -> int:
             if name == "bscsr_topk_spmv":
                 entry["mixed"][label + "_ingest"]["splits_by_class"] = {
                     c: e["single_splits"] for c, e in m["classes"].items()}
+    timing = sharded["timing"]
+    kernels[0]["sharded"] = timing["single"]
+    kernels[1]["sharded"] = {k: timing[k] for k in (
+        "splits_by_q", "ms_by_shard_by_q", "ms_sum_by_q", "bound_ms_by_q")}
+    kernels[2]["sharded"] = timing["accumulate"]
+    log("SHARDED " + json.dumps({
+        "shards": sharded["shards"], "build_s": sharded["build_s"],
+        "recover_ms": sharded["recover_ms"], "launches": sharded["launches"],
+        "end_to_end": sharded["end_to_end"],
+        "ppr": {k: v for k, v in sharded["ppr"].items() if k != "scores"},
+        "head": sharded["head"], "timing": timing}))
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -1106,18 +1175,9 @@ def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
     check.expect(recall >= MIXED_TARGET - 0.02,
                  f"recall@8 {recall:.4f} below {MIXED_TARGET} - 0.02")
 
-    def host_ms(fn, reps=5):
-        fn()
-        t = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            t.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(t))
-
-    e2e = {"query_ms": host_ms(lambda: svc.query(xs64[0])),
-           "query_batch_q8_ms": host_ms(lambda: svc.query_batch(xs64[:8])),
-           "query_batch_q64_ms": host_ms(lambda: svc.query_batch(xs64))}
+    e2e = {"query_ms": median_ms(lambda: svc.query(xs64[0])),
+           "query_batch_q8_ms": median_ms(lambda: svc.query_batch(xs64[:8])),
+           "query_batch_q64_ms": median_ms(lambda: svc.query_batch(xs64))}
     log("MIXED_END_TO_END " + json.dumps(e2e))
 
     def kernels_on(label, p):
@@ -1570,6 +1630,293 @@ def serving_phase(torch, K, api, svc, xs64, deleted, rng, root, device="cuda") -
     return out
 
 
+def qwen25_3b_widths() -> tuple:
+    """(vocab, d_model) of Qwen2.5-3B from the repo's config file, read as
+    text (this script imports nothing of the JAX package)."""
+    text = (ROOT / QWEN25_3B_CONFIG).read_text().split("SMOKE")[0]
+    return (int(re.search(r"vocab_size=(\d+)", text).group(1)),
+            int(re.search(r"d_model=(\d+)", text).group(1)))
+
+
+def same_bits(a, b) -> bool:
+    """Two (values, rows) answers equal bit for bit (numpy or tensors)."""
+    (av, ar), (bv, br) = ((t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
+                           for t in pair) for pair in (a, b))
+    return (np.array_equal(np.ascontiguousarray(av, np.float32).view(np.int32),
+                           np.ascontiguousarray(bv, np.float32).view(np.int32))
+            and np.array_equal(ar.astype(np.int64), br.astype(np.int64)))
+
+
+def sharded_phase(torch, K, api, graph, SparseEmbeddingIndex, GraphRankingService, csr, cfg,
+                  xs64, kept, phase4, gcsr, seed, device="cuda") -> dict:
+    """Phase 8: the query cell, the graph cell and the approximate head on
+    ``SHARDS`` shards, held bit for bit to the single-device answers.
+
+    ``kept`` holds phase 3's answers and mutation inputs, ``phase4`` its
+    after-ingest kernel times (ms by Q, the single-query ms) and bounds.
+    Returns the launches of the phase's drive (counted from 0), the
+    per-shard kernel times and the sharded cold PPR (phase 6 holds its
+    single-device cold rank to it).  ``device="cpu"`` rehearses every check
+    but the launch counts and the timings.
+    """
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.serve import ApproxTopKHead, TopKHeadConfig
+
+    check = Check("sharded")
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n_rows, n_cols = csr.shape
+    ex = api.query_executor(cfg)
+    out = {"shards": SHARDS}
+
+    t0 = time.time()
+    fac = SparseEmbeddingIndex(csr, cfg, n_shards=SHARDS)
+    index = fac.index
+    out["build_s"] = time.time() - t0
+    log(f"  sharded build: {out['build_s']:.1f} s, {SHARDS} shards x {index._cps} "
+        f"partitions (c = {index.num_cores}), rows {[sh.n_rows for sh in index.shards]}")
+    check.expect(index.num_cores % SHARDS == 0 and all(
+        sh.packed.num_cores == index._cps for sh in index.shards), "shard partitions")
+
+    def pins():
+        """Each shard's pinned snapshot (already pinned: no upload)."""
+        return [ex.prepare(sh.packed, 64, "kernel", row_map=index._row_map(s),
+                           row_map_key=("l2g", index._generation))[1]
+                for s, sh in enumerate(index.shards)]
+
+    def hold(label, want, qi=0):
+        """Q = 1, 8 and 64 through the facade against phase 3's answers."""
+        got = (fac.query(xs64[qi]), fac.query_batch(xs64[:8]), fac.query_batch(xs64))
+        for q, g, w in zip((1, 8, 64), got, want):
+            check.expect(same_bits(g, w), f"{label}: Q={q} sharded answers differ from "
+                                          f"phase 3's single-device answers")
+        log(f"  {label}: Q = 1, 8, 64 sharded == single-device bit for bit: "
+            f"{all(same_bits(g, w) for g, w in zip(got, want))}")
+        return got
+
+    K.reset_launch_counts()
+    copies = ex.h2d_copies
+    hold("before mutations", kept["before"])
+    x0 = torch.from_numpy(xs64[0]).to(device)
+    direct = index.query(x0)                      # the single-query kernel per shard
+    check.expect(same_bits(direct, kept["before"][3]),
+                 "sharded index.query differs from phase 3's topk_spmv")
+    pinned = ex.h2d_copies - copies
+    uploads = sum(p.uploads for p in pins())
+    steady = ex.h2d_copies
+    fac.query_batch(xs64)
+    log(f"  h2d_copies: {pinned} at the first queries ({uploads} in the {SHARDS} shard pins: "
+        f"words, finalize tensors, row maps), {ex.h2d_copies - steady} in steady state")
+    check.expect(pinned == uploads and ex.h2d_copies == steady,
+                 f"h2d_copies {pinned} for {uploads} pinned tensors, steady "
+                 f"{ex.h2d_copies - steady}")
+
+    muts = kept["mutations"]
+    t0 = time.perf_counter()
+    new_ids = fac.upsert(muts["new_rows"])
+    upsert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fac.delete(muts["deleted"])
+    delete_s = time.perf_counter() - t0
+    check.expect(list(new_ids) == list(range(n_rows, n_rows + 64)),
+                 "sharded upsert did not assign phase 3's ids")
+    retraces = ex.retraces
+    hold("after the ingest of 64 and 64 deletes", kept["after_ingest"])
+    first = ex.retraces - retraces
+    for i, rows8 in enumerate(muts["upserts"]):
+        ids = fac.upsert(rows8)
+        check.expect(list(ids) == list(range(n_rows + 64 + 8 * i, n_rows + 72 + 8 * i)),
+                     "sharded upsert of 8 did not assign phase 3's ids")
+        fac.query(xs64[i])
+        fac.query_batch(xs64[:8])
+        fac.query_batch(xs64)
+    later = ex.retraces - retraces - first
+    full = hold("after three upserts of 8", kept["after_upserts"], qi=2)[2]
+    out["end_to_end"] = {name: median_ms(fn) for name, fn in (
+        ("query_ms", lambda: fac.query(xs64[0])),
+        ("query_batch_q8_ms", lambda: fac.query_batch(xs64[:8])),
+        ("query_batch_q64_ms", lambda: fac.query_batch(xs64)))}
+    log("SHARDED_END_TO_END " + json.dumps(out["end_to_end"]))
+    log(f"  ingest on {SHARDS} shards: upsert 64 rows {upsert_s:.2f} s, delete 64 "
+        f"{delete_s:.2f} s; retraces at the first mutation {first}, over 3 more upserts "
+        f"{later}; row-map buckets {[int(index._row_map(s).shape[0]) for s in range(SHARDS)]}")
+    check.expect(later == 0, f"{later} retraces within the buckets")
+    check.expect(index.deleted_rows == 64 and index.n_rows == n_rows + 64 + 24 - 64,
+                 f"sharded counts: {index.n_rows} live, {index.deleted_rows} deleted")
+
+    # Failover: shard 0's dispatch fails; the answer is the full one
+    # restricted to shards 1-3's rows, until recover_shard re-pins it.
+    with FaultPlan({"dispatch.shard": 0}) as plan:
+        deg = fac.query_batch(xs64)
+    health = fac.dispatch_info()["health"]
+    owner = index._live
+    restricted = True
+    for i in range(64):
+        keep = [j for j, g in enumerate(full[1][i]) if owner[int(g)][0] != 0]
+        n = len(keep)
+        restricted &= n > 0 and same_bits((deg[0][i][:n], deg[1][i][:n]),
+                                          (full[0][i][keep], full[1][i][keep]))
+    log(f"  failover: plan fired {plan.fired}, health {health}; degraded answers == the "
+        f"full ones restricted to shards 1-3: {restricted}")
+    check.expect(plan.fired == [("dispatch.shard", 0)] and restricted, "degraded answers")
+    check.expect(health == {"dead_shards": [0], "live_shard_fraction": 0.75, "failovers": 1,
+                            "last_query_degraded": True}, f"health {health}")
+    copies = ex.h2d_copies
+    t0 = time.perf_counter()
+    index.recover_shard(0)
+    rec = fac.query_batch(xs64)
+    sync()
+    out["recover_ms"] = (time.perf_counter() - t0) * 1e3
+    repin = ex.h2d_copies - copies
+    health = fac.dispatch_info()["health"]
+    log(f"  recover_shard(0) + the first Q = 64 query (its re-pin, {repin} tensors): "
+        f"{out['recover_ms']:.1f} ms; health {health}")
+    check.expect(same_bits(rec, full), "answers after recover_shard differ from the full ones")
+    check.expect(repin == pins()[0].uploads and not health["dead_shards"]
+                 and not health["last_query_degraded"], f"recovery: re-pin {repin}, {health}")
+
+    # The sharded accumulate: phase 6's graph cell on the same shard count.
+    gcfg = graph_config(api, device)
+    t0 = time.time()
+    gfac = SparseEmbeddingIndex(gcsr, gcfg, n_shards=SHARDS)
+    gsvc = GraphRankingService(gfac.index, tol=1e-5)
+    gbuild_s = time.time() - t0
+    spmv0 = K.bscsr_spmv.launches
+    t0 = time.perf_counter()
+    cold = gsvc.rank(GRAPH_SEEDS, top_k=10)
+    cold_s = time.perf_counter() - t0
+    res = cold.result
+    spmv_launches = K.bscsr_spmv.launches - spmv0
+    log(f"  sharded graph cell: build {gbuild_s:.1f} s; cold rank {res.iterations} "
+        f"iterations, {res.refine_iterations} refine steps, residual {res.residual:.3g}, "
+        f"retraces {res.retraces}, {cold_s:.2f} s; accumulate launches {spmv_launches}; top "
+        f"nodes {cold.node_ids.tolist()}")
+    check.expect(res.converged and res.canonical and res.retraces == 0,
+                 "sharded cold rank did not converge cleanly")
+    if on_card:
+        check.expect(spmv_launches == SHARDS * res.iterations,
+                     f"{spmv_launches} accumulate launches for {res.iterations} iterations")
+    out["ppr"] = {"scores": res.scores, "iterations": res.iterations, "seconds": cold_s,
+                  "launches": spmv_launches}
+
+    # The approximate head at Qwen2.5-3B's vocabulary, unsharded and sharded.
+    vocab, d_model = qwen25_3b_widths()
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    emb = rng.standard_normal((vocab, d_model), dtype=np.float32)
+    hidden = rng.standard_normal((64, d_model), dtype=np.float32)
+    head = ApproxTopKHead(emb, TopKHeadConfig(device=device))
+    head4 = ApproxTopKHead(emb, TopKHeadConfig(device=device, n_shards=SHARDS))
+    head_build_s = time.time() - t0
+    a, b = head.topk_logits_batch(hidden), head4.topk_logits_batch(hidden)
+    one_k = head.topk_logits(hidden[0], use_kernel=True)
+    one_p = head.topk_logits(hidden[0], use_kernel=False)
+    ok, err = compare(tuple(torch.from_numpy(t) for t in one_k),
+                      tuple(torch.from_numpy(t) for t in one_p), bitwise=False)
+    exact = [head.exact_topk_logits(h)[1] for h in hidden[:HEAD_EXACT]]
+    big_k = head.cfg.big_k
+    overlap = float(np.mean([len(set(a[1][i].tolist()) & set(e.tolist())) / big_k
+                             for i, e in enumerate(exact)]))
+    out["head"] = {"vocab": vocab, "d_model": d_model, "nnz": int(head.index.packed.nnz),
+                   "build_s": head_build_s, "overlap_at_64": overlap,
+                   "partition_precision": head.partition_precision,
+                   "kernel_vs_plain_max_abs_err": err}
+    log(f"  head (Qwen2.5-3B widths {vocab} x {d_model}, {head.index.packed.nnz} nnz, "
+        f"built twice in {head_build_s:.1f} s): Q = 64 sharded == unsharded bit for bit: "
+        f"{same_bits(a, b)}; topk_logits kernel vs plain max abs err {err:.3g}; "
+        f"overlap@{big_k} {overlap:.4f} over {HEAD_EXACT} hidden states (partition "
+        f"precision {head.partition_precision:.4f})")
+    check.expect(same_bits(a, b), "sharded head answers differ from the unsharded head's")
+    check.expect(ok, f"head topk_logits kernel vs plain (max err {err:.3g})")
+    check.expect(0.0 < overlap <= 1.0 and np.isfinite(a[0]).all(), "head answers")
+
+    out["launches"] = {"bscsr_topk_spmv": K.bscsr_topk_spmv.launches,
+                       "bscsr_topk_spmv_multiquery": K.bscsr_topk_spmv_multiquery.launches,
+                       "bscsr_spmv": K.bscsr_spmv.launches}
+    log(f"  launches in the sharded phase: {out['launches']}")
+    if on_card:
+        for name, count in out["launches"].items():
+            check.expect(count > 0, f"{name} was not launched in the sharded phase")
+        out["timing"] = sharded_timing(torch, K, api, ex, index, gfac.index, xs64, phase4,
+                                       cfg)
+    check.done()
+    return out
+
+
+def sharded_timing(torch, K, api, ex, index, gindex, xs64, phase4, cfg, device="cuda"
+                   ) -> dict:
+    """Each kernel's device time on each shard's pinned snapshot (after the
+    mutations) at the S the card picks for its cores, and the sum over the
+    shards, beside phase 4's single-device time and the bound."""
+    t, block, k = cfg.packets_per_step, cfg.block_size, cfg.k
+    x64 = torch.from_numpy(xs64).to(device)
+    out = {"splits_by_q": {}, "ms_by_shard_by_q": {}, "ms_sum_by_q": {}, "bound_ms_by_q": {}}
+    snaps = [ex.prepare(sh.packed, 64, "kernel", row_map=index._row_map(s),
+                        row_map_key=("l2g", index._generation))[1]
+             for s, sh in enumerate(index.shards)]
+
+    def bound(words, nnz, q):
+        """Phase 4's bound of a Q-query pass, over one shard's words."""
+        nbytes = words.numel() * 4 + q * xs64.shape[1] * 4 + words.shape[0] * q * k * 8
+        return max(nbytes / HBM_BYTES_PER_S, 2.0 * nnz * q / F32_FLOPS) * 1e3
+
+    for q in (1, 8, 64):
+        x = x64[:q].contiguous()
+        q_chunk, n_chunks = K.query_chunks(q)
+        per, splits, bounds = [], [], []
+        for sh, snap in zip(index.shards, snaps):
+            words = snap.streams[0]
+            s = K.topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
+                              block_size=block, m=x.shape[1], q_chunk=q_chunk, k=k)
+            tab = snap.split_table(t, s)
+            per.append(time_cuda(torch, lambda: K.bscsr_topk_spmv_multiquery(
+                x, words, table=tab, k=k, n_rows=snap.max_slots, packets_per_step=t,
+                fmt_name=snap.fmt_name, block_size=block), MIXED_BUDGET_S))
+            splits.append(s)
+            bounds.append(bound(words, sh.packed.nnz, q))
+        out["splits_by_q"][q] = splits
+        out["ms_by_shard_by_q"][q] = per
+        out["ms_sum_by_q"][q] = sum(per)
+        out["bound_ms_by_q"][q] = sum(bounds)
+        log(f"  multi-query kernel Q={q} per shard (S = {splits}): "
+            f"{' / '.join(f'{m:.3f}' for m in per)} ms, sum {sum(per):.3f} ms; single device "
+            f"{phase4['mq_ms_by_q'][q]:.3f} ms; bound {sum(bounds):.3f} ms")
+    x1 = x64[0].contiguous()
+    per, splits = [], []
+    for snap in snaps:
+        words = snap.streams[0]
+        s = K.single_splits(words.device, words.shape[0], packets_per_step=t, block_size=block,
+                            m=x1.shape[0], k=k, width=words.shape[2], fmt_name=snap.fmt_name)
+        tab = snap.split_table(t, s)
+        per.append(time_cuda(torch, lambda: K.bscsr_topk_spmv(
+            x1, words, table=tab, k=k, n_rows=snap.max_slots, packets_per_step=t,
+            fmt_name=snap.fmt_name, block_size=block), MIXED_BUDGET_S))
+        splits.append(s)
+    out["single"] = {"splits": splits, "ms_by_shard": per, "ms_sum": sum(per)}
+    log(f"  single-query kernel per shard (S = {splits}): "
+        f"{' / '.join(f'{m:.3f}' for m in per)} ms, sum {sum(per):.3f} ms; single device "
+        f"{phase4['single_ms']:.3f} ms; bound {out['bound_ms_by_q'][1]:.3f} ms")
+    gex = api.query_executor(gindex.config)
+    n = gindex.n_rows_total
+    xg = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    per, splits = [], []
+    for s, sh in enumerate(gindex.shards):
+        snap = gex.prepare(sh.packed, ("spmv", n), "accumulate", row_map=gindex._row_map(s),
+                           row_map_key=("l2g", gindex._generation))[1]
+        words = snap.streams[0]
+        sp = K.spmv_splits(words.device, words.shape[0], packets_per_step=t, block_size=block,
+                           m=n)
+        tab = snap.split_table(t, sp)
+        per.append(time_cuda(torch, lambda: K.bscsr_spmv(
+            xg, words, n_rows=snap.max_slots, packets_per_step=t, fmt_name=snap.fmt_name,
+            block_size=block, table=tab), MIXED_BUDGET_S))
+        splits.append(sp)
+    out["accumulate"] = {"splits": splits, "ms_by_shard": per, "ms_sum": sum(per)}
+    log(f"  accumulate kernel per shard of the graph cell (S = {splits}): "
+        f"{' / '.join(f'{m:.4f}' for m in per)} ms, sum {sum(per):.4f} ms")
+    return out
+
+
 def ulp_gap(a: np.ndarray, b: np.ndarray):
     """(entries that differ, largest distance in f32 ulps) of two score vectors."""
     ia = a.view(np.int32).astype(np.int64)
@@ -1577,13 +1924,25 @@ def ulp_gap(a: np.ndarray, b: np.ndarray):
     return int(np.count_nonzero(ia != ib)), int(np.abs(ia - ib).max(initial=0))
 
 
-def graph_fixture(api, graph, SparseEmbeddingIndex, GraphRankingService, n_nodes, device):
-    """Phase 6's operator, config, facade and ranking service."""
+def graph_operator(graph, n_nodes):
+    """Phase 6's "ring" operator (phase 8 shards the same one)."""
     t0 = time.time()
     csr = graph.synthetic_graph_csr("ring", n_nodes, seed=0)
     log(f"  ring operator: {csr.shape[0]} nodes, nnz {csr.nnz} ({time.time() - t0:.1f} s)")
-    cfg = api.TopKSpMVConfig(k=8, num_partitions=32, block_size=256, value_format="F32",
-                             packets_per_step=2, stream_layout="fused", device=device)
+    return csr
+
+
+def graph_config(api, device):
+    return api.TopKSpMVConfig(k=8, num_partitions=32, block_size=256, value_format="F32",
+                              packets_per_step=2, stream_layout="fused", device=device)
+
+
+def graph_fixture(api, graph, SparseEmbeddingIndex, GraphRankingService, n_nodes, device,
+                  csr=None):
+    """Phase 6's operator, config, facade and ranking service."""
+    if csr is None:
+        csr = graph_operator(graph, n_nodes)
+    cfg = graph_config(api, device)
     t0 = time.time()
     fac = SparseEmbeddingIndex(csr, cfg)
     log(f"  SparseEmbeddingIndex build: {time.time() - t0:.1f} s, "
@@ -1608,14 +1967,16 @@ def update_node(svc, csr):
 
 
 def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
-                n_nodes=GRAPH_NODES, device="cuda"):
+                n_nodes=GRAPH_NODES, device="cuda", csr=None, sharded_cold=None):
     """Phase 6: PPR solves through the ranking service, then top-k eigen.
 
+    ``sharded_cold`` is phase 8's cold rank on the sharded operator, which
+    the first cold rank here must equal bit for bit, in as many iterations.
     Returns (the graph facade, the accumulate kernel's launches in this phase).
     """
     check = Check("graph")
     csr, cfg, fac, svc = graph_fixture(api, graph, SparseEmbeddingIndex,
-                                       GraphRankingService, n_nodes, device)
+                                       GraphRankingService, n_nodes, device, csr=csr)
     if n_nodes == GRAPH_NODES:
         check.expect(csr.nnz == GRAPH_NNZ, f"ring operator nnz {csr.nnz} != {GRAPH_NNZ}")
     ex = api.query_executor(cfg)
@@ -1635,6 +1996,13 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
 
     K.reset_launch_counts()
     cold, _ = solve("cold rank", lambda: svc.rank(GRAPH_SEEDS, top_k=10))
+    if sharded_cold is not None:
+        n_diff, gap = ulp_gap(cold.result.scores, sharded_cold["scores"])
+        log(f"  cold rank vs phase 8's on {SHARDS} shards: {n_diff} of {n_nodes} scores "
+            f"differ, iterations {cold.result.iterations} / {sharded_cold['iterations']}")
+        check.expect(n_diff == 0 and cold.result.iterations == sharded_cold["iterations"],
+                     f"sharded cold rank differs in {n_diff} scores (up to {gap} ulp), "
+                     f"iterations {sharded_cold['iterations']} vs {cold.result.iterations}")
     # The build's snapshot, kept for phase 4: the first mutation moves the
     # index to churn-stable buckets (padded packets, a doubled slot bucket).
     pre = {"words": np.array(fac.index.packed.words), "n_rows": fac.index.packed.max_slots}

@@ -8,6 +8,11 @@ answer over the identical snapshot.  A 16-bit value stream may arrive in any
 are kept and viewed as ``uint16``.  ``state_from_reference`` does the same
 for a mutable index's ``export_state`` output, so a store the reference's
 ``DurableIndexStore`` wrote recovers in this package.
+
+Nothing else needs carrying: a ``ShardedTopKSpMVIndex`` and an
+``ApproxTopKHead`` hold no state beyond what they build from the same CSR
+collection (or, for the head, the same dense embedding) that the reference
+is given.
 """
 from __future__ import annotations
 

@@ -16,8 +16,9 @@ No plan armed means zero overhead beyond a module-global ``None`` check, so
 the hooks stay in production code paths permanently.
 
 A copy of the reference's ``repro/core/faults.py`` with the same registered
-points.  ``dispatch.shard`` and ``bundle.scatter`` have no caller in this
-package yet: their callers come with the sharded plane.
+points.  ``dispatch.shard`` fires in ``ShardedTopKSpMVIndex``'s per-shard
+dispatch (the failover path); ``bundle.scatter`` has no caller in this
+package until the mesh dispatch is ported.
 """
 from __future__ import annotations
 

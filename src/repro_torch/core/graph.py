@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bscsr as bscsr_lib
+from repro_torch.core.sharded import ShardedTopKSpMVIndex
 from repro_torch.core.topk_spmv import (
     MutableTopKSpMVIndex,
     TopKSpMVIndex,
@@ -114,17 +115,27 @@ class EigenResult:
     retraces: int
 
 
+_INDEXES = (TopKSpMVIndex, MutableTopKSpMVIndex, ShardedTopKSpMVIndex)
+
+
 def _unwrap(index):
-    """Accept SparseEmbeddingIndex / (Mutable)TopKSpMVIndex."""
+    """Accept SparseEmbeddingIndex / (Mutable)TopKSpMVIndex / sharded."""
     inner = getattr(index, "index", None)
-    if isinstance(inner, (TopKSpMVIndex, MutableTopKSpMVIndex)):
+    if isinstance(inner, _INDEXES):
         return inner
     return index
 
 
-def _require_square(index) -> int:
+def _operator_dims(index) -> Tuple[int, int]:
+    """(row-space size, column count) of the index's operator."""
+    if isinstance(index, ShardedTopKSpMVIndex):
+        return index.n_rows_total, index.n_cols
     packed = index.packed
-    n_rows, n_cols = packed.n_rows_logical, packed.n_cols
+    return packed.n_rows_logical, packed.n_cols
+
+
+def _require_square(index) -> int:
+    n_rows, n_cols = _operator_dims(index)
     if n_rows != n_cols:
         raise ValueError(
             f"iterative solves need a square operator (the iterate feeds "
@@ -138,13 +149,18 @@ def _require_square(index) -> int:
 def make_spmv_step(index, use_kernel: bool = True) -> Tuple[Callable, Callable[[], int]]:
     """(step, builds) for an index: ``step(x, alpha, beta, y, resident=False)``
     runs ONE accumulate dispatch; ``builds()`` reads the executor's function
-    build counter (for zero-retrace assertions)."""
+    build counter (for zero-retrace assertions).  A sharded index steps
+    through its own ``spmv`` (one dispatch per shard, the partials summed);
+    ``builds()`` then reads the executor of its shard-local config."""
     index = _unwrap(index)
-    if not isinstance(index, (TopKSpMVIndex, MutableTopKSpMVIndex)):
-        raise NotImplementedError(
-            f"accumulate dispatch over {type(index).__name__} is not ported: "
-            "sharded indexes are ROADMAP Queue 1 item 3"
-        )
+    if isinstance(index, ShardedTopKSpMVIndex):
+        ex = query_executor(index._local_config)
+
+        def sharded_step(x, alpha, beta, y, resident: bool = False):
+            return index.spmv(x, alpha, beta, y, use_kernel=use_kernel, resident=resident)
+
+        return sharded_step, (lambda: ex.fn_builds)
+
     ex = query_executor(index.config)
     path = "accumulate" if use_kernel else "accumulate_ref"
 

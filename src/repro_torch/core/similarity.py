@@ -10,9 +10,14 @@ tombstones, no re-encode), ``compact()`` reclaims the churn, and the graph
 workloads (``personalized_pagerank``, ``topk_eigen``) run over the rows as a
 square operator.  ``recall_target`` gives each partition its own value
 format (mixed precision, ``core/adaptive.py``).  ``from_index`` wraps an
-index that ``core/persistence.py`` recovered.  The sharded plane
-(``mesh=``, ``n_shards > 1``) raises ``NotImplementedError`` naming its
-ROADMAP item.
+index that ``core/persistence.py`` recovered.
+
+With ``n_shards > 1`` the backing index is a
+:class:`~repro_torch.core.sharded.ShardedTopKSpMVIndex` instead: the rows
+shard at partition granularity, each shard dispatches on the device, and
+the per-shard candidates merge under global ids, bit for bit equal to
+the single-device index.  ``mesh=`` (shards pinned across devices) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.core import bscsr as bscsr_lib
 from repro_torch.core import graph as graph_lib
+from repro_torch.core import sharded as sharded_lib
 from repro_torch.core import topk_spmv as topk_lib
 
 
@@ -62,11 +68,8 @@ class SparseEmbeddingIndex:
         recall_target: Optional[float] = None,
         mesh=None,
         n_shards: Optional[int] = None,
+        native_groups: bool = True,
     ):
-        if mesh is not None or (n_shards is not None and n_shards > 1):
-            raise NotImplementedError(
-                "sharded serving is not ported yet: ROADMAP Queue 1 item 3"
-            )
         self.csr = csr  # the collection the index was built from (base segment)
         config = config or topk_lib.TopKSpMVConfig()
         if recall_target is not None:
@@ -75,17 +78,26 @@ class SparseEmbeddingIndex:
             config = dataclasses.replace(config, recall_target=recall_target)
         self.config = config
         self.nnz_per_row = nnz_per_row  # sparsification level for dense upserts
-        self.index = topk_lib.MutableTopKSpMVIndex(csr, self.config)
+        if mesh is not None or (n_shards is not None and n_shards > 1):
+            # Row shards merged under global ids (core/sharded.py).
+            self.index = sharded_lib.ShardedTopKSpMVIndex(
+                csr, self.config, mesh=mesh, n_shards=n_shards,
+                native_groups=native_groups)
+        else:
+            self.index = topk_lib.MutableTopKSpMVIndex(csr, self.config)
 
     @property
     def is_sharded(self) -> bool:
-        """Always False: the sharded plane is not ported (ROADMAP Queue 1 item 3)."""
-        return False
+        return isinstance(self.index, sharded_lib.ShardedTopKSpMVIndex)
 
     @property
     def replica_factor(self) -> int:
-        """Query fan-out of one kernel pass: 1 for a single-device index."""
-        return 1
+        """Query fan-out of one kernel pass (the mesh's replica count).
+
+        The micro-batching frontend multiplies its target Q by it.  1 for a
+        single-device index and for the per-shard path, which has no mesh.
+        """
+        return self.index.n_replicas if self.is_sharded else 1
 
     @property
     def n_cols(self) -> int:
@@ -116,11 +128,13 @@ class SparseEmbeddingIndex:
         recall_target: Optional[float] = None,
         mesh=None,
         n_shards: Optional[int] = None,
+        native_groups: bool = True,
     ) -> "SparseEmbeddingIndex":
         """Sparsify dense embeddings (magnitude top-m) and index them."""
         csr = bscsr_lib.sparsify_topm(embeddings, nnz_per_row)
         return cls(csr, config, nnz_per_row=nnz_per_row,
-                   recall_target=recall_target, mesh=mesh, n_shards=n_shards)
+                   recall_target=recall_target, mesh=mesh, n_shards=n_shards,
+                   native_groups=native_groups)
 
     def _validate_query(self, x: np.ndarray, batched: bool) -> None:
         x = np.asarray(x)
@@ -171,10 +185,14 @@ class SparseEmbeddingIndex:
 
         The query batch is uploaded here, once per call; the executor's
         ``h2d_copies`` counts snapshot pins only, as for any other entry.
+        A sharded index dispatches each shard and merges their pools.
         """
         xs = torch.as_tensor(np.ascontiguousarray(xs, dtype=np.float32),
                              device=self.config.resolve_device())
-        v, r = topk_lib.topk_spmv_batched(self.index, xs, use_kernel=use_kernel)
+        if self.is_sharded:
+            v, r = self.index.query_batched(xs, use_kernel=use_kernel)
+        else:
+            v, r = topk_lib.topk_spmv_batched(self.index, xs, use_kernel=use_kernel)
         return v.cpu().numpy(), r.cpu().numpy()
 
     def query_exact(self, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -238,6 +256,29 @@ class SparseEmbeddingIndex:
         return graph_lib.topk_eigen(self.index, k, **kwargs)
 
     def stats(self) -> SimilaritySearchStats:
+        if self.is_sharded:
+            agg = self.index.aggregate_stats()
+            return SimilaritySearchStats(
+                n_rows=self.index.n_rows,
+                n_cols=agg["n_cols"],
+                nnz=agg["nnz"],
+                num_partitions=self.index.num_cores,
+                bytes_per_nnz=agg["bytes_per_nnz"],
+                stream_bytes=agg["stream_bytes"],
+                expected_precision=self.index.expected_precision,
+                delta_fraction=agg["delta_fraction"],
+                tombstone_count=agg["tombstone_count"],
+                deleted_rows=self.index.deleted_rows,
+                version=self.index.version,
+                stream_layout=agg["stream_layout"],
+                last_refresh_repadded=self.index.last_refresh_repadded,
+                last_refresh_copied=self.index.last_refresh_copied,
+                snapshot_buffers=self.index.snapshot_buffers,
+                value_format_histogram=agg["format_histogram"],
+                value_bytes_per_nnz=agg["value_bytes_per_nnz"],
+                recall_target=self.config.recall_target,
+                predicted_recall=self.index.predicted_recall,
+            )
         packed = self.index.packed
         return SimilaritySearchStats(
             n_rows=self.index.n_rows,
@@ -262,7 +303,11 @@ class SparseEmbeddingIndex:
         )
 
     def dispatch_info(self) -> dict:
-        """Executor cache counters merged with the snapshot's signature dims."""
+        """Executor cache counters merged with the snapshot's signature dims;
+        a sharded index reports its topology, health and per-shard
+        signatures beside the counters."""
+        if self.is_sharded:
+            return self.index.dispatch_info()
         info = topk_lib.query_executor(self.config).cache_info()
         info["signature"] = self.index.packed.signature_info()
         info["churn_stable"] = self.config.churn_stable

@@ -5,9 +5,9 @@
     PackedPartitions --pin once--> DeviceSnapshot ---tensors--> query fn
     (numpy arrays)     per (uid,    (fused words, or split        (kernel +
                         layout,      streams for the oracle,       finalize;
-                        device)      + finalize tensors)           one per path,
-                                                                   Q bucket and
-                                                                   signature)
+                        row map      + finalize tensors,           one per path,
+                        key,         + a row map)                  Q bucket and
+                        device)                                    signature)
 
 * ``DeviceSnapshot`` uploads one immutable ``PackedPartitions``'s kernel
   streams and finalize tensors to the device exactly once, keyed by the
@@ -21,6 +21,15 @@
   bucket is only the cache key: the batch reaches the kernel unpadded (the
   kernel takes any Q, and padding would add stream passes of work for no
   saved compile).
+* The sharded plane (``core/sharded.py``) serves a shard-local snapshot
+  under the collection's ids: ``row_map=`` pins a local-to-global id map
+  beside the snapshot (``row_map_key`` names its contents for that uid) and
+  ``n_rows=`` swaps in the collection's row-id sentinel per call, so growth
+  of the id space builds nothing.  ``evict_snapshot`` drops every pin of a
+  snapshot (shard failover re-pins from the host copy).
+* ``stream_layout="split"`` on a kernel path streams the snapshot's split
+  arrays, fused on the fly; for a mixed-precision snapshot those are its
+  exactly dequantized f32 twins (the reference's split-layout kernel input).
 * A mixed-precision snapshot pins one tagged word tensor per width-class
   group (and its core indices), and its functions run each kernel once per
   group and scatter the per-core results back into core order.  The format
@@ -61,13 +70,33 @@ from repro_torch.kernels.bscsr_topk_spmv import (
 
 PATHS = ("kernel", "reference", "accumulate", "accumulate_ref")
 
-# (snapshot uid, stream layout, device) -> DeviceSnapshot; entries evicted
-# when the host PackedPartitions is garbage collected.
+# (snapshot uid, pin layout, row map key, device) -> DeviceSnapshot; entries
+# evicted when the host PackedPartitions is garbage collected (a lock-free
+# pop: the collector may run inside a section that holds _CACHE_LOCK).
 _DEVICE_CACHE: dict = {}
+_CACHE_LOCK = threading.Lock()   # pins and evictions from any thread
 
 
 def device_cache_size() -> int:
     return len(_DEVICE_CACHE)
+
+
+def _cache_keys() -> set:
+    with _CACHE_LOCK:
+        return set(list(_DEVICE_CACHE))
+
+
+def evict_snapshot(uid) -> int:
+    """Drop every device pin of snapshot ``uid``; returns the pins dropped.
+
+    Shard failover: the host ``PackedPartitions`` is intact but its device
+    copies are suspect, so the next dispatch pins fresh ones.
+    """
+    with _CACHE_LOCK:
+        stale = [key for key in list(_DEVICE_CACHE) if key[0] == uid]
+        for key in stale:
+            _DEVICE_CACHE.pop(key, None)
+    return len(stale)
 
 
 class DeviceSnapshot:
@@ -75,6 +104,10 @@ class DeviceSnapshot:
 
     ``signature`` keys the executor's query functions: shapes, dtypes and
     static geometry (two snapshots with equal signatures share one).
+    ``stream_layout`` is the pin's: "fused" (the native fused words, or a
+    mixed snapshot's tagged groups), "split" (the oracle's three arrays) or
+    "split-fused" (the split arrays fused into one F32 word stream: a mixed
+    snapshot's f32 twins).  ``row_map`` rides in ``finalize``.
     """
 
     __slots__ = (
@@ -82,7 +115,8 @@ class DeviceSnapshot:
         "signature", "max_slots", "block_size", "fmt_name", "uploads", "_split_tables",
     )
 
-    def __init__(self, packed: ops.PackedPartitions, stream_layout: str, device):
+    def __init__(self, packed: ops.PackedPartitions, stream_layout: str, device,
+                 row_map=None):
         self.uid = packed.uid
         self.stream_layout = stream_layout
         self.device = torch.device(device)
@@ -95,11 +129,13 @@ class DeviceSnapshot:
             self.groups = ops.group_tensors(packed, device)
             self.streams = tuple(words for _, _, words in self.groups)
             groups_meta = tuple((g.class_name, g.cores) for g in packed.groups)
-        elif stream_layout == "fused":
+        elif stream_layout in ("fused", "split-fused"):
             self.streams = (ops.host_tensor(ops.kernel_words(packed), device),)
         else:
             self.streams = ops.split_tensors(packed, device)
         self.finalize = ops.finalize_tensors(packed, device)
+        if row_map is not None:
+            self.finalize["row_map"] = ops.host_tensor(row_map, device)
         pinned = list(self.streams) + [
             t for t in self.finalize.values() if isinstance(t, torch.Tensor)
         ]
@@ -135,16 +171,26 @@ class DeviceSnapshot:
         return table
 
 
-def device_snapshot(packed: ops.PackedPartitions, stream_layout: str, device
-                    ) -> DeviceSnapshot:
-    """The device-pinned form of ``packed``, uploading at most once per uid."""
-    key = (packed.uid, stream_layout, str(torch.device(device)))
-    snap = _DEVICE_CACHE.get(key)
-    if snap is None:
-        snap = DeviceSnapshot(packed, stream_layout, device)
+def _pin(packed: ops.PackedPartitions, stream_layout: str, device, row_map,
+         row_map_key) -> Tuple[DeviceSnapshot, bool]:
+    """(snapshot, whether this call uploaded it)."""
+    key = (packed.uid, stream_layout, row_map_key, str(torch.device(device)))
+    with _CACHE_LOCK:
+        snap = _DEVICE_CACHE.get(key)
+        if snap is not None:
+            return snap, False
+        snap = DeviceSnapshot(packed, stream_layout, device, row_map=row_map)
         _DEVICE_CACHE[key] = snap
-        weakref.finalize(packed, _DEVICE_CACHE.pop, key, None)
-    return snap
+    weakref.finalize(packed, _DEVICE_CACHE.pop, key, None)
+    return snap, True
+
+
+def device_snapshot(packed: ops.PackedPartitions, stream_layout: str, device,
+                    row_map=None, row_map_key=None) -> DeviceSnapshot:
+    """The device-pinned form of ``packed``, uploading at most once per
+    (uid, layout, row map key, device).  A given ``row_map_key`` must always
+    name the same map contents for a given uid."""
+    return _pin(packed, stream_layout, device, row_map, row_map_key)[0]
 
 
 def _q_bucket(q: int) -> int:
@@ -188,31 +234,51 @@ class QueryExecutor:
         self.q_exact_hits = 0
         self.h2d_copies = 0
 
-    def prepare(self, packed: ops.PackedPartitions, q=None, path: str = "kernel"):
+    def prepare(self, packed: ops.PackedPartitions, q=None, path: str = "kernel",
+                stream_layout=None, row_map=None, row_map_key=None):
         """Resolve (query fn, device snapshot) without running.
 
         ``q`` is None for the single-query fn, the Q bucket for a batch, or
-        ``("spmv", n_out)`` for the accumulate paths.
+        ``("spmv", n_out)`` for the accumulate paths.  ``stream_layout``
+        "split" makes a kernel path stream the split arrays fused (a mixed
+        snapshot's f32 twins); ``row_map`` / ``row_map_key`` pin a
+        local-to-global id map beside the snapshot.
         """
         with self._lock:
-            return self._prepare(packed, q, path)
+            return self._prepare(packed, q, path, stream_layout, row_map, row_map_key)
 
-    def _prepare(self, packed: ops.PackedPartitions, q, path: str):
+    def evict_snapshot(self, uid) -> int:
+        """Module-level :func:`evict_snapshot`, dropped from this executor's
+        pins as well; returns the pins dropped."""
+        with self._lock:
+            dropped = evict_snapshot(uid)
+            self._pinned = {pin for pin in self._pinned if pin[0] != uid}
+        return dropped
+
+    def _prepare(self, packed: ops.PackedPartitions, q, path: str, stream_layout,
+                 row_map, row_map_key):
         if path not in PATHS:
             raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-        layout = "split" if path in ("reference", "accumulate_ref") else "fused"
-        pin = (packed.uid, layout, str(self.device))
-        fresh = pin not in _DEVICE_CACHE
-        snap = device_snapshot(packed, layout, self.device)
+        if path in ("reference", "accumulate_ref"):
+            layout = "split"
+        elif stream_layout in (None, "fused"):
+            layout = "fused"
+        elif stream_layout == "split":
+            layout = "split-fused"
+        else:
+            raise ValueError(f"stream_layout must be 'fused' or 'split', got {stream_layout!r}")
+        pin = (packed.uid, layout, row_map_key, str(self.device))
+        snap, fresh = _pin(packed, layout, self.device, row_map, row_map_key)
         if fresh:
             self.h2d_copies += snap.uploads
         if pin not in self._pinned:
-            self._pinned &= set(_DEVICE_CACHE.keys())
+            self._pinned &= _cache_keys()
             self._pinned.add(pin)
         key = (path, q, snap.signature)
         fn = self._fns.get(key)
         if fn is None:
-            live = {s.signature for s in list(_DEVICE_CACHE.values())}
+            with _CACHE_LOCK:
+                live = {s.signature for s in list(_DEVICE_CACHE.values())}
             self._fns = {k: f for k, f in self._fns.items() if k[2] in live}
             fn = self._build(path, q, snap)
             self._fns[key] = fn
@@ -229,19 +295,28 @@ class QueryExecutor:
             return x.to(torch.float32).contiguous()
         return torch.as_tensor(x, dtype=torch.float32).to(self.device).contiguous()
 
-    def query(self, x, packed: ops.PackedPartitions, path: str = "kernel"
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    @staticmethod
+    def _finalize_inputs(snap: DeviceSnapshot, n_rows) -> dict:
+        """The snapshot's finalize tensors, with the row-id sentinel swapped
+        for ``n_rows`` (an int or a 0-d tensor on the device) when given."""
+        return snap.finalize if n_rows is None else dict(snap.finalize, n_rows=n_rows)
+
+    def query(self, x, packed: ops.PackedPartitions, path: str = "kernel",
+              stream_layout=None, row_map=None, row_map_key=None,
+              n_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-``big_k`` (values, global rows) for one (M,) query."""
         x = self._on_device(x)
         if x.dim() != 1:
             raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
         with self._lock:
-            fn, snap = self._prepare(packed, None, path)
+            fn, snap = self._prepare(packed, None, path, stream_layout, row_map,
+                                     row_map_key)
             self.dispatches += 1
-        return fn(x, snap)
+        return fn(x, snap, self._finalize_inputs(snap, n_rows))
 
-    def query_batched(self, xs, packed: ops.PackedPartitions, path: str = "kernel"
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def query_batched(self, xs, packed: ops.PackedPartitions, path: str = "kernel",
+                      stream_layout=None, row_map=None, row_map_key=None,
+                      n_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Q, big_k) answers for a (Q, M) batch, one pass over the stream."""
         xs = self._on_device(xs)
         if xs.dim() != 2 or xs.shape[0] == 0:
@@ -250,17 +325,19 @@ class QueryExecutor:
         bucket = _q_bucket(q)
         with self._lock:
             builds_before = self.fn_builds
-            fn, snap = self._prepare(packed, bucket, path)
+            fn, snap = self._prepare(packed, bucket, path, stream_layout, row_map,
+                                     row_map_key)
             if self.fn_builds == builds_before:
                 if bucket != q:
                     self.q_bucket_hits += 1
                 else:
                     self.q_exact_hits += 1
             self.dispatches += 1
-        return fn(xs, snap)
+        return fn(xs, snap, self._finalize_inputs(snap, n_rows))
 
     def spmv(self, x, packed: ops.PackedPartitions, *, alpha, beta, y,
-             path: str = "accumulate", resident: bool = False) -> torch.Tensor:
+             path: str = "accumulate", resident: bool = False, stream_layout=None,
+             row_map=None, row_map_key=None) -> torch.Tensor:
         """``alpha * A @ x + beta * y`` with the top-k select stage skipped.
 
         The iterative-workload dispatch: one accumulate launch plus the
@@ -288,7 +365,8 @@ class QueryExecutor:
             raise ValueError(f"x and y must be vectors, got {tuple(x.shape)} and "
                              f"{tuple(y.shape)}")
         with self._lock:
-            fn, snap = self._prepare(packed, ("spmv", int(y.shape[0])), path)
+            fn, snap = self._prepare(packed, ("spmv", int(y.shape[0])), path, stream_layout,
+                                     row_map, row_map_key)
             self.dispatches += 1
         return fn(x, alpha, beta, y, snap)
 
@@ -297,7 +375,7 @@ class QueryExecutor:
             return self._cache_info()
 
     def _cache_info(self) -> dict:
-        self._pinned &= set(_DEVICE_CACHE.keys())
+        self._pinned &= _cache_keys()
         return {
             "compiled_fns": len(self._fns),
             "fn_builds": self.fn_builds,
@@ -320,13 +398,13 @@ class QueryExecutor:
                     else ops.finalize_candidates_batched)
         if path == "reference":
 
-            def run(x, s: DeviceSnapshot):
+            def run(x, s: DeviceSnapshot, fin: dict):
                 xs = x[None] if q is None else x
                 lv, lr = ops.reference_local_topk(
                     xs, *s.streams, s.finalize["rows_per_part"], s.max_slots, k, fmt)
                 if q is None:
                     lv, lr = lv[:, 0], lr[:, 0]
-                return finalize(lv, lr, big_k=big_k, **s.finalize)
+                return finalize(lv, lr, big_k=big_k, **fin)
 
             return run
 
@@ -353,28 +431,28 @@ class QueryExecutor:
 
         if snap.groups is not None:
 
-            def run(x, s: DeviceSnapshot):
+            def run(x, s: DeviceSnapshot, fin: dict):
                 lv, lr = ops.grouped_local_topk(
                     x, s.groups, n_cores=s.num_cores, batched=q is not None,
                     tables=tables(s, x), gather_mode=self.gather_mode, **kwargs)
-                return finalize(lv, lr, big_k=big_k, **s.finalize)
+                return finalize(lv, lr, big_k=big_k, **fin)
 
             return run
 
         kwargs["fmt_name"] = snap.fmt_name
         if q is None:
 
-            def run(x, s: DeviceSnapshot):
+            def run(x, s: DeviceSnapshot, fin: dict):
                 lv, lr = bscsr_topk_spmv(x, s.streams[0], table=tables(s, x)[0],
                                          gather_mode=self.gather_mode, **kwargs)
-                return finalize(lv, lr, big_k=big_k, **s.finalize)
+                return finalize(lv, lr, big_k=big_k, **fin)
 
             return run
 
-        def run(x, s: DeviceSnapshot):
+        def run(x, s: DeviceSnapshot, fin: dict):
             lv, lr = bscsr_topk_spmv_multiquery(x, s.streams[0], table=tables(s, x)[0],
                                                 **kwargs)
-            return finalize(lv, lr, big_k=big_k, **s.finalize)
+            return finalize(lv, lr, big_k=big_k, **fin)
 
         return run
 

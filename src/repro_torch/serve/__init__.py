@@ -1,6 +1,6 @@
-"""Serving plane of the port: the graph-ranking service and the
-serve-while-ingest streaming similarity service with its continuous
-micro-batching request frontend."""
+"""Serving plane of the port: the graph-ranking service, the approximate
+top-k head, and the serve-while-ingest streaming similarity service with
+its continuous micro-batching request frontend."""
 from repro_torch.serve.graph_ranking import GraphRankingService, RankedNodes
 from repro_torch.serve.frontend import (
     FrontendConfig,
@@ -14,3 +14,4 @@ from repro_torch.serve.streaming import (
     ServiceGuardrails,
     StreamingSimilarityService,
 )
+from repro_torch.serve.topk_head import ApproxTopKHead, TopKHeadConfig

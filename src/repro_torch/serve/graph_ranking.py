@@ -54,7 +54,9 @@ class GraphRankingService:
     """Personalized-ranking frontend over a (square) embedding index.
 
     ``index`` is anything the graph solvers accept: a
-    ``SparseEmbeddingIndex`` or a ``MutableTopKSpMVIndex``.  Solver keywords (``alpha``, ``tol``,
+    ``SparseEmbeddingIndex``, a ``MutableTopKSpMVIndex`` or a
+    ``ShardedTopKSpMVIndex`` (whose ``update_node`` goes through
+    ``replace_rows`` on global ids).  Solver keywords (``alpha``, ``tol``,
     ``max_iters``, ...) fix the service's solve contract at construction so
     cached warm starts and fresh solves always agree on the operator.
     """

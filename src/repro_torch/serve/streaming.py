@@ -16,7 +16,8 @@ This is the reference's ``repro/serve/streaming.py``, ported.  Answers come
 from the multi-query kernel by default (``use_kernel=True``; the reference
 defaults to its oracle only because its kernel runs interpreted off the
 TPU); ``use_kernel=False`` selects the plain torch path.  The backing index
-is single-device: the sharded plane is not ported (ROADMAP Queue 1 item 3).
+may be sharded (``SparseEmbeddingIndex(..., n_shards=S)``), but then no
+store may be attached: a store persists a single-device index.
 
 **Crash safety + guardrails**:
 attaching a :class:`~repro_torch.core.persistence.DurableIndexStore` makes every
@@ -137,6 +138,11 @@ class StreamingSimilarityService:
         self.guardrails = guardrails or ServiceGuardrails()
         self.store = store
         self.use_kernel = use_kernel
+        if store is not None and index.is_sharded:
+            raise ValueError(
+                "DurableIndexStore persists a single-device index; a sharded plane "
+                "recovers per shard (recover_shard) or from per-shard stores"
+            )
         self.compactions = 0
         self.checkpoints = 0
         self.queries_served = 0

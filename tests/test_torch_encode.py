@@ -234,7 +234,8 @@ def test_import_hygiene():
         .removesuffix(".__init__")
         for path in SRC_PORT.rglob("*.py"))
     assert {"repro_torch.core.adaptive", "repro_torch.core.persistence",
-            "repro_torch.serve.streaming", "repro_torch.utils.watchdog"} <= set(modules)
+            "repro_torch.serve.streaming", "repro_torch.utils.watchdog",
+            "repro_torch.core.sharded", "repro_torch.serve.topk_head"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -928,3 +928,151 @@ def test_recovery_round_trip_on_the_card(cuda, tmp_path):
     pin = executor_lib.device_snapshot(rec.index.index.packed, "fused", ex.device)
     assert ex.retraces == retraces
     assert ex.h2d_copies - copies == pin.uploads
+
+
+# ---------------------------------------------------------------------------
+# The sharded plane on the card, at test size: every shard dispatches its
+# kernels on an 8-core snapshot at the S the card picks for it, and every S
+# gives the single walk's bits, so sharded == single device bit for bit.
+# ---------------------------------------------------------------------------
+
+def sharded_pair(cuda, n_rows=20_000, n_shards=4, **kw):
+    csr = bscsr.synthetic_embedding_csr(n_rows, 128, 12, "gamma", seed=4)
+    cfg = api.TopKSpMVConfig(big_k=20, k=8, value_format="BF16", num_partitions=32,
+                             device="cuda", **kw)
+    return SparseEmbeddingIndex(csr, cfg), SparseEmbeddingIndex(csr, cfg, n_shards=n_shards)
+
+
+def assert_pair_bits(got, want, what=""):
+    (gv, gr), (wv, wr) = (tuple(t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+                                for t in p) for p in (got, want))
+    np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32), err_msg=what)
+    np.testing.assert_array_equal(gr, wr, err_msg=what)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_facade_matches_single_device_bitwise(cuda, n_shards):
+    """query / query_batch at Q = 1, 8, 37, 64 and the single-query kernel
+    through index.query, before and after an ingest and deletes; each shard
+    launches each kernel once per call."""
+    one, shd = sharded_pair(cuda, n_shards=n_shards)
+    rng = np.random.default_rng(n_shards)
+    xs = rng.standard_normal((64, 128)).astype(np.float32)
+
+    def check(what):
+        for q in (8, 37, 64):
+            assert_pair_bits(shd.query_batch(xs[:q]), one.query_batch(xs[:q]), f"{what} Q={q}")
+        assert_pair_bits(shd.query(xs[1]), one.query(xs[1]), what)
+        x = torch.from_numpy(xs[2]).to(cuda)
+        assert_pair_bits(shd.index.query(x), api.topk_spmv(one.index, x), what)
+
+    check("build")
+    new = rng.standard_normal((40, 128)).astype(np.float32)
+    np.testing.assert_array_equal(shd.upsert(new), one.upsert(new))
+    for fac in (one, shd):
+        fac.delete([0, 7, 19_999, 20_003])
+        fac.upsert(new[:3], ids=[11, 12, 20_001])
+    check("after ingest")
+    K.reset_launch_counts()
+    shd.query_batch(xs)
+    shd.index.query(torch.from_numpy(xs[0]).to(cuda))
+    assert K.bscsr_topk_spmv_multiquery.launches == n_shards
+    assert K.bscsr_topk_spmv.launches == n_shards
+
+
+def test_sharded_failover_and_recovery_on_the_card(cuda):
+    """A failed shard's pool drops out of the merge; recover_shard re-pins it
+    from its host copy and the full answers come back bit for bit."""
+    from repro_torch.core.faults import FaultPlan
+
+    _, shd = sharded_pair(cuda)
+    xs = np.random.default_rng(9).standard_normal((16, 128)).astype(np.float32)
+    full = shd.query_batch(xs)
+    with FaultPlan({"dispatch.shard": 2}):
+        deg = shd.query_batch(xs)
+    assert shd.index.dead_shards == (2,)
+    owner = shd.index._live
+    for i in range(16):
+        keep = [j for j, g in enumerate(full[1][i]) if owner[int(g)][0] != 2]
+        n = len(keep)
+        assert_pair_bits((deg[0][i][:n], deg[1][i][:n]),
+                         (full[0][i][keep], full[1][i][keep]), f"query {i}")
+    ex = api.query_executor(shd.config)
+    copies = ex.h2d_copies
+    shd.index.recover_shard(2)
+    assert_pair_bits(shd.query_batch(xs), full)
+    assert ex.h2d_copies > copies
+    assert shd.dispatch_info()["health"]["live_shard_fraction"] == 1.0
+
+
+def test_sharded_accumulate_matches_single_device_bitwise(cuda):
+    """y = alpha A x + beta y and a cold and a warm PPR on 4 shards equal the
+    single-device ones bit for bit, with one accumulate launch per shard."""
+    from repro_torch.core import graph
+
+    csr = graph.synthetic_graph_csr("ring", 1 << 14, seed=0)
+    cfg = api.TopKSpMVConfig(k=8, num_partitions=32, value_format="F32", device="cuda")
+    one = SparseEmbeddingIndex(csr, cfg)
+    shd = SparseEmbeddingIndex(csr, cfg, n_shards=4)
+    n = csr.shape[0]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    a, b = torch.tensor(0.85, device=cuda), torch.tensor(0.15, device=cuda)
+    ex = api.query_executor(cfg)
+    want = ex.spmv(x, one.index.packed, alpha=a, beta=b, y=y)
+    K.reset_launch_counts()
+    got = shd.index.spmv(x, a, b, y, resident=True)
+    assert K.bscsr_spmv.launches == 4
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    c1 = graph.personalized_pagerank(one.index, [5, 17], tol=1e-5)
+    c4 = graph.personalized_pagerank(shd.index, [5, 17], tol=1e-5)
+    np.testing.assert_array_equal(c1.scores.view(np.int32), c4.scores.view(np.int32))
+    assert c1.iterations == c4.iterations and c4.retraces == 0
+    seg = csr.row_slice(40, 41)
+    for idx in (one.index, shd.index):
+        idx.replace_rows([40], [(seg.indices, (seg.data * 1.02).astype(np.float32))])
+    w1 = graph.personalized_pagerank(one.index, [5, 17], tol=1e-5, warm_start=c1.scores)
+    w4 = graph.personalized_pagerank(shd.index, [5, 17], tol=1e-5, warm_start=c4.scores)
+    np.testing.assert_array_equal(w1.scores.view(np.int32), w4.scores.view(np.int32))
+    assert w1.iterations == w4.iterations
+
+
+def test_sharded_mixed_twins_match_native_on_the_card(cuda):
+    """Shard-local width classes through the tagged kernels, and the f32
+    twins as one F32 stream a shard, give the same bits."""
+    csr = bscsr.synthetic_embedding_csr(8_000, 128, 12, "gamma", seed=6)
+    csr = bscsr.scale_rows(csr, np.where(np.arange(8_000) < 2_000, 1.0, 0.25))
+    cfg = api.TopKSpMVConfig(big_k=20, k=8, num_partitions=16, recall_target=0.95,
+                             device="cuda")
+    native = SparseEmbeddingIndex(csr, cfg, n_shards=4)
+    twins = SparseEmbeddingIndex(csr, cfg, n_shards=4, native_groups=False)
+    assert all(sh.packed.groups is not None for sh in native.index.shards)
+    xs = np.random.default_rng(7).standard_normal((64, 128)).astype(np.float32)
+    for q in (1, 8, 64):
+        assert_pair_bits(native.query_batch(xs[:q]), twins.query_batch(xs[:q]), f"Q={q}")
+    x = torch.from_numpy(xs[0]).to(cuda)
+    assert_pair_bits(native.index.query(x), twins.index.query(x))
+    y = torch.zeros(csr.shape[0], device=cuda)
+    xa = torch.from_numpy(np.random.default_rng(8).random(128).astype(np.float32)).to(cuda)
+    assert torch.equal(native.index.spmv(xa, 1.0, 0.0, y).view(torch.int32),
+                       twins.index.spmv(xa, 1.0, 0.0, y).view(torch.int32))
+
+
+def test_sharded_topk_head_on_the_card(cuda):
+    """The approximate head: 4 shards == unsharded bit for bit; the
+    single-query kernel within 1e-5 of the plain answer."""
+    from repro_torch.serve import ApproxTopKHead, TopKHeadConfig
+
+    rng = np.random.default_rng(10)
+    emb = rng.standard_normal((20_000, 256)).astype(np.float32)
+    h1 = ApproxTopKHead(emb, TopKHeadConfig(device="cuda"))
+    h4 = ApproxTopKHead(emb, TopKHeadConfig(device="cuda", n_shards=4))
+    hs = rng.standard_normal((64, 256)).astype(np.float32)
+    assert_pair_bits(h4.topk_logits_batch(hs), h1.topk_logits_batch(hs))
+    assert_pair_bits(h4.topk_logits(hs[0], use_kernel=True),
+                     h1.topk_logits(hs[0], use_kernel=True))
+    kv, kr = h1.topk_logits(hs[1], use_kernel=True)
+    pv, pr = h1.topk_logits(hs[1], use_kernel=False)
+    np.testing.assert_allclose(kv, pv, rtol=1e-5, atol=1e-5)
+    assert h4.dispatch_info()["path"] == "per_shard"

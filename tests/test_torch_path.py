@@ -277,24 +277,31 @@ class TestFacade:
 
     @pytest.mark.parametrize("case", ["mesh", "n_shards", "from_index"])
     def test_later_slices_raise(self, facades, case):
-        """The sharded plane raises naming its ROADMAP item; ``from_index``
-        (ported with the serving plane) wraps the index it is given."""
+        """The mesh dispatch raises naming its ROADMAP item; ``n_shards``
+        (ported with the sharded plane) builds a sharded facade bit for bit
+        equal to the single-device one; ``from_index`` (ported with the
+        serving plane) wraps the index it is given."""
         j, t = facades
         csr = port_csr(j.csr)
+        xs = np.random.default_rng(9).standard_normal((3, N_COLS)).astype(np.float32)
         if case == "from_index":
             wrapped = TorchIndex.from_index(t.index, nnz_per_row=t.nnz_per_row)
             assert wrapped.index is t.index and wrapped.config == t.config
             assert not wrapped.is_sharded and wrapped.replica_factor == 1
-            xs = np.random.default_rng(9).standard_normal((3, N_COLS)).astype(np.float32)
             for a, b in zip(wrapped.query_batch(xs), t.query_batch(xs)):
                 np.testing.assert_array_equal(a, b)
             return
-        call = {
-            "mesh": lambda: TorchIndex(csr, tcfg(), mesh=object()),
-            "n_shards": lambda: TorchIndex(csr, tcfg(), n_shards=2),
-        }[case]
+        if case == "n_shards":
+            single = TorchIndex(csr, t.config)
+            sharded = TorchIndex(csr, t.config, n_shards=2)
+            assert sharded.is_sharded and sharded.replica_factor == 1
+            for a, b in zip(sharded.query_batch(xs), single.query_batch(xs)):
+                np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+            for a, b in zip(sharded.query(xs[0]), single.query(xs[0])):
+                np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            TorchIndex(csr, tcfg(), mesh=object())
 
 
 class TestQueryValidation:

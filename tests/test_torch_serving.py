@@ -43,6 +43,7 @@ from repro_torch.core import bscsr as tbscsr
 from repro_torch.core import topk_spmv as ttopk
 from repro_torch.core.faults import INJECTION_POINTS, FaultInjected, FaultPlan, fault_point
 from repro_torch.core.persistence import DurableIndexStore, WriteAheadLog
+from repro_torch.core.sharded import ShardedTopKSpMVIndex
 from repro_torch.core.similarity import SparseEmbeddingIndex
 from repro_torch.serve import frontend as tfrontend
 from repro_torch.serve import (
@@ -57,10 +58,10 @@ jtopk = importlib.import_module("repro.core.topk_spmv")
 
 N_COLS = 64
 TOL = 1e-5
-# The points with a caller in the port; dispatch.shard and bundle.scatter
-# wait for the sharded plane.
+# The points with a caller in the port; bundle.scatter waits for the mesh
+# dispatch of the sharded plane.
 PORTED_POINTS = ("refresh.cow_rewrite", "refresh.swap", "compact.swap", "wal.append",
-                 "checkpoint.write", "checkpoint.rename")
+                 "checkpoint.write", "checkpoint.rename", "dispatch.shard")
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +427,15 @@ class TestEveryInjectionPointFires:
         index = port_index()
         store = DurableIndexStore(tmp_path, device="cpu")
         store.checkpoint(index)
+        if point == "dispatch.shard":
+            # Swallowed by the failover (tests/test_torch_sharded.py); the
+            # armed plan still records the injection.
+            sharded = ShardedTopKSpMVIndex(index.live_csr()[0], index.config, n_shards=2)
+            with FaultPlan({point: 0}) as plan:
+                sharded.query(np.zeros(N_COLS, np.float32), use_kernel=False)
+            assert plan.fired == [(point, 0)]
+            assert sharded.dead_shards == (0,)
+            return
         with pytest.raises(FaultInjected) as e:
             with FaultPlan({point: 0}):
                 if point in ("refresh.cow_rewrite", "refresh.swap"):
