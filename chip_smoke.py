@@ -25,7 +25,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              padded budget, poisoned padding, ties at the k-th place), and
              each snapshot's grouped dispatch must give the bits of its f32
              twins streamed as one F32 stream.
-3. main path the deployment configuration of ``repro.configs.topk_spmv``
+3. main path the deployment configuration of ``repro_torch.configs.topk_spmv``
              (10M rows x 512 columns, gamma row lengths with mean 20, BF16,
              B=256, K=100, k=8, T=2, fused layout, c=32) through the mutable
              ``SparseEmbeddingIndex``: ``query`` / ``query_batch`` and
@@ -124,9 +124,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              ``rank(seeds=[5, 17, 4242], top_k=10)``, one accumulate launch
              per shard and iteration; phase 6 holds its single-device cold
              rank to it bit for bit, in as many iterations.  The approximate
-             head at Qwen2.5-3B's vocabulary and width (read from
-             ``src/repro/configs/qwen25_3b.py``; a random embedding from
-             ``--seed``), ``TopKHeadConfig`` defaults, unsharded and on 4
+             head at Qwen2.5-3B's vocabulary and width (from
+             ``repro_torch.configs``; a random embedding from ``--seed``),
+             ``TopKHeadConfig`` defaults, unsharded and on 4
              shards: ``topk_logits_batch`` of 64 hidden states bit for bit
              equal, ``topk_logits(use_kernel=True)`` within phase 4's
              tolerance of the plain answer, overlap@64 against
@@ -134,15 +134,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              kernel must launch here; then each kernel's device time per
              shard and in sum, beside phase 4's single-device time and the
              bound.
-   summary   ``SHARDED`` and ``MIXED`` lines, the ``kernels`` JSON line
+9. lm        run last (the earlier facades freed): Qwen2.5-3B at full width
+             (``repro_torch.configs.get_config("qwen25_3b")``: 36 layers,
+             d_model 2048, vocab 151,936, bf16, cut: none; the port's own
+             init on the card from ``--seed``) behind ``ServingEngine(...,
+             batch_size=64, max_seq=128, use_approx_head=True,
+             head_cfg=TopKHeadConfig())``: 64 prompts of 16 tokens through
+             ``generate(prompt, 32)`` twice (equal tokens, all in
+             ``[0, vocab)``); the incremental prefill's last logits against
+             ``prefill`` within ``LM_TOL`` (argmax equal wherever the top-2
+             gap exceeds it); ``decode_hidden`` then ``sample_approx`` (the
+             multi-query kernel at Q = 64) against the head's plain walk
+             (ids equal outside near-ties, values within 1e-5), the
+             single-query kernel likewise, overlap@64 over 16 states beside
+             ``partition_precision``.  Both top-k kernels must launch here.
+             Timed: a decode step at B = 64 and 1 (CUDA events, and the
+             profiler's kernel time) beside the weight-byte bound, the head's
+             kernel at Q = 64 and the dense ``lm_logits`` + argmax it
+             replaces, each beside its bound; host tokens/s, peak memory.
+   summary   ``LM``, ``SHARDED`` and ``MIXED`` lines, the ``kernels`` JSON line
              (each kernel's classes, its mixed-path and per-shard times;
-             ``launches`` counts phases 3, 6, 7 and 8, with phase 7's and
-             8's also apart), the card's name and power limit, and the
+             ``launches`` counts phases 3, 6, 7, 8 and 9, with phase 7's, 8's
+             and 9's also apart), the card's name and power limit, and the
              result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
 result line: a short check of a kernel change before the full run.
+``--only lm`` runs phases 1 and 9 and stops without the result line.
 
 The script needs one CUDA device and imports only ``repro_torch`` (from
 ``src/`` beside it) and torch/numpy.
@@ -199,10 +218,19 @@ GRAPH_SEEDS = [5, 17, 4242]
 # tol = 1e-5 within 3000 steps; 1024 is the largest power of two that does.
 EIGEN_NODES = 1024
 # Phase 8: the query cell, the graph cell and the head on four shards; the
-# head at Qwen2.5-3B's vocabulary and width, read from the repo's config.
+# head at Qwen2.5-3B's vocabulary and width, from the port's config.
 SHARDS = 4
-QWEN25_3B_CONFIG = "src/repro/configs/qwen25_3b.py"
 HEAD_EXACT = 16               # hidden states held to exact_topk_logits for overlap@64
+# Phase 9: Qwen2.5-3B at full width behind ServingEngine with the approximate
+# head: 64 requests of 16 prompt tokens and 32 generated ones.
+LM_ARCH = "qwen25_3b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_SEQ = 64, 16, 32, 128
+LM_TIMED_STEPS = 5            # decode steps timed (CUDA events) after 2 of warm-up
+# Decode vs prefill at bf16: both round every product to bf16 in other
+# shapes (and so other summation orders), and the differences grow over
+# 36 layers; 0.25 is 8-16 bf16 ulps at the top logits (|logit| in 2..8).
+LM_TOL = 0.25
+H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
 
 
 def log(*args) -> None:
@@ -576,10 +604,10 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=10_000_000,
                         help="collection rows (the deployment has 10M)")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("accumulate",),
+    parser.add_argument("--only", choices=("accumulate", "lm"),
                         help="accumulate: phases 1 and 2 and the accumulate kernel's "
-                             "timing on phase 6's streams (no solves), then stop "
-                             "without the result line")
+                             "timing on phase 6's streams (no solves); lm: phases 1 "
+                             "and 9; then stop without the result line")
     args = parser.parse_args()
 
     import torch
@@ -594,6 +622,7 @@ def main() -> int:
     from repro_torch.core import topk_spmv as api
     from repro_torch.kernels import bscsr_topk_spmv as K
     from repro_torch.kernels import ops
+    from repro_torch.configs.topk_spmv import CONFIG as deploy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -607,6 +636,12 @@ def main() -> int:
     K._library()
     log(f"phase build: ok ({time.time() - t0:.1f} s, {lib.name})")
     log("REGISTERS " + json.dumps(kernel_registers(lib.with_suffix(".log").read_text())))
+
+    if args.only == "lm":
+        lm = lm_phase(torch, K, api, args.seed)
+        log("LM " + json.dumps(dict(lm, card=card_line())))
+        log(f"ONLY lm: done in {time.time() - t_start:.1f} s (no result line)")
+        return 0
 
     # ---- phase 2: kernels vs plain versions on small fixtures ----
     errs = {"bscsr_topk_spmv": 0.0, "bscsr_topk_spmv_multiquery": 0.0, "bscsr_spmv": 0.0}
@@ -631,11 +666,13 @@ def main() -> int:
     if args.rows != 10_000_000:
         log(f"CUT: n_rows {args.rows} instead of 10000000 (depth only)")
     t0 = time.time()
-    csr = bscsr.synthetic_embedding_csr(args.rows, 512, 20.0, "gamma", seed=args.seed)
+    csr = bscsr.synthetic_embedding_csr(args.rows, deploy.n_cols, deploy.mean_nnz_per_row,
+                                        deploy.distribution, seed=args.seed)
     log(f"  collection: {csr.shape[0]} x {csr.shape[1]}, nnz {csr.nnz} "
         f"({time.time() - t0:.1f} s)")
-    cfg = api.TopKSpMVConfig(big_k=100, k=8, block_size=256, value_format="BF16",
-                             packets_per_step=2, stream_layout="fused", device="cuda")
+    cfg = api.TopKSpMVConfig(big_k=deploy.big_k, k=deploy.k, block_size=deploy.block_size,
+                             value_format=deploy.value_format, packets_per_step=2,
+                             stream_layout="fused", device="cuda")
     t0 = time.time()
     svc = SparseEmbeddingIndex(csr, cfg)          # the mutable index
     index = svc.index
@@ -871,6 +908,17 @@ def main() -> int:
     kernels.append(accumulate_timing(torch, K, bscsr, gsvc, pre, errs, launches))
     kernels[2]["launches_sharded_path"] = sharded["launches"]["bscsr_spmv"]
     kernels[2]["launches"] += sharded["launches"]["bscsr_spmv"]
+    del gsvc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the LM serving path at Qwen2.5-3B's full width ----
+    t0 = time.time()
+    lm = lm_phase(torch, K, api, args.seed)
+    log(f"  lm phase {time.time() - t0:.1f} s")
+    for entry in kernels:
+        entry["launches_lm_path"] = lm["launches"][entry["name"]]
+        entry["launches"] += lm["launches"][entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")
 
     # ---- summary ----
@@ -908,6 +956,7 @@ def main() -> int:
         "end_to_end": sharded["end_to_end"],
         "ppr": {k: v for k, v in sharded["ppr"].items() if k != "scores"},
         "head": sharded["head"], "timing": timing}))
+    log("LM " + json.dumps(dict(lm, card=card_line())))
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -1631,11 +1680,11 @@ def serving_phase(torch, K, api, svc, xs64, deleted, rng, root, device="cuda") -
 
 
 def qwen25_3b_widths() -> tuple:
-    """(vocab, d_model) of Qwen2.5-3B from the repo's config file, read as
-    text (this script imports nothing of the JAX package)."""
-    text = (ROOT / QWEN25_3B_CONFIG).read_text().split("SMOKE")[0]
-    return (int(re.search(r"vocab_size=(\d+)", text).group(1)),
-            int(re.search(r"d_model=(\d+)", text).group(1)))
+    """(vocab, d_model) of Qwen2.5-3B from the port's config."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    return cfg.vocab_size, cfg.d_model
 
 
 def same_bits(a, b) -> bool:
@@ -1915,6 +1964,250 @@ def sharded_timing(torch, K, api, ex, index, gindex, xs64, phase4, cfg, device="
     log(f"  accumulate kernel per shard of the graph cell (S = {splits}): "
         f"{' / '.join(f'{m:.4f}' for m in per)} ms, sum {sum(per):.4f} ms")
     return out
+
+
+def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
+    """Phase 9: Qwen2.5-3B at full width (``cfg`` cuts it only for a CPU
+    rehearsal) behind ``ServingEngine`` with the approximate head.
+
+    The model is the port's own init on the device from ``seed`` (no
+    weights are in the repo).  Drive: the engine and its head, 64 prompts
+    of 16 tokens through ``generate(prompt, 32)`` twice, the incremental
+    prefill, ``decode_hidden`` for the first generated token, ``sample_approx``
+    (the multi-query kernel at Q = 64) and ``overlap_at_k`` over
+    ``HEAD_EXACT`` states (the single-query kernel).  Then the checks against
+    ``api.prefill`` and the plain walks, and on the card the timings.
+    Returns the drive's launches (counted from 0) and the ``LM`` line.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve import ServingEngine, TopKHeadConfig
+
+    check = Check("lm")
+    on_card = device == "cuda"
+    cfg = cfg or get_config(LM_ARCH)
+    model_api = get_model(cfg)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = model_api.init_params(torch.Generator(device=device).manual_seed(seed), LM_MAX_SEQ)
+    sync()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}: {n_params} parameters, "
+        f"{weight_bytes / 1e9:.3f} GB of weights on {device} (init {init_s:.1f} s)")
+    check.expect(n_params == cfg.param_count(), "parameters differ from param_count()")
+    if on_card:
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"  peak device memory of the init {init_peak / 1e9:.3f} GB (f32 draws "
+            f"beside the held weights)")
+
+    rng = np.random.default_rng(seed + 9)
+    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    K.reset_launch_counts()
+    t0 = time.time()
+    engine = ServingEngine(cfg, model, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ,
+                           use_approx_head=True, head_cfg=TopKHeadConfig(device=device),
+                           device=device)
+    head_build_s = time.time() - t0
+    head = engine.head
+    gen_s = []
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(engine.generate(prompt, num_steps=LM_GEN).tokens)
+        gen_s.append(time.perf_counter() - t0)
+    dec_logits, cache, pos = engine.prefill_tokens(prompt)
+    next_tok = torch.argmax(dec_logits, dim=-1)[:, None]
+    hidden, _ = engine.decode_hidden(cache, next_tok, pos)
+    ids = engine.sample_approx(hidden)
+    h32 = hidden.float().cpu().numpy()
+    overlaps = [head.overlap_at_k(h32[i]) for i in range(HEAD_EXACT)]
+    sync()
+    launches = {"bscsr_topk_spmv": K.bscsr_topk_spmv.launches,
+                "bscsr_topk_spmv_multiquery": K.bscsr_topk_spmv_multiquery.launches,
+                "bscsr_spmv": K.bscsr_spmv.launches}
+    log(f"  launches in the lm phase: {launches}")
+    if on_card:
+        for name in ("bscsr_topk_spmv", "bscsr_topk_spmv_multiquery"):
+            check.expect(launches[name] > 0, f"{name} was not launched in the lm phase")
+
+    # Requests: the same tokens twice, every one a real vocabulary id.
+    a, b = runs
+    check.expect(a.shape == (LM_BATCH, LM_GEN) and np.array_equal(a, b),
+                 "generate gave other tokens the second time")
+    check.expect(bool(((a >= 0) & (a < cfg.padded_vocab)).all()),
+                 "a generated token lies outside [0, padded_vocab)")
+    check.expect(bool((a < cfg.vocab_size).all()), "a padding id was generated")
+    tokens_per_s = LM_BATCH * LM_GEN / gen_s[1]
+    log(f"  generate: {LM_BATCH} requests x ({LM_PROMPT} + {LM_GEN}) tokens in "
+        f"{gen_s[0]:.2f} / {gen_s[1]:.2f} s ({tokens_per_s:.1f} tokens/s host clock); "
+        f"equal twice: {np.array_equal(a, b)}; {len(np.unique(a))} distinct ids")
+
+    # Decode matches prefill: the incremental prefill's last logits against
+    # the full-sequence forward on the same tokens.
+    pre_logits = model_api.prefill(model, {"tokens": torch.from_numpy(prompt).to(device)})
+    dl = dec_logits.float().cpu().numpy()[:, :cfg.vocab_size]
+    pl = pre_logits.float().cpu().numpy()[:, :cfg.vocab_size]
+    diff = float(np.abs(dl - pl).max())
+    top2 = np.sort(pl, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > LM_TOL
+    agree = dl.argmax(-1) == pl.argmax(-1)
+    log(f"  decode vs prefill at the prompt's last position: max abs diff {diff:.4g} "
+        f"(tolerance {LM_TOL}, |logit| up to {float(np.abs(pl).max()):.3g}); argmax agrees "
+        f"in {int(agree.sum())} of {LM_BATCH} rows, in {int(agree[clear].sum())} of the "
+        f"{int(clear.sum())} whose top-2 gap exceeds the tolerance")
+    check.expect(diff <= LM_TOL, f"decode vs prefill differ by {diff:.4g} > {LM_TOL}")
+    check.expect(bool(agree[clear].all()), "decode and prefill argmax differ past a clear gap")
+    check.expect(bool(np.isfinite(h32).all()) and h32.shape == (LM_BATCH, cfg.d_model),
+                 "decode_hidden is not (B, d_model) finite")
+
+    # The head on real hidden states: the kernels against their plain walks.
+    kernel = head.topk_logits_batch(h32)
+    plain = head.topk_logits_batch(h32, use_kernel=False)
+    mq_ok, mq_err = compare(tuple(torch.from_numpy(t) for t in kernel),
+                            tuple(torch.from_numpy(t) for t in plain), bitwise=False)
+    check.expect(mq_ok, f"sample_approx's kernel vs plain walk (max err {mq_err:.3g})")
+    check.expect(np.array_equal(ids, kernel[1][:, 0].astype(np.int64)),
+                 "sample_approx ids differ from the kernel's top-1")
+    one_ok, one_err = compare(
+        tuple(torch.from_numpy(t) for t in head.topk_logits(h32[0])),
+        tuple(torch.from_numpy(t) for t in head.topk_logits(h32[0], use_kernel=False)),
+        bitwise=False)
+    check.expect(one_ok, f"topk_logits kernel vs plain walk (max err {one_err:.3g})")
+    overlap = float(np.mean(overlaps))
+    check.expect(0.0 < overlap <= 1.0, f"overlap@{head.cfg.big_k} {overlap}")
+    log(f"  head ({cfg.vocab_size} x {cfg.d_model}, {head.index.packed.nnz} nnz, built in "
+        f"{head_build_s:.1f} s): sample_approx at Q = {LM_BATCH} vs plain max abs err "
+        f"{mq_err:.3g} (ids equal outside near-ties: {mq_ok}); topk_logits vs plain "
+        f"{one_err:.3g}; overlap@{head.cfg.big_k} {overlap:.4f} over {HEAD_EXACT} hidden "
+        f"states (partition precision {head.partition_precision:.4f}); sampled == dense "
+        f"argmax of tok in {int((ids == np.argmax(h32 @ head.embedding.T, -1)).sum())} of "
+        f"{LM_BATCH} rows")
+
+    cut = "none" if cfg == get_config(LM_ARCH) else "widths cut for a CPU rehearsal"
+    out = {"model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype, "cut": cut,
+           "parameters": n_params, "weight_bytes": weight_bytes, "init_s": init_s,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "head_build_s": head_build_s, "head_nnz": int(head.index.packed.nnz),
+           "generate_s": gen_s, "tokens_per_s": tokens_per_s,
+           "decode_vs_prefill_max_abs": diff, "tolerance": LM_TOL,
+           "sample_approx_vs_plain_max_abs": mq_err, "topk_logits_vs_plain_max_abs": one_err,
+           "overlap_at_64": overlap, "partition_precision": head.partition_precision,
+           "launches": launches}
+    if on_card:
+        out.update(lm_timing(torch, K, api, L, model, engine, hidden, cfg))
+        out["init_max_memory_allocated"] = init_peak
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory while serving {out['max_memory_allocated'] / 1e9:.3f} GB")
+    check.done()
+    return out
+
+
+def lm_timing(torch, K, api, L, model, engine, hidden, cfg) -> dict:
+    """Device times of phase 9: a decode step at B = 64 and 1 (CUDA events
+    around each step, and the profiler's kernel time), ``sample_approx``'s
+    kernel at Q = 64 and the dense logits + argmax it replaces, each beside
+    its bound."""
+    out = {}
+    kv_heads, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    layer_bytes = sum(p.numel() * p.element_size() for p in model.blocks.parameters())
+    layer_params = sum(p.numel() for p in model.blocks.parameters())
+    for batch in (LM_BATCH, 1):
+        cache = model.init_cache(batch, LM_MAX_SEQ)
+        tok = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+        step = lambda: model.decode_step(cache, tok, LM_PROMPT, return_hidden=True)  # noqa: E731
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        times = [time_once(torch, step)[0] for _ in range(LM_TIMED_STEPS)]
+        busy, top = profiled_kernels(torch, step)
+        # Bytes a step must move: every layer's weights once, the valid
+        # (pos + 1) cache rows read and one written per layer, k and v.
+        kv = cfg.num_layers * 2 * batch * kv_heads * hd * 2
+        nbytes = layer_bytes + kv * (LM_PROMPT + 1) + kv + batch * cfg.d_model * 2 * 2
+        flops = 2.0 * batch * layer_params
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+        ms = float(np.mean(times))
+        out[f"decode_step_ms_b{batch}"] = ms
+        out[f"decode_step_ms_each_b{batch}"] = times
+        out[f"decode_step_kernel_ms_b{batch}"] = busy
+        out[f"decode_step_kernels_b{batch}"] = top
+        out[f"decode_step_bound_ms_b{batch}"] = bound
+        out[f"decode_step_idle_share_b{batch}"] = None if busy is None else 1 - busy / ms
+        log(f"  decode step B = {batch} (hidden only, pos {LM_PROMPT}): {ms:.3f} ms "
+            f"(CUDA events, mean of {LM_TIMED_STEPS}: "
+            f"{' / '.join(f'{t:.3f}' for t in times)}); kernels "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}; bound {bound:.3f} ms "
+            f"({nbytes / 1e9:.3f} GB at 3.35 TB/s)")
+        log(f"  decode step B = {batch} kernels per step (GEMMs' ms, launches, the "
+            f"costliest): " + json.dumps(top))
+        del cache
+
+    head = engine.head
+    index = head.index
+    icfg = index.config
+    ex = api.query_executor(icfg)
+    snap = ex.prepare(index.packed, LM_BATCH, "kernel")[1]
+    words = snap.streams[0]
+    x = torch.from_numpy(hidden.float().cpu().numpy()).cuda()
+    q_chunk, n_chunks = K.query_chunks(LM_BATCH)
+    t, block = icfg.packets_per_step, icfg.block_size
+    splits = K.topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
+                           block_size=block, m=x.shape[1], q_chunk=q_chunk, k=icfg.k)
+    tab = snap.split_table(t, splits)
+    head_ms = time_cuda(torch, lambda: K.bscsr_topk_spmv_multiquery(
+        x, words, table=tab, k=icfg.k, n_rows=snap.max_slots, packets_per_step=t,
+        fmt_name=snap.fmt_name, block_size=block), MIXED_BUDGET_S)
+    nbytes = words.numel() * 4 + LM_BATCH * x.shape[1] * 4 + words.shape[0] * LM_BATCH * icfg.k * 8
+    head_bound = max(nbytes / HBM_BYTES_PER_S,
+                     2.0 * index.packed.nnz * LM_BATCH / F32_FLOPS) * 1e3
+    sample_ms = median_ms(lambda: engine.sample_approx(hidden))
+    xb = hidden[:, None]
+    dense_ms = time_cuda(torch, lambda: torch.argmax(L.lm_logits(model.embed, xb, cfg), -1))
+    dense_bytes = cfg.d_model * cfg.padded_vocab * 2 + LM_BATCH * cfg.d_model * 2
+    dense_bound = max(dense_bytes / HBM_BYTES_PER_S,
+                      2.0 * LM_BATCH * cfg.d_model * cfg.padded_vocab / H100_BF16_FLOPS) * 1e3
+    out.update({"head_kernel_ms": head_ms, "head_kernel_bound_ms": head_bound,
+                "head_splits": splits, "sample_approx_host_ms": sample_ms,
+                "dense_logits_argmax_ms": dense_ms, "dense_logits_bound_ms": dense_bound})
+    log(f"  sample_approx at Q = {LM_BATCH}: the multi-query kernel {head_ms:.3f} ms (S = "
+        f"{splits}, bound {head_bound:.4f} ms over {nbytes / 1e6:.1f} MB), the whole call "
+        f"{sample_ms:.3f} ms host clock; the dense lm_logits + argmax it replaces "
+        f"{dense_ms:.3f} ms (bound {dense_bound:.4f} ms, {dense_bytes / 1e9:.3f} GB)")
+    return out
+
+
+def profiled_kernels(torch, step, steps=3):
+    """(kernel ms per ``step``, {"gemm_ms", "launches", "top"}) from
+    ``torch.profiler``: the GEMMs' share (cuBLAS kernels), kernel launches
+    per step and the five costliest kernels as (name, ms per step); (None,
+    {}) if the profiler records no device time on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    except Exception as exc:  # a measurement only: the run goes on without it
+        log(f"  profiler unavailable: {type(exc).__name__}: {exc}")
+        return None, {}
+    if not events:
+        return None, {}
+    per = {e.key: e.self_device_time_total / 1e3 / steps for e in events}
+    gemm = sum(ms for name, ms in per.items() if "nvjet" in name or "gemm" in name.lower())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    return sum(per.values()), {"gemm_ms": gemm,
+                               "launches": sum(e.count for e in events) / steps,
+                               "top": [(name[:80], ms) for name, ms in top]}
 
 
 def ulp_gap(a: np.ndarray, b: np.ndarray):

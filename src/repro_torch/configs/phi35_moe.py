@@ -1,0 +1,31 @@
+"""phi3.5-moe-42b-a6.6b [moe]: 16 experts, top-2 routing.
+[hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
+import dataclasses
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=6400,
+    vocab_size=32064,
+    num_experts=16,
+    experts_per_token=2,
+)
+
+SMOKE = dataclasses.replace(
+    CONFIG,
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=1,
+    d_ff=96,
+    vocab_size=512,
+    num_experts=4,
+    experts_per_token=2,
+    dtype="float32",
+    vocab_pad_multiple=8,
+)

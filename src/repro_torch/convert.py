@@ -9,6 +9,11 @@ are kept and viewed as ``uint16``.  ``state_from_reference`` does the same
 for a mutable index's ``export_state`` output, so a store the reference's
 ``DurableIndexStore`` wrote recovers in this package.
 
+``params_from_reference`` carries an LM's weights across: the reference's
+param tree (numpy arrays, a leading ``layers`` axis on ``blocks``) becomes
+a ``Transformer`` whose state dict holds the same values per layer, each in
+the dtype its op reads.
+
 Nothing else needs carrying: a ``ShardedTopKSpMVIndex`` and an
 ``ApproxTopKHead`` hold no state beyond what they build from the same CSR
 collection (or, for the head, the same dense embedding) that the reference
@@ -19,10 +24,12 @@ from __future__ import annotations
 from typing import Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels.ops import PackedPartitions
+from repro_torch.models.transformer import Transformer
 
 _OPTIONAL_ARRAYS = ("words", "slot_to_row", "num_slots", "tombstones")
 _OPTIONAL_COUNTS = ("n_rows_total", "base_packets", "delta_nnz", "dead_nnz",
@@ -85,3 +92,35 @@ def state_from_reference(meta: Mapping, arrays: Mapping, device: str = "cuda"
     out = {k: (np.asarray(a).view(np.uint16) if np.asarray(a).dtype.name == "bfloat16"
                else np.asarray(a)) for k, a in arrays.items()}
     return dict(meta, config=config), out
+
+
+def params_from_reference(params: Mapping, cfg, device: str = "cuda") -> Transformer:
+    """A ``Transformer`` on ``device`` holding the reference's params.
+
+    ``params`` is the reference's tree for ``cfg`` (arrays of any kind that
+    ``np.asarray`` reads): ``embed``, ``blocks`` with a leading layer axis,
+    and ``ln_f``.  Each layer's slice becomes ``blocks.<l>.<path>``; every
+    name of the model's state dict must be given once.
+    """
+    state = {}
+
+    def walk(tree: Mapping, prefix: str, layered: bool) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{name}.", layered or name == "blocks")
+                continue
+            arr = np.array(value, np.float32)        # a writable copy
+            if not layered:
+                state[prefix + name] = torch.from_numpy(arr)
+                continue
+            if arr.shape[0] != cfg.num_layers:
+                raise ValueError(f"{prefix}{name}: leading axis {arr.shape[0]}, "
+                                 f"expected {cfg.num_layers} layers")
+            inner = prefix[len("blocks."):]
+            for layer in range(cfg.num_layers):
+                state[f"blocks.{layer}.{inner}{name}"] = torch.from_numpy(arr[layer])
+
+    walk(params, "", False)
+    model = Transformer(cfg, device)
+    model.load_state_dict(state, strict=True)
+    return model

@@ -1,0 +1,335 @@
+"""Shared neural-net layers: norms, RoPE, GQA attention, MLPs, embeddings.
+
+The reference's ``repro/models/layers.py``, ported.
+
+Conventions
+-----------
+* A layer's params are read as ``p["name"]``: a dict of tensors, or a
+  ``ParamGroup`` (an ``nn.Module`` that reads the same way).  Each weight is
+  held once, in the dtype the op reads it in: ``cfg.dtype`` for the
+  projections, biases and embeddings, float32 for the norm weights.  The
+  reference keeps float32 masters and casts them at every einsum; the
+  numbers are the same.
+* Norms, softmax and losses accumulate in float32; attention scores are
+  float32 products of the compute-dtype operands (the reference's
+  ``preferred_element_type=float32``).
+* Masked scores are ``NEG_INF = -1e30``, not ``-inf``, as in the reference.
+* The initializers draw from an explicit ``torch.Generator`` on its device.
+
+Not ported: ``constrain`` and the ``*_specs`` functions are GSPMD layout
+hints, with no meaning on one device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+NEG_INF = -1e30
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class ParamGroup(nn.Module):
+    """Named tensors (and sub-groups) of one layer, read as ``p["name"]``
+    like the reference's param dicts.  Nothing in it takes gradients."""
+
+    def __init__(self, shapes: dict, device):
+        """``shapes`` maps a name to ``(shape, dtype)`` or to a nested dict."""
+        super().__init__()
+        for name, spec in shapes.items():
+            if isinstance(spec, dict):
+                self.add_module(name, ParamGroup(spec, device))
+            else:
+                shape, dtype = spec
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, dtype=dtype, device=device), requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0) -> torch.Tensor:
+    """LeCun-normal fp32 init (fan-in over ``in_axis``)."""
+    fan_in = shape[in_axis]
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return x.div_(math.sqrt(max(fan_in, 1)))
+
+
+def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return x.mul_(0.02)
+
+
+def zeros_init(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x, w, b, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: (..., S).  The two halves of
+    each head rotate together (not interleaved), in float32."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                      # (d/2,)
+    angles = positions[..., None].float() * freqs               # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1f, x2f = x[..., : d // 2].float(), x[..., d // 2:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, grouped products: KV is never materialized per q-head)
+# ---------------------------------------------------------------------------
+
+def attention_shapes(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, g, dt = cfg.num_heads, cfg.num_kv_heads, cdtype(cfg)
+    s = {"wq": ((d, h * hd), dt), "wk": ((d, g * hd), dt), "wv": ((d, g * hd), dt),
+         "wo": ((h * hd, d), dt)}
+    if cfg.qkv_bias:
+        s.update(bq=((h * hd,), dt), bk=((g * hd,), dt), bv=((g * hd,), dt))
+    return s
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    shapes = attention_shapes(cfg)
+    p = {name: dense_init(gen, shapes[name][0]) for name in ("wq", "wk", "wv", "wo")}
+    if cfg.qkv_bias:
+        p.update({name: zeros_init(gen, shapes[name][0]) for name in ("bq", "bk", "bv")})
+    return p
+
+
+def qkv_project(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,G,hd), RoPE applied."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.rope_theta > 0:  # rope_theta == 0: absolute-position models (whisper)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def blockwise_attention(
+    q: torch.Tensor,            # (B, S, H, hd)
+    k: torch.Tensor,            # (B, Sk, G, hd)
+    v: torch.Tensor,            # (B, Sk, G, hd)
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    sliding_window: int = 0,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Q-chunked masked attention; peak memory O(q_chunk * Sk) per (b, head).
+
+    Returns (B, S, H, hd).  ``q_offset`` is the absolute position of q[0].
+    Each row's softmax is whole, so the chunking does not change the numbers.
+    """
+    b, s, h, hd = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    qg = h // g
+    scale = 1.0 / math.sqrt(hd)
+    q = q.reshape(b, s, g, qg, hd)
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk != 0:  # fall back to one chunk for ragged sizes
+        q_chunk = s
+    kpos = torch.arange(sk, device=q.device)
+    kf = k.float()
+    outs = []
+    for start in range(0, s, q_chunk):
+        qc = q[:, start:start + q_chunk]
+        scores = torch.einsum("bsgqd,btgd->bgqst", qc.float(), kf) * scale
+        qpos = q_offset + start + torch.arange(q_chunk, device=q.device)
+        mask = torch.ones((q_chunk, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if sliding_window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - sliding_window
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bgqst,btgd->bsgqd", probs, v))   # (B,qc,G,Qg,hd)
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (B, 1, H, hd)
+    k_cache: torch.Tensor,      # (B, G, S, hd): heads-major cache layout
+    v_cache: torch.Tensor,
+    valid_len: int,
+) -> torch.Tensor:
+    b, _, h, hd = q.shape
+    g = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, g, h // g, hd)
+    scores = torch.einsum("bgqd,bgtd->bgqt", qg.float(), k_cache.float()) * scale
+    mask = torch.arange(k_cache.shape[2], device=q.device) < valid_len
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bgqt,bgtd->bgqd", probs, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def cache_insert(cache: torch.Tensor, kv: torch.Tensor, slot: int) -> torch.Tensor:
+    """Write (B, 1, G, hd) projections at ``slot`` of a (B, G, S, hd) cache, in place."""
+    cache[:, :, slot] = kv[:, 0].to(cache.dtype)
+    return cache
+
+
+def cache_insert_quant(cache: torch.Tensor, scale: torch.Tensor, kv: torch.Tensor,
+                       slot: int):
+    """int8 KV-cache insert with one fp scale per (b, head, position) vector
+    (the paper's Q-format fixed point, applied to decode HBM traffic), in place.
+
+    cache (B,G,S,hd) int8, scale (B,G,S) f32, kv (B,1,G,hd).  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    kv = kv[:, 0].float()                              # (B, G, hd)
+    amax = torch.amax(torch.abs(kv), dim=-1)           # (B, G)
+    s = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(kv / s[..., None]), -127, 127).to(torch.int8)
+    cache[:, :, slot] = q
+    scale[:, :, slot] = s.to(scale.dtype)
+    return cache, scale
+
+
+def cache_dequant(cache: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """(B,G,S,hd) int8 x (B,G,S) scales -> dtype."""
+    return (cache.float() * scale[..., None]).to(dtype)
+
+
+def attention_out(p, attn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s = attn.shape[:2]
+    flat = attn.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return flat @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_shapes(d: int, ff: int, dtype, gated: bool = True) -> dict:
+    if gated:
+        return {"w_gate": ((d, ff), dtype), "w_up": ((d, ff), dtype),
+                "w_down": ((ff, d), dtype)}
+    return {"w1": ((d, ff), dtype), "b1": ((ff,), dtype), "w2": ((ff, d), dtype),
+            "b2": ((d,), dtype)}
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, gated: bool = True) -> dict:
+    if gated:
+        return {"w_gate": dense_init(gen, (d, ff)), "w_up": dense_init(gen, (d, ff)),
+                "w_down": dense_init(gen, (ff, d))}
+    return {"w1": dense_init(gen, (d, ff)), "b1": zeros_init(gen, (ff,)),
+            "w2": dense_init(gen, (ff, d)), "b2": zeros_init(gen, (d,))}
+
+
+def gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    act = (F.silu(gate.float()) * up.float()).to(dt)
+    return act @ p["w_down"]
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["w1"] + p["b1"]
+    h = F.gelu(h.float(), approximate="tanh").to(dt)   # jax.nn.gelu's default
+    return h @ p["w2"] + p["b2"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head / loss
+# ---------------------------------------------------------------------------
+
+def embedding_shapes(cfg: ModelConfig) -> dict:
+    dt = cdtype(cfg)
+    s = {"tok": ((cfg.padded_vocab, cfg.d_model), dt)}
+    if not cfg.tie_embeddings:
+        s["out"] = ((cfg.d_model, cfg.padded_vocab), dt)
+    return s
+
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    p = {"tok": embed_init(gen, (cfg.padded_vocab, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["out"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab))
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return p["tok"][tokens.long()].to(cdtype(cfg))
+
+
+def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(..., D) hidden states -> (..., padded_vocab) logits, the padding ids
+    masked to ``NEG_INF``."""
+    if cfg.tie_embeddings:
+        logits = x @ p["tok"].to(x.dtype).T
+    else:
+        logits = x @ p["out"].to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad_mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = torch.where(pad_mask, logits, NEG_INF)
+    return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,0 +1,86 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch.
+
+The reference's ``repro/models/moe.py``, ported (forward only).
+GShard/Switch-style: tokens are routed to their top-k experts, dispatched by
+scatter into per-expert capacity buffers ``(E, cap, D)`` (so the products
+cover the active experts only), run through batched expert FFNs, and
+combined with the renormalized router weights.  The router's softmax runs
+in float32; its top-k takes the lower expert id first on ties, as
+``jax.lax.top_k`` does.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def moe_shapes(cfg: ModelConfig) -> dict:
+    d, ff, e, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, L.cdtype(cfg)
+    return {"router": ((d, e), dt), "w_gate": ((e, d, ff), dt), "w_up": ((e, d, ff), dt),
+            "w_down": ((e, ff, d), dt)}
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return {name: L.dense_init(gen, shape, in_axis=0 if name == "router" else 1)
+            for name, (shape, _) in moe_shapes(cfg).items()}
+
+
+def _capacity(tokens: int, cfg: ModelConfig) -> int:
+    if tokens <= 256:
+        # decode / tiny batches: drop-free (worst case all tokens co-route)
+        return tokens * cfg.experts_per_token
+    cap = int(tokens * cfg.experts_per_token * cfg.moe_capacity_factor / cfg.num_experts)
+    return max(cap, cfg.experts_per_token)
+
+
+def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    cap = _capacity(t, cfg)
+    xt = x.reshape(t, d)
+
+    # --- routing (top-k over experts; softmax over the selected gates) ---
+    logits = (xt @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    expert_idx = order[:, :k]                                   # (T, k)
+    gate_vals = torch.gather(probs, -1, expert_idx)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # --- load-balancing auxiliary loss (Switch-style) ---
+    me = probs.mean(dim=0)
+    ce = torch.bincount(expert_idx[:, 0], minlength=e).float() / t
+    aux = e * torch.sum(me * ce)
+
+    # --- capacity assignment: position of each (token, slot) in its expert ---
+    flat_expert = expert_idx.reshape(-1)                        # (T*k,)
+    onehot = F.one_hot(flat_expert, e)                          # (T*k, E)
+    pos_in_expert = torch.gather(torch.cumsum(onehot, dim=0) - onehot, 1,
+                                 flat_expert[:, None])[:, 0]
+    keep = pos_in_expert < cap                                  # overflow dropped
+
+    # --- dispatch: scatter tokens into (E, C, D) buffers ---
+    src = torch.repeat_interleave(xt, k, dim=0)                 # (T*k, D)
+    safe_pos = torch.where(keep, pos_in_expert, cap - 1)
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((flat_expert, safe_pos), torch.where(keep[:, None], src, 0),
+                   accumulate=True)
+
+    # --- expert FFNs (batched over E) ---
+    gate = torch.bmm(buf, p["w_gate"])
+    up = torch.bmm(buf, p["w_up"])
+    act = (F.silu(gate.float()) * up.float()).to(x.dtype)
+    out = torch.bmm(act, p["w_down"])
+
+    # --- combine: gather each (token, slot)'s result, weight, and sum ---
+    gathered = torch.where(keep[:, None], out[flat_expert, safe_pos], 0)
+    w = gate_vals.reshape(-1)[:, None].to(x.dtype)
+    y = (gathered * w).reshape(t, k, d).sum(dim=1)
+    return y.reshape(b, s, d), aux

@@ -235,7 +235,9 @@ def test_import_hygiene():
         for path in SRC_PORT.rglob("*.py"))
     assert {"repro_torch.core.adaptive", "repro_torch.core.persistence",
             "repro_torch.serve.streaming", "repro_torch.utils.watchdog",
-            "repro_torch.core.sharded", "repro_torch.serve.topk_head"} <= set(modules)
+            "repro_torch.core.sharded", "repro_torch.serve.topk_head",
+            "repro_torch.configs.qwen25_3b", "repro_torch.models.transformer",
+            "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

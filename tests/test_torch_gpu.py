@@ -14,6 +14,11 @@ The tagged width classes of mixed-precision snapshots (TAG4, TAG2 with
 BF16 and Q15 cores in one launch, TAG1) run through all three kernels
 against their plain versions and against the same snapshot's f32 twins
 streamed as one F32 stream.
+
+The LM serving engine on the card against itself on the CPU (the smoke
+qwen2.5-3b config at float32, TF32 off: tokens equal, logits within
+rtol = atol = 1e-4), ``sample_approx`` against the plain walk at a ragged
+and a full decode batch, and ``kv_quant`` decoding.
 """
 import dataclasses
 
@@ -1076,3 +1081,85 @@ def test_sharded_topk_head_on_the_card(cuda):
     pv, pr = h1.topk_logits(hs[1], use_kernel=False)
     np.testing.assert_allclose(kv, pv, rtol=1e-5, atol=1e-5)
     assert h4.dispatch_info()["path"] == "per_shard"
+
+
+# ---------------------------------------------------------------------------
+# The LM serving engine
+# ---------------------------------------------------------------------------
+
+ENGINE_HEAD = dict(big_k=16, k=8, num_partitions=4, nnz_per_row=32, block_size=64)
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """Float32 products in float32 on the card, as on the CPU."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def engine_pair(batch, **over):
+    """(cpu engine, card engine) over the same smoke model drawn on the CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ServingEngine, TopKHeadConfig
+
+    cfg = dataclasses.replace(smoke_config("qwen25_3b"), **over)
+    host = Transformer(cfg, "cpu").init_params(torch.Generator().manual_seed(0))
+    card = Transformer(cfg, "cuda")
+    card.load_state_dict(host.state_dict())
+    return tuple(ServingEngine(cfg, model, batch_size=batch, max_seq=64, use_approx_head=True,
+                               head_cfg=TopKHeadConfig(device=dev, **ENGINE_HEAD), device=dev)
+                 for model, dev in ((host, "cpu"), (card, "cuda")))
+
+
+def test_engine_on_the_card_equals_the_cpu(no_tf32):
+    cpu, card = engine_pair(4)
+    prompt = np.random.default_rng(1).integers(0, cpu.cfg.vocab_size, (4, 6))
+    lc, cache_c, pos = cpu.prefill_tokens(prompt)
+    lg, cache_g, _ = card.prefill_tokens(prompt)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
+    for name in cache_c:
+        np.testing.assert_allclose(cache_g[name].cpu().numpy(), cache_c[name].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    top = np.sort(lc.numpy(), axis=-1)[:, -2:]
+    assert (top[:, 1] - top[:, 0]).min() > 1e-3
+    np.testing.assert_array_equal(card.generate(prompt, 8).tokens,
+                                  cpu.generate(prompt, 8).tokens)
+    hc, _ = cpu.decode_hidden(cache_c, prompt[:, -1:], pos)
+    hg, _ = card.decode_hidden(cache_g, prompt[:, -1:], pos)
+    np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(card.sample_approx(hg), cpu.sample_approx(hc))
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+def test_engine_sample_approx_equals_the_plain_walk(no_tf32, batch):
+    """The multi-query kernel at the decode batch (3: one ragged chunk)
+    against the head's plain walk: ids equal outside near-ties, values
+    within 1e-5."""
+    _, card = engine_pair(batch)
+    prompt = np.random.default_rng(batch).integers(0, card.cfg.vocab_size, (batch, 5))
+    _, cache, pos = card.prefill_tokens(prompt)
+    hidden, _ = card.decode_hidden(cache, prompt[:, -1:], pos)
+    before = K.bscsr_topk_spmv_multiquery.launches
+    ids = card.sample_approx(hidden)
+    assert K.bscsr_topk_spmv_multiquery.launches == before + 1
+    h = hidden.float().cpu().numpy()
+    kv, kr = card.head.topk_logits_batch(h)
+    pv, pr = card.head.topk_logits_batch(h, use_kernel=False)
+    np.testing.assert_allclose(kv, pv, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ids, kr[:, 0])
+    clear = pv[:, 0] - pv[:, 1] > 2e-5
+    np.testing.assert_array_equal(ids[clear], pr[clear, 0])
+
+
+def test_engine_kv_quant_decodes_on_the_card(no_tf32):
+    cpu, card = engine_pair(2, kv_quant=True)
+    prompt = np.random.default_rng(2).integers(0, cpu.cfg.vocab_size, (2, 8))
+    lc, cache_c, _ = cpu.prefill_tokens(prompt)
+    lg, cache_g, _ = card.prefill_tokens(prompt)
+    assert cache_g["k"].dtype == torch.int8 and cache_g["k"].is_cuda
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(lg.argmax(-1).cpu().numpy(), lc.argmax(-1).numpy())
+    np.testing.assert_array_equal(card.generate(prompt, 6).tokens, cpu.generate(prompt, 6).tokens)
