@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its main query path on one card.
 
-    python3 chip_smoke.py [--rows N] [--seed S] [--only accumulate]
+    python3 chip_smoke.py [--rows N] [--seed S] [--only accumulate|lm|families]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -152,16 +152,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              profiler's kernel time) beside the weight-byte bound, the head's
              kernel at Q = 64 and the dense ``lm_logits`` + argmax it
              replaces, each beside its bound; host tokens/s, peak memory.
-   summary   ``LM``, ``SHARDED`` and ``MIXED`` lines, the ``kernels`` JSON line
-             (each kernel's classes, its mixed-path and per-shard times;
-             ``launches`` counts phases 3, 6, 7, 8 and 9, with phase 7's, 8's
-             and 9's also apart), the card's name and power limit, and the
-             result line.
+10. families run after phase 9 (its model freed): the hybrid, ssm and
+             audio families at full width (cut: none), one model at a time,
+             each the port's own init on the card from ``--seed``, its
+             parameter count held to ``param_count()`` (Whisper's
+             ``dec_pos`` adds 1500 - 128 rows) and the init's peak memory
+             logged apart from serving's.  Zamba2-7B (81 Mamba2 blocks and
+             one shared attention block applied 13 times) and xLSTM-350M
+             (6 x [1 sLSTM + 3 mLSTM]) behind ``ServingEngine(...,
+             batch_size=64, max_seq=128)`` with no head: 64 prompts of 16
+             tokens through ``generate(prompt, 32)`` twice (equal tokens, in
+             ``[0, vocab)``), the incremental prefill's last logits against
+             ``prefill`` within ``FAM_TOL`` (argmax equal past a clear gap),
+             and each recurrent kind's first block chunked against its decode
+             block stepped 256 times (two chunks) at B = 2, in float32 and
+             bf16 (``FAM_BLOCK_TOL_*``).  Whisper-small: frame embeddings
+             (64, 1500, 768) through ``encode`` and ``build_cross_cache(
+             pad_to=1500)``, 16 prompt tokens decoded step by step against
+             ``decode_train`` + ``lm_logits`` (``FAM_WHISPER_TOL``), 32 greedy
+             steps through ``decode_step``, and ``ServingEngine(...,
+             max_seq=1500).generate(prompt, 32)`` twice (the reference's
+             empty cross cache; equal tokens).  Timed: a decode step at
+             B = 64 and 1 (CUDA events, the profiler's kernel time, idle share
+             and launches) beside its byte bound from the held tensors,
+             ``generate`` tokens/s (host clock), Whisper's ``encode`` beside its
+             FLOP bound.  None of the three kernels lies on these paths: their
+             launches here must be 0.
+   summary   ``LM``, ``FAMILIES``, ``SHARDED`` and ``MIXED`` lines, the
+             ``kernels`` JSON line (each kernel's classes, its mixed-path and
+             per-shard times; ``launches`` counts phases 3, 6, 7, 8, 9 and 10,
+             with phase 7's, 8's, 9's and 10's also apart), the card's name
+             and power limit, and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
 result line: a short check of a kernel change before the full run.
-``--only lm`` runs phases 1 and 9 and stops without the result line.
+``--only lm`` runs phases 1 and 9, ``--only families`` phases 1 and 10; each
+stops without the result line.
 
 The script needs one CUDA device and imports only ``repro_torch`` (from
 ``src/`` beside it) and torch/numpy.
@@ -231,6 +258,29 @@ LM_TIMED_STEPS = 5            # decode steps timed (CUDA events) after 2 of warm
 # 36 layers; 0.25 is 8-16 bf16 ulps at the top logits (|logit| in 2..8).
 LM_TOL = 0.25
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
+# Phase 10: Zamba2-7B and xLSTM-350M behind ServingEngine (no head) as phase 9
+# serves Qwen2.5-3B, and Whisper-small over a 30-second window of frames.
+FAMILY_ARCHS = ("zamba2_7b", "xlstm_350m", "whisper_small")
+FAM_BATCH, FAM_PROMPT, FAM_GEN, FAM_MAX_SEQ = 64, 16, 32, 128
+FAM_WHISPER_SEQ = 1500        # encoder frames of 30 s, and the decoder's positions
+FAM_BLOCK_SEQ = 256           # two chunks of 128: the inter-chunk carry is used
+FAM_TIMED_STEPS = 5
+# Incremental decode vs the full-sequence pass at bf16 (the last prompt
+# position's logits, |logit| up to about 5).  In float32 the two agree to
+# 4e-5; at bf16 the chunked scan rounds its scores and outputs to bf16 where
+# the decode step keeps a float32 state, and the differences grow with depth.
+# A CPU rehearsal at full depth (d_model cut to 256, 64 rows) measured up to
+# 0.81 over Zamba2's 81 Mamba2 blocks and 0.42 over xLSTM's 24 blocks; each
+# tolerance is about twice that.  Whisper's 12 decoder layers against
+# teacher forcing: LM_TOL (0.02 in the rehearsal).
+FAM_TOL = {"hybrid": 1.5, "ssm": 0.75}
+FAM_WHISPER_TOL = LM_TOL
+# The first block of each recurrent kind at full width, chunked vs stepped
+# 256 times (B = 2, inputs N(0, 0.25), |out| up to about 5).  Measured on the
+# CPU: float32 5.2e-6, bf16 0.0625 (mamba), 0.055 (mLSTM), 0 (sLSTM: the
+# same cell either way).
+FAM_BLOCK_TOL_F32 = 1e-4
+FAM_BLOCK_TOL_BF16 = 0.25
 
 
 def log(*args) -> None:
@@ -604,10 +654,11 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=10_000_000,
                         help="collection rows (the deployment has 10M)")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("accumulate", "lm"),
+    parser.add_argument("--only", choices=("accumulate", "lm", "families"),
                         help="accumulate: phases 1 and 2 and the accumulate kernel's "
                              "timing on phase 6's streams (no solves); lm: phases 1 "
-                             "and 9; then stop without the result line")
+                             "and 9; families: phases 1 and 10; then stop without the "
+                             "result line")
     args = parser.parse_args()
 
     import torch
@@ -641,6 +692,11 @@ def main() -> int:
         lm = lm_phase(torch, K, api, args.seed)
         log("LM " + json.dumps(dict(lm, card=card_line())))
         log(f"ONLY lm: done in {time.time() - t_start:.1f} s (no result line)")
+        return 0
+    if args.only == "families":
+        families = families_phase(torch, K, args.seed)
+        log("FAMILIES " + json.dumps(dict(families, card=card_line())))
+        log(f"ONLY families: done in {time.time() - t_start:.1f} s (no result line)")
         return 0
 
     # ---- phase 2: kernels vs plain versions on small fixtures ----
@@ -919,6 +975,16 @@ def main() -> int:
     for entry in kernels:
         entry["launches_lm_path"] = lm["launches"][entry["name"]]
         entry["launches"] += lm["launches"][entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: Zamba2-7B, xLSTM-350M and Whisper-small at full width ----
+    t0 = time.time()
+    families = families_phase(torch, K, args.seed)
+    log(f"  families phase {time.time() - t0:.1f} s")
+    for entry in kernels:
+        entry["launches_families_path"] = families["launches"][entry["name"]]
+        entry["launches"] += families["launches"][entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")
 
     # ---- summary ----
@@ -957,6 +1023,7 @@ def main() -> int:
         "ppr": {k: v for k, v in sharded["ppr"].items() if k != "scores"},
         "head": sharded["head"], "timing": timing}))
     log("LM " + json.dumps(dict(lm, card=card_line())))
+    log("FAMILIES " + json.dumps(dict(families, card=card_line())))
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -2052,18 +2119,7 @@ def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
     # Decode matches prefill: the incremental prefill's last logits against
     # the full-sequence forward on the same tokens.
     pre_logits = model_api.prefill(model, {"tokens": torch.from_numpy(prompt).to(device)})
-    dl = dec_logits.float().cpu().numpy()[:, :cfg.vocab_size]
-    pl = pre_logits.float().cpu().numpy()[:, :cfg.vocab_size]
-    diff = float(np.abs(dl - pl).max())
-    top2 = np.sort(pl, axis=-1)[:, -2:]
-    clear = top2[:, 1] - top2[:, 0] > LM_TOL
-    agree = dl.argmax(-1) == pl.argmax(-1)
-    log(f"  decode vs prefill at the prompt's last position: max abs diff {diff:.4g} "
-        f"(tolerance {LM_TOL}, |logit| up to {float(np.abs(pl).max()):.3g}); argmax agrees "
-        f"in {int(agree.sum())} of {LM_BATCH} rows, in {int(agree[clear].sum())} of the "
-        f"{int(clear.sum())} whose top-2 gap exceeds the tolerance")
-    check.expect(diff <= LM_TOL, f"decode vs prefill differ by {diff:.4g} > {LM_TOL}")
-    check.expect(bool(agree[clear].all()), "decode and prefill argmax differ past a clear gap")
+    agreement = decode_vs_prefill(dec_logits, pre_logits, cfg, LM_TOL, check)
     check.expect(bool(np.isfinite(h32).all()) and h32.shape == (LM_BATCH, cfg.d_model),
                  "decode_hidden is not (B, d_model) finite")
 
@@ -2096,8 +2152,7 @@ def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
            "parameters": n_params, "weight_bytes": weight_bytes, "init_s": init_s,
            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
            "head_build_s": head_build_s, "head_nnz": int(head.index.packed.nnz),
-           "generate_s": gen_s, "tokens_per_s": tokens_per_s,
-           "decode_vs_prefill_max_abs": diff, "tolerance": LM_TOL,
+           "generate_s": gen_s, "tokens_per_s": tokens_per_s, **agreement,
            "sample_approx_vs_plain_max_abs": mq_err, "topk_logits_vs_plain_max_abs": one_err,
            "overlap_at_64": overlap, "partition_precision": head.partition_precision,
            "launches": launches}
@@ -2182,6 +2237,349 @@ def lm_timing(torch, K, api, L, model, engine, hidden, cfg) -> dict:
         f"{sample_ms:.3f} ms host clock; the dense lm_logits + argmax it replaces "
         f"{dense_ms:.3f} ms (bound {dense_bound:.4f} ms, {dense_bytes / 1e9:.3f} GB)")
     return out
+
+
+def families_phase(torch, K, seed, cfgs=None, device="cuda") -> dict:
+    """Phase 10: Zamba2-7B, xLSTM-350M and Whisper-small at full width
+    (``cfgs`` cuts them only for a CPU rehearsal), each the port's own init
+    on the device from ``seed``, one at a time.
+
+    Returns the phase's launches of the three kernels (counted from 0 before
+    each model's drive; none lies on this path) and the ``FAMILIES`` line.
+    """
+    from repro_torch.configs import get_config
+
+    on_card = device == "cuda"
+    cfgs = cfgs or {arch: get_config(arch) for arch in FAMILY_ARCHS}
+    out = {"launches": {name: 0 for name in REPLACES}}
+    for arch, cfg in cfgs.items():
+        t0 = time.time()
+        drive = whisper_drive if cfg.family == "audio" else recurrent_drive
+        res = drive(torch, K, cfg, seed, device)
+        for name, n in res.pop("launches").items():
+            out["launches"][name] += n
+        res["cut"] = "none" if cfg == get_config(arch) else "widths cut for a CPU rehearsal"
+        res["phase_s"] = time.time() - t0
+        out[arch] = res
+        log(f"  {cfg.name}: {res['phase_s']:.1f} s")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"  launches in the families phase: {out['launches']} (none of the three "
+        f"kernels lies on these families' paths)")
+    return out
+
+
+def family_model(torch, cfg, seed, device, max_seq):
+    """(model, whether its parameter count equals ``cfg.param_count()``
+    (Whisper's ``dec_pos`` adds ``max_seq - 128`` rows), the init's numbers):
+    the port's init on ``device``."""
+    from repro_torch.models.model_zoo import get_model
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = get_model(cfg).init_params(torch.Generator(device=device).manual_seed(seed),
+                                       max_seq)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want = cfg.param_count() + ((max_seq - 128) * cfg.d_model if cfg.family == "audio" else 0)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    peak = None
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"  {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype}: {n_params} parameters (want {want}), {weight_bytes / 1e9:.3f} GB on "
+        f"{device}; init {init_s:.1f} s" + ("" if peak is None else
+                                           f", peak device memory {peak / 1e9:.3f} GB"))
+    return model, n_params == want, {"parameters": n_params, "weight_bytes": weight_bytes,
+                                     "init_s": init_s, "init_max_memory_allocated": peak}
+
+
+def family_generate(engine, prompt, check, vocab):
+    """``generate(prompt, FAM_GEN)`` twice: (tokens, host seconds of each)."""
+    gen_s, runs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(engine.generate(prompt, num_steps=FAM_GEN).tokens)
+        gen_s.append(time.perf_counter() - t0)
+    a, b = runs
+    check.expect(a.shape == (prompt.shape[0], FAM_GEN) and np.array_equal(a, b),
+                 "generate gave other tokens the second time")
+    check.expect(bool(((a >= 0) & (a < vocab)).all()), "a generated token lies outside [0, vocab)")
+    return a, gen_s
+
+
+def recurrent_drive(torch, K, cfg, seed, device) -> dict:
+    """Zamba2-7B or xLSTM-350M: ``ServingEngine(batch_size=64, max_seq=128)``
+    with no head, 64 prompts of 16 tokens through ``generate(prompt, 32)``
+    twice; the incremental prefill against ``api.prefill``; each recurrent
+    kind's first block chunked against its decode block stepped
+    ``FAM_BLOCK_SEQ`` times at B = 2, in float32 and bfloat16; on the card
+    the decode step's timings."""
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve import ServingEngine
+
+    check = Check(f"families / {cfg.name}")
+    api = get_model(cfg)
+    model, count_ok, out = family_model(torch, cfg, seed, device, FAM_MAX_SEQ)
+    check.expect(count_ok, "parameters differ from param_count()")
+    rng = np.random.default_rng(seed + 10)
+    prompt = rng.integers(0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT)).astype(np.int32)
+    K.reset_launch_counts()
+    engine = ServingEngine(cfg, model, batch_size=FAM_BATCH, max_seq=FAM_MAX_SEQ, device=device)
+    tokens, gen_s = family_generate(engine, prompt, check, cfg.vocab_size)
+    dec_logits, _, _ = engine.prefill_tokens(prompt)
+    launches = launch_counts(K)
+
+    pre = api.prefill(model, {"tokens": torch.from_numpy(prompt).to(device)})
+    out.update(decode_vs_prefill(dec_logits, pre, cfg, FAM_TOL[cfg.family], check))
+    out.update({"batch": FAM_BATCH, "prompt": FAM_PROMPT, "gen": FAM_GEN,
+                "generate_s": gen_s, "tokens_per_s": FAM_BATCH * FAM_GEN / gen_s[1],
+                "distinct_ids": int(len(np.unique(tokens))), "launches": launches})
+    log(f"  generate: {FAM_BATCH} requests x ({FAM_PROMPT} + {FAM_GEN}) tokens in "
+        f"{gen_s[0]:.2f} / {gen_s[1]:.2f} s ({out['tokens_per_s']:.1f} tokens/s host clock), "
+        f"equal twice, {out['distinct_ids']} distinct ids")
+    out["blocks"] = block_checks(torch, model, cfg, seed, device, check)
+    if device == "cuda":
+        out.update(family_timing(torch, model, cfg, FAM_MAX_SEQ, FAM_PROMPT))
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory while serving {out['max_memory_allocated'] / 1e9:.3f} GB")
+    check.done()
+    return out
+
+
+def launch_counts(K) -> dict:
+    return {name: getattr(K, name).launches for name in REPLACES}
+
+
+def decode_vs_prefill(dec_logits, ref_logits, cfg, tol, check, what="prefill") -> dict:
+    """The incremental decode's last logits against ``what``'s, within
+    ``tol``; argmax equal wherever the top-2 gap exceeds it."""
+    dl = dec_logits.float().cpu().numpy()[:, :cfg.vocab_size]
+    pl = ref_logits.float().cpu().numpy()[:, :cfg.vocab_size]
+    diff = float(np.abs(dl - pl).max())
+    top2 = np.sort(pl, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > tol
+    agree = dl.argmax(-1) == pl.argmax(-1)
+    log(f"  decode vs {what} at the last position: max abs diff {diff:.4g} (tolerance {tol}, "
+        f"|logit| up to {float(np.abs(pl).max()):.3g}); argmax agrees in {int(agree.sum())} "
+        f"of {len(agree)} rows, in {int(agree[clear].sum())} of the {int(clear.sum())} whose "
+        f"top-2 gap exceeds the tolerance")
+    check.expect(bool(np.isfinite(dl).all()), f"decode logits vs {what}: not finite")
+    check.expect(diff <= tol, f"decode vs {what} differ by {diff:.4g} > {tol}")
+    check.expect(bool(agree[clear].all()), f"decode and {what} argmax differ past a clear gap")
+    return {f"decode_vs_{what}_max_abs": diff, "tolerance": tol}
+
+
+def block_state(torch, kind, cfg, dt, device, batch=2) -> tuple:
+    """A recurrent kind's zero decode state (its conv state in ``dt``)."""
+    from repro_torch.models import ssm, xlstm
+
+    if kind == "slstm":
+        return xlstm.slstm_state(cfg, batch, device)
+    zeros = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+        shape, dtype=dtype, device=device)
+    if kind == "mamba":
+        _, h, pd, n, conv_dim = ssm.dims(cfg)
+        return zeros(batch, h, pd, n), zeros(batch, cfg.ssm_conv - 1, conv_dim, dtype=dt)
+    di, h, dh = xlstm.dims(cfg)
+    return (zeros(batch, h, dh, dh), zeros(batch, h, dh),
+            torch.full((batch, h), xlstm.MIN_LOG, device=device),
+            zeros(batch, cfg.ssm_conv - 1, di, dtype=dt))
+
+
+def block_checks(torch, model, cfg, seed, device, check) -> dict:
+    """Each recurrent kind's first block at full width: the chunked (or, for
+    the sLSTM, whole-sequence) block against its decode block stepped
+    ``FAM_BLOCK_SEQ`` times (two chunks of 128), at B = 2, in float32 (the
+    block's weights cast up) and in bfloat16 (as held)."""
+    from repro_torch.models import ssm, xlstm
+
+    full_fn = {"mamba": ssm.mamba_block, "mlstm": xlstm.mlstm_block,
+               "slstm": xlstm.slstm_block}
+    step_fn = {"mamba": lambda p, xt, s: ssm.mamba_decode_block(p, xt, *s, cfg),
+               "mlstm": lambda p, xt, s: xlstm.mlstm_decode_block(p, xt, *s, cfg),
+               "slstm": lambda p, xt, s: xlstm.slstm_decode_block(p, xt, s, cfg)}
+    if cfg.family == "hybrid":
+        kinds = {"mamba": model.mamba[0][0]}
+    else:
+        kinds = {"slstm": model.slstm[0], "mlstm": model.mlstm[0][0]}
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    x32 = torch.randn((2, FAM_BLOCK_SEQ, cfg.d_model), generator=gen, device=device) * 0.5
+    out = {}
+    for kind, blk in kinds.items():
+        for dt, tol in ((torch.float32, FAM_BLOCK_TOL_F32), (torch.bfloat16, FAM_BLOCK_TOL_BF16)):
+            p = {k: v.to(dt) if dt == torch.float32 else v for k, v in blk.named_parameters()}
+            x = x32.to(dt)
+            full = full_fn[kind](p, x, cfg).float()
+            state = block_state(torch, kind, cfg, dt, device)
+            outs = []
+            for t in range(FAM_BLOCK_SEQ):
+                o, *rest = step_fn[kind](p, x[:, t:t + 1], state)
+                state = rest[0] if kind == "slstm" else tuple(rest)
+                outs.append(o)
+            diff = float((full - torch.cat(outs, 1).float()).abs().max())
+            scale = float(full.abs().max())
+            out[f"{kind}_{str(dt).split('.')[1]}"] = {"max_abs": diff, "max_out": scale,
+                                                       "tolerance": tol}
+            log(f"  {kind} block 0 at full width, S = {FAM_BLOCK_SEQ} (chunk "
+                f"{ssm.chunk_len(cfg, FAM_BLOCK_SEQ)}), B = 2, {dt}: chunked vs stepped max abs "
+                f"diff {diff:.4g} (|out| up to {scale:.3g}; tolerance {tol})")
+            check.expect(diff <= tol, f"{kind} {dt} chunked vs stepped differ by {diff:.4g} "
+                                      f"> {tol}")
+    return out
+
+
+def whisper_drive(torch, K, cfg, seed, device) -> dict:
+    """Whisper-small with ``FAM_WHISPER_SEQ`` decoder positions: frame
+    embeddings (64, 1500, d) from ``seed`` through ``encode`` and
+    ``build_cross_cache(pad_to=1500)`` (``cross_len`` 1500); 16 prompt
+    tokens decoded step by step against ``decode_train`` + ``lm_logits``;
+    32 greedy steps through ``api.decode_step``; ``ServingEngine(...,
+    max_seq=1500).generate(prompt, 32)`` twice (the reference's path, with an
+    empty cross cache); on the card the timings."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve import ServingEngine
+
+    check = Check(f"families / {cfg.name}")
+    api = get_model(cfg)
+    s_enc = FAM_WHISPER_SEQ
+    model, count_ok, out = family_model(torch, cfg, seed, device, s_enc)
+    check.expect(count_ok, "parameters differ from param_count() + the dec_pos rows")
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    frames = torch.randn((FAM_BATCH, s_enc, cfg.d_model), generator=gen, device=device)
+    rng = np.random.default_rng(seed + 12)
+    prompt = rng.integers(0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT)).astype(np.int32)
+    toks = torch.from_numpy(prompt).to(device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    K.reset_launch_counts()
+    t0 = time.time()
+    enc = model.encode(frames)
+    sync()
+    encode_s = time.time() - t0
+    cache = api.init_cache(FAM_BATCH, s_enc, device)
+    cache["cross_k"], cache["cross_v"] = model.build_cross_cache(enc, pad_to=s_enc)
+    cache["cross_len"].fill_(s_enc)
+    for t in range(FAM_PROMPT):
+        logits, cache = api.decode_step(model, cache, toks[:, t:t + 1], t)
+    t0 = time.time()
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    greedy = []
+    for i in range(FAM_GEN):
+        greedy.append(tok)
+        step_logits, cache = api.decode_step(model, cache, tok, FAM_PROMPT + i)
+        tok = torch.argmax(step_logits, dim=-1)[:, None]
+    greedy = torch.cat(greedy, 1).cpu().numpy()
+    greedy_s = time.time() - t0
+    del cache
+    engine = ServingEngine(cfg, model, batch_size=FAM_BATCH, max_seq=s_enc, device=device)
+    tokens, gen_s = family_generate(engine, prompt, check, cfg.vocab_size)
+    launches = launch_counts(K)
+
+    tf = L.lm_logits(model.embed, model.decode_train(toks, enc)[:, -1:], cfg)[:, 0]
+    out.update(decode_vs_prefill(logits, tf, cfg, FAM_WHISPER_TOL, check, "teacher_forcing"))
+    check.expect(bool(((greedy >= 0) & (greedy < cfg.vocab_size)).all()),
+                 "a greedy token over the cross cache lies outside [0, vocab)")
+    out.update({"batch": FAM_BATCH, "s_enc": s_enc, "prompt": FAM_PROMPT, "gen": FAM_GEN,
+                "encode_s_host": encode_s, "greedy_s": greedy_s, "generate_s": gen_s,
+                "tokens_per_s": FAM_BATCH * FAM_GEN / gen_s[1],
+                "greedy_tokens_per_s": FAM_BATCH * FAM_GEN / greedy_s,
+                "distinct_ids": int(len(np.unique(tokens))),
+                "greedy_distinct_ids": int(len(np.unique(greedy))), "launches": launches})
+    log(f"  encode ({FAM_BATCH} x {s_enc} frames) {encode_s:.2f} s host clock; "
+        f"{FAM_GEN} greedy steps over the cross cache in {greedy_s:.2f} s; generate (empty "
+        f"cross cache) {gen_s[0]:.2f} / {gen_s[1]:.2f} s ({out['tokens_per_s']:.1f} tokens/s), "
+        f"equal twice")
+    if device == "cuda":
+        out.update(family_timing(torch, model, cfg, s_enc, FAM_PROMPT, enc=enc))
+        out.update(encode_timing(torch, model, cfg, frames))
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory while serving {out['max_memory_allocated'] / 1e9:.3f} GB")
+    check.done()
+    return out
+
+
+def decode_bytes(model, cfg, cache, batch) -> tuple:
+    """(bytes a decode step must move, weights its products multiply) from
+    the tensors held: every decoder-side weight once (no encoder weight; of
+    an untied ``embed.tok`` the ``batch`` rows looked up, of ``dec_pos`` one
+    row), each cache tensor read whole (``decode_attention`` masks the KV, it
+    does not slice it), the recurrent states written back, the logits
+    written."""
+    nbytes = params = 0
+    for name, p in model.named_parameters():
+        if name.startswith("enc_"):
+            continue
+        if name == "dec_pos" or (name == "embed.tok" and not cfg.tie_embeddings):
+            nbytes += (1 if name == "dec_pos" else batch) * p.shape[1] * p.element_size()
+            continue
+        nbytes += p.numel() * p.element_size()
+        params += p.numel()
+    for name, t in cache.items():
+        written = name in ("ssm", "conv") or name.startswith(("m_", "s_"))
+        nbytes += t.numel() * t.element_size() * (2 if written else 1)
+    return nbytes + batch * cfg.padded_vocab * 2, params
+
+
+def family_timing(torch, model, cfg, max_seq, pos, enc=None) -> dict:
+    """A decode step at B = 64 and 1 (CUDA events around each step, and the
+    profiler's kernel time and launches) beside its bound; Whisper's steps
+    read a full cross cache built from ``enc``."""
+    from repro_torch.models.model_zoo import get_model
+
+    api = get_model(cfg)
+    out = {}
+    for batch in (FAM_BATCH, 1):
+        cache = api.init_cache(batch, max_seq, "cuda")
+        if enc is not None:
+            cache["cross_k"], cache["cross_v"] = model.build_cross_cache(enc[:batch],
+                                                                         pad_to=max_seq)
+            cache["cross_len"].fill_(enc.shape[1])
+        tok = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+        step = lambda: api.decode_step(model, cache, tok, pos)  # noqa: E731
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        times = [time_once(torch, step)[0] for _ in range(FAM_TIMED_STEPS)]
+        busy, top = profiled_kernels(torch, step)
+        nbytes, params = decode_bytes(model, cfg, cache, batch)
+        bound = max(nbytes / HBM_BYTES_PER_S, 2.0 * batch * params / H100_BF16_FLOPS) * 1e3
+        ms = float(np.mean(times))
+        out.update({f"decode_step_ms_b{batch}": ms, f"decode_step_ms_each_b{batch}": times,
+                    f"decode_step_kernel_ms_b{batch}": busy,
+                    f"decode_step_kernels_b{batch}": top,
+                    f"decode_step_bytes_b{batch}": nbytes,
+                    f"decode_step_bound_ms_b{batch}": bound,
+                    f"decode_step_idle_share_b{batch}": None if busy is None else 1 - busy / ms})
+        log(f"  decode step B = {batch} (pos {pos}): {ms:.3f} ms (CUDA events, mean of "
+            f"{FAM_TIMED_STEPS}: {' / '.join(f'{t:.3f}' for t in times)}); kernels "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}; bound {bound:.3f} ms "
+            f"({nbytes / 1e9:.3f} GB at 3.35 TB/s)")
+        log(f"  decode step B = {batch} kernels per step: " + json.dumps(top))
+        del cache
+    return out
+
+
+def encode_timing(torch, model, cfg, frames) -> dict:
+    """Whisper's ``encode`` at B = 64 x 1500 (CUDA events) beside its FLOP
+    bound: the projections' 2 * tokens * encoder weights and the attention's
+    4 * B * S^2 * d products, at the bf16 tensor-core peak."""
+    ms = float(np.mean([time_once(torch, lambda: model.encode(frames))[0] for _ in range(3)]))
+    b, s, d = frames.shape
+    enc_params = sum(p.numel() for n, p in model.named_parameters()
+                     if n.startswith("enc_blocks") and p.dim() == 2)
+    flops = 2.0 * b * s * enc_params + 4.0 * b * s * s * d * cfg.encoder_layers
+    bound = flops / H100_BF16_FLOPS * 1e3
+    log(f"  encode B = {b} x {s}: {ms:.3f} ms (CUDA events, mean of 3); bound {bound:.3f} ms "
+        f"({flops / 1e12:.2f} TFLOP at 989 TFLOP/s bf16)")
+    return {"encode_ms": ms, "encode_bound_ms": bound, "encode_flops": flops}
 
 
 def profiled_kernels(torch, step, steps=3):

@@ -10,9 +10,9 @@ for a mutable index's ``export_state`` output, so a store the reference's
 ``DurableIndexStore`` wrote recovers in this package.
 
 ``params_from_reference`` carries an LM's weights across: the reference's
-param tree (numpy arrays, a leading ``layers`` axis on ``blocks``) becomes
-a ``Transformer`` whose state dict holds the same values per layer, each in
-the dtype its op reads.
+param tree (numpy arrays, leading layer axes on its stacked subtrees)
+becomes the family's model, whose state dict holds the same values per
+layer, each in the dtype its op reads.
 
 Nothing else needs carrying: a ``ShardedTopKSpMVIndex`` and an
 ``ApproxTopKHead`` hold no state beyond what they build from the same CSR
@@ -29,7 +29,8 @@ import torch
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels.ops import PackedPartitions
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.layers import LanguageModel
+from repro_torch.models.model_zoo import get_model
 
 _OPTIONAL_ARRAYS = ("words", "slot_to_row", "num_slots", "tombstones")
 _OPTIONAL_COUNTS = ("n_rows_total", "base_packets", "delta_nnz", "dead_nnz",
@@ -94,33 +95,43 @@ def state_from_reference(meta: Mapping, arrays: Mapping, device: str = "cuda"
     return dict(meta, config=config), out
 
 
-def params_from_reference(params: Mapping, cfg, device: str = "cuda") -> Transformer:
-    """A ``Transformer`` on ``device`` holding the reference's params.
+# The reference's layer-stacked subtrees and their stacked axes: each
+# becomes an ``nn.ModuleList`` (of ``nn.ModuleList``s for two axes).
+_STACKED = {"blocks": 1, "mamba": 2, "mamba_tail": 1, "mlstm": 2, "slstm": 1,
+            "enc_blocks": 1, "dec_blocks": 1}
+
+
+def params_from_reference(params: Mapping, cfg, device: str = "cuda") -> LanguageModel:
+    """The family's model on ``device`` holding the reference's params.
 
     ``params`` is the reference's tree for ``cfg`` (arrays of any kind that
-    ``np.asarray`` reads): ``embed``, ``blocks`` with a leading layer axis,
-    and ``ln_f``.  Each layer's slice becomes ``blocks.<l>.<path>``; every
-    name of the model's state dict must be given once.
+    ``np.asarray`` reads).  A stacked subtree's slices become
+    ``<subtree>.<i>[.<j>].<path>`` (``blocks``; Zamba's ``mamba`` (g, e) and
+    ``mamba_tail``; xLSTM's ``mlstm`` (g, m) and ``slstm``; Whisper's
+    ``enc_blocks`` and ``dec_blocks``); every name of the model's state dict
+    must be given once.  Whisper's model takes ``dec_pos``'s rows as its
+    ``max_seq``.  The reference's float32 ``embed.tok`` rows are kept as the
+    model's ``head_source``.
     """
     state = {}
 
-    def walk(tree: Mapping, prefix: str, layered: bool) -> None:
+    def walk(tree: Mapping, prefix: str, axes: int) -> None:
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{name}.", layered or name == "blocks")
+                walk(value, f"{prefix}{name}.", axes if prefix else _STACKED.get(name, 0))
                 continue
             arr = np.array(value, np.float32)        # a writable copy
-            if not layered:
+            if not axes:
                 state[prefix + name] = torch.from_numpy(arr)
                 continue
-            if arr.shape[0] != cfg.num_layers:
-                raise ValueError(f"{prefix}{name}: leading axis {arr.shape[0]}, "
-                                 f"expected {cfg.num_layers} layers")
-            inner = prefix[len("blocks."):]
-            for layer in range(cfg.num_layers):
-                state[f"blocks.{layer}.{inner}{name}"] = torch.from_numpy(arr[layer])
+            top, inner = prefix.split(".", 1)
+            for idx in np.ndindex(*arr.shape[:axes]):
+                key = ".".join([top, *map(str, idx), inner + name])
+                state[key] = torch.from_numpy(arr[idx])
 
-    walk(params, "", False)
-    model = Transformer(cfg, device)
+    walk(params, "", 0)
+    max_seq = np.shape(params["dec_pos"])[0] if "dec_pos" in params else 0
+    model = get_model(cfg).build(device, max_seq)
     model.load_state_dict(state, strict=True)
+    model.keep_head_source(state["embed.tok"])
     return model

@@ -5,6 +5,8 @@
 
 The reference's ``repro/launch/serve.py``, ported, plus ``--device``
 (``cuda`` by default; with no CUDA device it refuses to run there).
+``--arch`` takes all ten configs; ``--approx-head`` needs a family with a
+hidden-state decode (dense, moe, vlm) and exits before any work otherwise.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models.model_zoo import get_model
-from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.engine import HIDDEN_STATE_FAMILIES, ServingEngine
 from repro_torch.serve.topk_head import TopKHeadConfig
 
 
@@ -34,9 +36,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.approx_head and cfg.family not in HIDDEN_STATE_FAMILIES:
+        raise SystemExit(f"--approx-head: {cfg.name} ({cfg.family}) has no hidden-state "
+                         f"decode; the head serves dense/moe/vlm only")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     api = get_model(cfg)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = api.init_params(gen, args.max_seq)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,6 +55,62 @@ class ParamGroup(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+def load_tree(group: nn.Module, tree: dict) -> None:
+    """Copy a nested dict of tensors into a group, each cast to its held dtype."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            load_tree(group[name], value)
+        else:
+            group[name].copy_(value)
+
+
+class LanguageModel(nn.Module):
+    """What every family's model shares: its device and the source of the
+    approximate head.  Each family's model holds its own forward, prefill
+    and decode paths.
+
+    ``head_source`` is the float32 ``embed.tok[:vocab_size]`` on the host that
+    an ``ApproxTopKHead`` is built from, as the reference builds its head from
+    its float32 params.  The model holds ``tok`` in ``cfg.dtype``, so at
+    bfloat16 the held values are already rounded, and rounding moves which
+    entries ``sparsify_topm`` keeps.  ``init_params`` and
+    ``convert.params_from_reference`` keep their float32 ``tok`` here; it is
+    not part of the state dict.
+    """
+
+    head_source: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+    def init_embed(self, gen: torch.Generator) -> None:
+        """Draw ``embed`` from ``gen`` and keep the float32 ``tok`` draw."""
+        emb = init_embedding(gen, self.cfg)
+        self.keep_head_source(emb["tok"])
+        load_tree(self.embed, emb)
+
+    def keep_head_source(self, tok: torch.Tensor) -> None:
+        """Keep the float32 rows of ``tok`` (a draw or the reference's) on the host."""
+        self.head_source = tok[: self.cfg.vocab_size].detach().to("cpu", torch.float32)
+
+    def head_embedding(self) -> np.ndarray:
+        """(vocab_size, d_model) float32 rows for the approximate head: the
+        kept ``head_source``.  A model filled by ``load_state_dict`` alone
+        has none (its state dict holds ``tok`` in ``cfg.dtype``) and raises
+        until ``keep_head_source`` is called."""
+        if self.head_source is None:
+            raise ValueError("no float32 embed.tok kept: build the model with init_params or "
+                             "params_from_reference, or call keep_head_source")
+        return self.head_source.numpy()
+
+
+def zero_cache(shapes: dict, device) -> dict:
+    """Zero tensors for a ``{name: (shape, dtype)}`` cache description."""
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in shapes.items()}
 
 
 # ---------------------------------------------------------------------------

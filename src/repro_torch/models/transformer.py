@@ -58,16 +58,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _load(group: nn.Module, tree: dict) -> None:
-    """Copy a nested dict of tensors into a group, each cast to its held dtype."""
-    for name, value in tree.items():
-        if isinstance(value, dict):
-            _load(group[name], value)
-        else:
-            group[name].copy_(value)
-
-
-class Transformer(nn.Module):
+class Transformer(L.LanguageModel):
     """The model's weights and its forward, prefill and decode paths."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -81,17 +72,14 @@ class Transformer(nn.Module):
         self.ln_f = nn.Parameter(torch.empty(cfg.d_model, device=device),
                                  requires_grad=False)
 
-    @property
-    def device(self) -> torch.device:
-        return self.ln_f.device
-
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> "Transformer":
         """Draw every weight from ``gen`` (on the model's device), one layer at
-        a time: float32 draws, held in their op's dtype."""
-        _load(self.embed, L.init_embedding(gen, self.cfg))
+        a time: float32 draws, held in their op's dtype (the ``tok`` draw is
+        also kept as ``head_source``)."""
+        self.init_embed(gen)
         for blk in self.blocks:
-            _load(blk, init_block(gen, self.cfg))
+            L.load_tree(blk, init_block(gen, self.cfg))
         self.ln_f.zero_()
         return self
 
@@ -209,5 +197,4 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> dict:
-    return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in cache_shape(cfg, batch, seq).items()}
+    return L.zero_cache(cache_shape(cfg, batch, seq), device)

@@ -1,19 +1,25 @@
-"""Batched serving engine: prefill + incremental decode over a KV cache.
+"""Batched serving engine: prefill + incremental decode over a KV/state cache.
 
 The reference's ``repro/serve/engine.py``, ported, with a ``device``
 argument (``"cuda"`` unless the caller asks for ``"cpu"``; with no CUDA
-device an engine on ``"cuda"`` refuses to start).
+device an engine on ``"cuda"`` refuses to start).  It serves every family's
+model: ``generate`` and ``prefill_tokens`` run its decode step.  A Whisper
+model is served as the reference serves it, with an empty cross cache
+(``cross_len`` 0): the engine has no encoder path.
 
 Requests are served in fixed batch slots; the decode step runs the whole
 batch.  Optionally the sampling head is the paper's ``ApproxTopKHead``
 (sparsified vocab embedding + partitioned Top-K SpMV) instead of the dense
 argmax: ``sample_approx`` answers the whole batch with one pass of the
-multi-query kernel over the device-pinned embedding stream.
+multi-query kernel over the device-pinned embedding stream.  Its hidden
+states come from ``decode_hidden``, which only the transformer families
+(dense, moe, vlm) have, as in the reference.
 
-As in the reference, the head is built from the input embedding
+As in the reference, the head is built from the float32 input embedding
 ``embed.tok`` even for an untied model, where ``generate``'s dense argmax
-reads ``embed.out``.  The port holds ``tok`` in ``cfg.dtype``, so at
-bfloat16 the head sparsifies the bf16 values its BF16 stream stores anyway.
+reads ``embed.out``: the model's ``head_source`` (``LanguageModel``), not
+the ``tok`` it holds in ``cfg.dtype``, whose bfloat16 rounding would change
+which entries each row keeps.
 """
 from __future__ import annotations
 
@@ -24,9 +30,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import LanguageModel
 from repro_torch.models.model_zoo import get_model
-from repro_torch.models.transformer import Transformer
 from repro_torch.serve.topk_head import ApproxTopKHead, TopKHeadConfig
+
+# The families whose decode step can return the final hidden states.
+HIDDEN_STATE_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -39,7 +48,7 @@ class ServingEngine:
     def __init__(
         self,
         cfg: ModelConfig,
-        params: Transformer,
+        params: LanguageModel,
         batch_size: int,
         max_seq: int,
         use_approx_head: bool = False,
@@ -63,8 +72,7 @@ class ServingEngine:
             if torch.device(head_cfg.device).type != self.device.type:
                 raise ValueError(f"head_cfg.device {head_cfg.device!r} differs from the "
                                  f"engine's {device!r}")
-            emb = params.embed["tok"][: cfg.vocab_size].cpu().float().numpy()
-            self.head = ApproxTopKHead(emb, head_cfg)
+            self.head = ApproxTopKHead(params.head_embedding(), head_cfg)
 
     def new_cache(self) -> dict:
         return self.api.init_cache(self.batch_size, self.max_seq, self.params.device)
@@ -87,7 +95,11 @@ class ServingEngine:
     def decode_hidden(self, cache: dict, tokens, pos: int):
         """Decode one step returning the final hidden states (B, D) and the
         cache; sampling then goes through the ``ApproxTopKHead`` instead of
-        the V x D logits product."""
+        the V x D logits product.  Dense, moe and vlm models only, as in
+        the reference."""
+        if self.cfg.family not in HIDDEN_STATE_FAMILIES:
+            raise ValueError(f"decode_hidden: dense/moe/vlm only (as the reference's "
+                             f"ServingEngine); {self.cfg.name} is {self.cfg.family!r}")
         return self.params.decode_step(cache, self._tokens(tokens), pos, return_hidden=True)
 
     def sample_approx(self, hidden) -> np.ndarray:

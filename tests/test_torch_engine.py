@@ -17,9 +17,16 @@ Pallas kernel interpreted, as the reference's own tests run it.
   apart).
 - The head ranks by the input embedding ``embed.tok`` even for an untied
   model, as the reference's does; exact when the rows are not sparsified.
+- At bfloat16 the head is built from the float32 ``tok`` (the model's
+  ``head_source``), as the reference's is: its embedding and packed
+  streams equal the reference's, and ``sample_approx`` ids and the plain
+  walks' top-``big_k`` sets equal outside near-ties over 64 states.  Built
+  from the bf16-rounded ``tok`` the model holds, 7 of those 64 sets differ.
 - The engine refuses ``cuda`` with no CUDA device, and a head on another
   device than the engine; the launcher runs on ``--device cpu``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +44,7 @@ from repro_torch.serve import GenerationResult, ServingEngine, TopKHeadConfig
 
 TOL = 1e-4
 GAP = 1e-2
+NEAR_TIE = 1e-5
 HEAD = dict(big_k=16, k=8, num_partitions=4, nnz_per_row=32, block_size=64)
 BATCH, MAX_SEQ = 2, 64
 
@@ -140,6 +148,32 @@ def test_head_ranks_by_tok_and_is_exact_when_not_sparsified(engines):
     h = np.random.default_rng(5).standard_normal((BATCH, cfg.d_model)).astype(np.float32)
     np.testing.assert_array_equal(exact.sample_approx(h), np.argmax(h @ tok.T, axis=-1))
     assert exact.head.overlap_at_k(h[0], 8) == 1.0
+
+
+def test_bf16_head_is_built_from_the_f32_tok():
+    jcfg = dataclasses.replace(jsmoke("qwen25_3b"), dtype="bfloat16")
+    cfg = dataclasses.replace(smoke_config("qwen25_3b"), dtype="bfloat16")
+    params = jget_model(jcfg).init_params(jax.random.key(0), MAX_SEQ)
+    model = params_from_reference(params, cfg, device="cpu")
+    assert model.embed["tok"].dtype == torch.bfloat16
+    ref = JEngine(jcfg, params, batch_size=BATCH, max_seq=MAX_SEQ, use_approx_head=True,
+                  head_cfg=JHeadConfig(**HEAD))
+    port = ServingEngine(cfg, model, batch_size=BATCH, max_seq=MAX_SEQ, use_approx_head=True,
+                         head_cfg=TopKHeadConfig(device="cpu", **HEAD), device="cpu")
+    np.testing.assert_array_equal(port.head.embedding, ref.head.embedding)
+    jp, tp = ref.head.index.packed, port.head.index.packed
+    assert tp.nnz == jp.nnz
+    for name in ("vals", "cols", "flags", "words"):
+        assert np.asarray(getattr(tp, name)).tobytes() == np.asarray(getattr(jp, name)).tobytes()
+    h = np.random.default_rng(6).standard_normal((64, cfg.d_model)).astype(np.float32)
+    pv, pr = port.head.topk_logits_batch(h, use_kernel=False)
+    _, jr = ref.head.topk_logits_batch(h, use_kernel=False)
+    # Rows with no near-tie in their top big_k (the two walks sum in other orders).
+    clear = (pv[:, :-1] - pv[:, 1:]).min(axis=1) > NEAR_TIE
+    assert clear.sum() >= 48
+    np.testing.assert_array_equal(pr[clear], np.asarray(jr)[clear])
+    ids = port.sample_approx(h)
+    np.testing.assert_array_equal(ids[clear], np.asarray(ref.sample_approx(h))[clear])
 
 
 def test_engine_refuses_cuda_without_a_card(engines):

@@ -18,7 +18,9 @@ streamed as one F32 stream.
 The LM serving engine on the card against itself on the CPU (the smoke
 qwen2.5-3b config at float32, TF32 off: tokens equal, logits within
 rtol = atol = 1e-4), ``sample_approx`` against the plain walk at a ragged
-and a full decode batch, and ``kv_quant`` decoding.
+and a full decode batch, and ``kv_quant`` decoding.  The hybrid, ssm and
+audio families likewise (prefill, decode logits and caches, ``generate``),
+and one block of each recurrent kind at full width, chunked against stepped.
 """
 import dataclasses
 
@@ -1109,6 +1111,7 @@ def engine_pair(batch, **over):
     host = Transformer(cfg, "cpu").init_params(torch.Generator().manual_seed(0))
     card = Transformer(cfg, "cuda")
     card.load_state_dict(host.state_dict())
+    card.keep_head_source(host.head_source)
     return tuple(ServingEngine(cfg, model, batch_size=batch, max_seq=64, use_approx_head=True,
                                head_cfg=TopKHeadConfig(device=dev, **ENGINE_HEAD), device=dev)
                  for model, dev in ((host, "cpu"), (card, "cuda")))
@@ -1163,3 +1166,109 @@ def test_engine_kv_quant_decodes_on_the_card(no_tf32):
     np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(lg.argmax(-1).cpu().numpy(), lc.argmax(-1).numpy())
     np.testing.assert_array_equal(card.generate(prompt, 6).tokens, cpu.generate(prompt, 6).tokens)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid, ssm and audio families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["zamba2_7b", "xlstm_350m", "whisper_small"]
+
+
+def family_pair(arch):
+    """(cfg, cpu model, card model): the smoke model drawn on the CPU, copied
+    to the card (``head_source`` too)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model_zoo import get_model
+
+    cfg = smoke_config(arch)
+    api = get_model(cfg)
+    host = api.init_params(torch.Generator().manual_seed(0), 64)
+    card = api.build("cuda", 64)
+    card.load_state_dict(host.state_dict())
+    card.keep_head_source(host.head_source)
+    return cfg, host, card
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_the_card_equals_the_cpu(no_tf32, arch):
+    """Smoke config at float32: prefill, 10 decode steps (logits and every
+    cache entry; Whisper over a filled cross cache) within rtol = atol =
+    1e-4, and ``ServingEngine.generate`` tokens equal."""
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve import ServingEngine
+
+    cfg, host, card = family_pair(arch)
+    api = get_model(cfg)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 10))
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["frame_embeds"] = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    on = lambda dev: {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}  # noqa: E731
+    np.testing.assert_allclose(api.prefill(card, on("cuda")).cpu().numpy(),
+                               api.prefill(host, on("cpu")).numpy(), rtol=1e-4, atol=1e-4)
+    caches = {}
+    for dev, model in (("cpu", host), ("cuda", card)):
+        cache = api.init_cache(2, 64, dev)
+        if cfg.family == "audio":
+            enc = model.encode(on(dev)["frame_embeds"])
+            cache["cross_k"], cache["cross_v"] = model.build_cross_cache(enc, pad_to=64)
+            cache["cross_len"].fill_(enc.shape[1])
+        steps = []
+        for t in range(toks.shape[1]):
+            logits, cache = api.decode_step(model, cache, on(dev)["tokens"][:, t:t + 1], t)
+            steps.append(logits.cpu().numpy())
+        caches[dev] = (np.stack(steps), cache)
+    np.testing.assert_allclose(caches["cuda"][0], caches["cpu"][0], rtol=1e-4, atol=1e-4)
+    for name, want in caches["cpu"][1].items():
+        np.testing.assert_allclose(caches["cuda"][1][name].cpu().float().numpy(),
+                                   want.float().numpy(), rtol=1e-4, atol=1e-4)
+    prompt = rng.integers(0, cfg.vocab_size, (4, 5))
+    got, want = (ServingEngine(cfg, m, batch_size=4, max_seq=64, device=dev).generate(prompt, 6)
+                 for m, dev in ((card, "cuda"), (host, "cpu")))
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_full_width_block_chunked_equals_stepped(no_tf32, kind):
+    """One block at its deployment's full width (Zamba2-7B's Mamba2, xLSTM-350M's
+    mLSTM and sLSTM) at float32: the chunked block over 256 positions (two
+    chunks) against its decode block stepped 256 times, within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm, xlstm
+
+    cfg = get_config("zamba2_7b" if kind == "mamba" else "xlstm_350m")
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init, shapes, full_fn = {"mamba": (ssm.init_mamba, ssm.mamba_shapes, ssm.mamba_block),
+                             "mlstm": (xlstm.init_mlstm, xlstm.mlstm_shapes, xlstm.mlstm_block),
+                             "slstm": (xlstm.init_slstm, xlstm.slstm_shapes,
+                                       xlstm.slstm_block)}[kind]
+    blk = L.ParamGroup(shapes(cfg), "cuda")
+    L.load_tree(blk, init(gen, cfg))
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device="cuda") * 0.5
+    full = full_fn(blk, x, cfg)
+    if kind == "mamba":
+        _, h, p, n, conv_dim = ssm.dims(cfg)
+        state = (torch.zeros(2, h, p, n, device="cuda"),
+                 torch.zeros(2, cfg.ssm_conv - 1, conv_dim, device="cuda"))
+    elif kind == "mlstm":
+        di, h, dh = xlstm.dims(cfg)
+        state = (torch.zeros(2, h, dh, dh, device="cuda"), torch.zeros(2, h, dh, device="cuda"),
+                 torch.full((2, h), xlstm.MIN_LOG, device="cuda"),
+                 torch.zeros(2, cfg.ssm_conv - 1, di, device="cuda"))
+    else:
+        state = xlstm.slstm_state(cfg, 2, "cuda")
+    outs = []
+    for t in range(256):
+        if kind == "mamba":
+            o, *state = ssm.mamba_decode_block(blk, x[:, t:t + 1], *state, cfg)
+        elif kind == "mlstm":
+            o, *state = xlstm.mlstm_decode_block(blk, x[:, t:t + 1], *state, cfg)
+        else:
+            o, state = xlstm.slstm_decode_block(blk, x[:, t:t + 1], state, cfg)
+        outs.append(o)
+    np.testing.assert_allclose(torch.cat(outs, 1).cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

@@ -10,10 +10,12 @@ from numpy seeds.
   the registry and ``TopKServiceConfig`` field-equal to the reference's.
 - Models (the smoke configs of qwen2.5-3b, granite-8b, smollm-360m (tied),
   qwen2-72b, internvl2-2b (with prefix embeddings), mixtral-8x7b (sliding
-  window, wrapped past it) and phi3.5-moe): ``decode_step`` logits, hidden
-  states and cache at every step, ``prefill``, ``loss_fn`` and
+  window, wrapped past it), phi3.5-moe, and zamba2-7b, xlstm-350m and
+  whisper-small (with frame embeddings), which ``test_torch_families.py``
+  covers further): ``decode_step`` logits and cache at every step (and, for
+  the transformer, hidden states), ``prefill``, ``loss_fn`` and
   ``count_params_analytic`` (also at full width), within
-  rtol = atol = 1e-4 at float32.  At bfloat16 (smoke widths,
+  rtol = atol = 1e-4 at float32.  ``get_model`` builds all ten configs.  At bfloat16 (smoke widths,
   ``dtype="bfloat16"``, the dense and vlm families) decode logits, prefill
   and loss within rtol = atol = ``BF16_TOL`` (0.1, on logits up to about
   3): both packages round every product to bf16, but XLA fuses elementwise
@@ -51,9 +53,9 @@ from repro_torch.models.transformer import Transformer
 
 TOL = 1e-4
 BF16_TOL = 0.1
-ARCHS = ["qwen25_3b", "granite_8b", "smollm_360m", "qwen2_72b", "internvl2_2b",
-         "mixtral_8x7b", "phi35_moe"]
-NOT_PORTED = ["zamba2_7b", "xlstm_350m", "whisper_small"]
+TRANSFORMER_ARCHS = ["qwen25_3b", "granite_8b", "smollm_360m", "qwen2_72b", "internvl2_2b",
+                     "mixtral_8x7b", "phi35_moe"]
+ARCHS = TRANSFORMER_ARCHS + ["zamba2_7b", "xlstm_350m", "whisper_small"]
 B, SEQ, STEPS = 2, 32, 20      # mixtral's smoke window is 16: 20 steps wrap it
 
 
@@ -81,7 +83,8 @@ def pair(arch, **over):
 
 
 def batch_for(cfg, seed=0, seq=SEQ):
-    """Tokens and labels (B, S), with prefix embeddings for the vlm family."""
+    """Tokens and labels (B, S), with prefix embeddings for the vlm family
+    and frame embeddings (B, 12, D) for the audio family."""
     rng = np.random.default_rng(seed)
     text = seq - cfg.frontend_tokens if cfg.family == "vlm" else seq
     out = {"tokens": rng.integers(0, cfg.vocab_size, (B, text)).astype(np.int32),
@@ -89,6 +92,8 @@ def batch_for(cfg, seed=0, seq=SEQ):
     if cfg.family == "vlm":
         out["prefix_embeds"] = rng.standard_normal(
             (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frame_embeds"] = rng.standard_normal((B, 12, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -161,6 +166,8 @@ class TestModelParity:
             close(tl, jl)
         for name in jcache:
             close(tcache[name], jcache[name])
+        if arch not in TRANSFORMER_ARCHS:      # the hidden-state decode is the transformer's
+            return
         nxt = jnp.asarray(toks[:, :1])
         jh, _ = jtransformer.decode_step(params, jcfg, jcache, nxt, jnp.int32(STEPS),
                                          return_hidden=True)
@@ -190,8 +197,9 @@ class TestModelParity:
             for active in (False, True):
                 assert (tzoo.count_params_analytic(tcfg, active)
                         == jzoo.count_params_analytic(cfg, active))
-        assert tconfigs.smoke_config(arch).param_count() == sum(
-            p.numel() for p in pair(arch)[3].parameters())
+        cfg = tconfigs.smoke_config(arch)
+        extra = (SEQ - 128) * cfg.d_model if cfg.family == "audio" else 0   # dec_pos rows
+        assert cfg.param_count() + extra == sum(p.numel() for p in pair(arch)[3].parameters())
 
 
 @pytest.mark.parametrize("arch", ["qwen25_3b", "granite_8b", "internvl2_2b"])
@@ -392,10 +400,15 @@ def test_moe_aux_is_one_under_a_uniform_router():
     assert abs(float(aux) - 1.0) < 1e-6
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tzoo.get_model(tconfigs.smoke_config(arch))
+@pytest.mark.parametrize("arch", jconfigs.ARCH_NAMES)
+def test_get_model_accepts_every_config(arch):
+    """All ten configs build, on ``meta`` at full width, as the family's model."""
+    cfg = tconfigs.get_config(arch)
+    api = tzoo.get_model(cfg)
+    model = api.build("meta", 128)
+    assert isinstance(model, L.LanguageModel) and model.cfg is cfg
+    assert set(api.cache_shape(2, 16)) == set(jzoo.get_model(jconfigs.get_config(arch))
+                                               .cache_shape(2, 16))
 
 
 def test_qwen25_3b_full_width_parameter_count():
