@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its main query path on one card.
 
-    python3 chip_smoke.py [--rows N] [--seed S] [--only accumulate|lm|families]
+    python3 chip_smoke.py [--rows N] [--seed S] [--only accumulate|lm|families|train]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -52,8 +52,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              launches are queued), each checked against its plain version
              on the same inputs, with its bound on an H100 SXM and a library
              yardstick (torch.sparse.mm).
-5. mixed     recall-targeted mixed precision at the query cell's size: the
-             same 10M x 512 collection (seed 0) scaled hot/cold as the
+5. mixed     recall-targeted mixed precision on the first 5,000,000 rows of
+             the query cell's 10M x 512 collection (seed 0; a cut in depth
+             only: c = 32 as phase 3's, the same widths, row lengths, target
+             and k), scaled hot/cold as the
              reference's mixed-precision sweep (the first c/4 partitions at
              full magnitude, the other rows x 0.25), recall_target = 0.99
              (16 calibration queries, seed 0), through the mutable facade:
@@ -178,17 +180,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              ``generate`` tokens/s (host clock), Whisper's ``encode`` beside its
              FLOP bound.  None of the three kernels lies on these paths: their
              launches here must be 0.
-   summary   ``LM``, ``FAMILIES``, ``SHARDED`` and ``MIXED`` lines, the
-             ``kernels`` JSON line (each kernel's classes, its mixed-path and
-             per-shard times; ``launches`` counts phases 3, 6, 7, 8, 9 and 10,
-             with phase 7's, 8's, 9's and 10's also apart), the card's name
-             and power limit, and the result line.
+11. train    run last: SmolLM-360M at full width and depth
+             (``repro_torch.configs.get_config("smollm_360m")``: 32 layers,
+             d_model 960, vocab 49,152, tied, bf16, ``remat="full"``;
+             361,821,120 parameters, cut: none; the port's own init from
+             ``--seed``) through ``repro_torch.train.loop.train`` at B = 32 x
+             S = 2048 in 4 microbatches, lr 1e-3 with 2 warm-up steps: 8 steps
+             with a checkpoint at step 4, then, in a fresh directory holding
+             only that checkpoint, a resume to step 8, both under
+             ``torch.use_deterministic_algorithms(True, warn_only=True)``.
+             Checks: finite losses, step 7's below step 0's, the resumed
+             losses equal to the uninterrupted run's bit for bit, no
+             non-deterministic op warned (each is named), one smoke-size step
+             on the card equal to the CPU's within the f32 step tolerances
+             (``repro_torch.train.parity.STEP_TOL``).  Timed: the step
+             (CUDA events, median of the last 5) and tokens/s beside the
+             FLOP bound (6 N + 12 L S H hd a token at 989 TFLOP/s), one
+             profiled step (kernel ms, idle share, launches, the costliest
+             kernels), peak memory, the checkpoint's bytes and its save and
+             restore seconds.  None of the three kernels lies on this path:
+             their launches here must be 0.
+   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``SHARDED`` and ``MIXED`` lines,
+             the ``kernels`` JSON line (each kernel's classes, its mixed-path
+             and per-shard times; ``launches`` counts phases 3, 6, 7, 8, 9, 10
+             and 11, with phase 7's, 8's, 9's, 10's and 11's also apart), the
+             card's name and power limit, and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
 result line: a short check of a kernel change before the full run.
-``--only lm`` runs phases 1 and 9, ``--only families`` phases 1 and 10; each
-stops without the result line.
+``--only lm`` runs phases 1 and 9, ``--only families`` phases 1 and 10,
+``--only train`` phases 1 and 11; each stops without the result line.
 
 The script needs one CUDA device and imports only ``repro_torch`` (from
 ``src/`` beside it) and torch/numpy.
@@ -197,8 +219,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -233,10 +257,14 @@ MQ_REPEATS = 10
 # BF16 and Q15 cores in one launch.
 MIXED8 = ("F32", "BF16", "Q15", "Q7", "Q15", "BF16", "Q7", "F32")
 # The mixed phase: the reference's recall-targeted sweep (sweep 5 of
-# benchmarks/bench_kernel_paths.py) at the query cell's size.
+# benchmarks/bench_kernel_paths.py) on the query cell's collection.
 MIXED_TARGET = 0.99
 MIXED_COLD_SCALE = 0.25
 MIXED_BUDGET_S = 0.5           # time_cuda budget per timing in the mixed phase
+MIXED_WIDER_K = 8              # extra places of the plain walk that scores a k-th-place tie
+# Its collection: the first 5,000,000 rows of phase 3's (a cut in depth only,
+# to keep the whole script inside its time limit; c stays 32).
+MIXED_ROWS = 5_000_000
 GRAPH_NODES = 1 << 21
 GRAPH_NNZ = 5_242_878          # the reference's synthetic_graph_csr("ring", 2**21, 0)
 GRAPH_SEEDS = [5, 17, 4242]
@@ -281,6 +309,14 @@ FAM_WHISPER_TOL = LM_TOL
 # same cell either way).
 FAM_BLOCK_TOL_F32 = 1e-4
 FAM_BLOCK_TOL_BF16 = 0.25
+# Phase 11: SmolLM-360M trained at full width and depth, the run that the
+# reference's launch/train.py documents for real hardware (--batch 32 --seq
+# 2048), in 4 microbatches: 8 steps with a checkpoint at step 4, then a
+# resume from that checkpoint alone to step 8.
+TRAIN_ARCH = "smollm_360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 32, 2048, 4
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_TIMED = 8, 4, 5
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 
 
 def log(*args) -> None:
@@ -305,8 +341,18 @@ class Check:
         log(f"phase {self.phase}: ok")
 
 
-def compare(kernel, plain, bitwise: bool):
-    """(ok, max_abs_err) of kernel vs plain (values, rows) tensors."""
+def compare(kernel, plain, bitwise: bool, wider=None):
+    """(ok, max_abs_err) of kernel vs plain (values, rows) tensors.
+
+    Off the bitwise path a row id may differ only at a near-tie (2 * TOL)
+    with another entry of the kernel's own list (two rows swapped).  At a
+    list's last place the two walks' summation orders can also rank two rows
+    whose scores are an ulp apart either way: ``wider()``, where given,
+    returns the plain walk's (values, rows) at a larger k, and the kernel's
+    row there is accepted if the plain walk places it past its own k-th
+    entry with a score within 2 * TOL of that entry's and of the kernel's
+    (so the plain version itself scores the row), and the row is in neither
+    the plain list nor elsewhere in the kernel's."""
     kv, kr = (t.cpu().numpy() for t in kernel)
     pv, prow = (t.cpu().numpy() for t in plain)
     err = float(np.abs(kv.astype(np.float64) - pv).max()) if kv.size else 0.0
@@ -314,11 +360,24 @@ def compare(kernel, plain, bitwise: bool):
         return bool(np.array_equal(kv.view(np.int32), pv.view(np.int32))
                     and np.array_equal(kr, prow)), err
     ok = bool(np.allclose(kv, pv, rtol=TOL, atol=TOL))
-    va = kv.reshape(-1, kv.shape[-1])
-    for i, j in zip(*np.nonzero(kr.reshape(va.shape) != prow.reshape(va.shape))):
+    k = kv.shape[-1]
+    va, ra = kv.reshape(-1, k), kr.reshape(-1, k)
+    pa, pr = pv.reshape(va.shape), prow.reshape(va.shape)
+    wide = None
+    for i, j in zip(*np.nonzero(ra != pr)):
         gaps = np.abs(va[i] - va[i, j])
         gaps[j] = np.inf
-        ok = ok and bool(gaps.min() <= 2 * TOL)
+        tie = bool(gaps.min() <= 2 * TOL)
+        if not tie and wider is not None and j == k - 1:
+            if wide is None:
+                wide = [t.cpu().numpy().reshape(va.shape[0], -1) for t in wider()]
+            row = ra[i, j]
+            at = np.nonzero(wide[1][i, k:] == row)[0]
+            score = float(wide[0][i, k + at[0]]) if at.size else np.nan
+            tie = bool(at.size and row not in pr[i] and np.count_nonzero(ra[i] == row) == 1
+                       and abs(score - float(pa[i, j])) <= 2 * TOL
+                       and abs(score - float(va[i, j])) <= 2 * TOL)
+        ok = ok and tie
     return ok, err
 
 
@@ -654,13 +713,16 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=10_000_000,
                         help="collection rows (the deployment has 10M)")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("accumulate", "lm", "families"),
+    parser.add_argument("--only", choices=("accumulate", "lm", "families", "train"),
                         help="accumulate: phases 1 and 2 and the accumulate kernel's "
                              "timing on phase 6's streams (no solves); lm: phases 1 "
-                             "and 9; families: phases 1 and 10; then stop without the "
-                             "result line")
+                             "and 9; families: phases 1 and 10; train: phases 1 and 11; "
+                             "then stop without the result line")
     args = parser.parse_args()
 
+    # Phase 11 trains under torch.use_deterministic_algorithms, whose cuBLAS
+    # calls need this workspace setting before the first one.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -697,6 +759,11 @@ def main() -> int:
         families = families_phase(torch, K, args.seed)
         log("FAMILIES " + json.dumps(dict(families, card=card_line())))
         log(f"ONLY families: done in {time.time() - t_start:.1f} s (no result line)")
+        return 0
+    if args.only == "train":
+        trained = train_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train")
+        log("TRAIN " + json.dumps(dict(trained, card=card_line())))
+        log(f"ONLY train: done in {time.time() - t_start:.1f} s (no result line)")
         return 0
 
     # ---- phase 2: kernels vs plain versions on small fixtures ----
@@ -944,9 +1011,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase 5: mixed precision at the query cell's size ----
-    if args.rows != 10_000_000 or args.seed != 0:
+    # ---- phase 5: mixed precision on the first MIXED_ROWS rows of the query cell ----
+    if args.rows < MIXED_ROWS or args.seed != 0:
         csr = bscsr.synthetic_embedding_csr(10_000_000, 512, 20.0, "gamma", seed=0)
+    csr = bscsr.CSRMatrix(csr.indptr[:MIXED_ROWS + 1].copy(),
+                          csr.indices[:csr.indptr[MIXED_ROWS]].copy(),
+                          csr.data[:csr.indptr[MIXED_ROWS]].copy(), (MIXED_ROWS, csr.shape[1]))
+    log(f"CUT: the mixed phase runs on the first {MIXED_ROWS} rows of phase 3's collection "
+        f"(depth only; widths, row lengths, hot/cold scaling, recall target and k kept)")
     t0 = time.time()
     mixed = mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
     log(f"  mixed phase {time.time() - t0:.1f} s")
@@ -985,6 +1057,16 @@ def main() -> int:
     for entry in kernels:
         entry["launches_families_path"] = families["launches"][entry["name"]]
         entry["launches"] += families["launches"][entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: SmolLM-360M trained at full width and depth ----
+    t0 = time.time()
+    trained = train_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train")
+    log(f"  train phase {time.time() - t0:.1f} s")
+    for entry in kernels:
+        entry["launches_train_path"] = trained["launches"][entry["name"]]
+        entry["launches"] += trained["launches"][entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")
 
     # ---- summary ----
@@ -1024,6 +1106,7 @@ def main() -> int:
         "head": sharded["head"], "timing": timing}))
     log("LM " + json.dumps(dict(lm, card=card_line())))
     log("FAMILIES " + json.dumps(dict(families, card=card_line())))
+    log("TRAIN " + json.dumps(dict(trained, card=card_line())))
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -1191,7 +1274,8 @@ def multiquery_timing(torch, K, snaps, x64, kw, check, errs, launches, bound) ->
 
 
 def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs) -> dict:
-    """Phase 5: recall-targeted mixed precision at the query cell's size.
+    """Phase 5: recall-targeted mixed precision on ``csr`` (the query cell's
+    first ``MIXED_ROWS`` rows).
 
     The collection scaled hot/cold as the reference's mixed-precision sweep
     does (the first c/4 partitions at full magnitude, the rest x 0.25), one
@@ -1211,6 +1295,8 @@ def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
     dev = cfg.resolve_device()
     n_rows, n_cols = csr.shape
     c = cfg.resolve_partitions(n_rows)
+    log(f"  {n_rows} rows, nnz {csr.nnz}: c = {c} (phase 3's c is 32)")
+    check.expect(c == 32, f"c = {c} at {n_rows} rows, not phase 3's 32")
     hot_end = int(partition.PartitionPlan.build(n_rows, c).row_starts[c // 4])
     scales = np.ones(n_rows, np.float32)
     scales[hot_end:] = MIXED_COLD_SCALE
@@ -1331,16 +1417,23 @@ def mixed_phase(torch, csr, cfg, K, ops, bscsr, api, SparseEmbeddingIndex, errs)
             entry["plain_ms_q64"], want = time_once(
                 torch, lambda: K.bscsr_topk_spmv_multiquery_plain(x64, words, k=cfg.k,
                                                                   splits=1, **kwc))
+            # The same plain walk at k + MIXED_WIDER_K, run only if a list's
+            # last place differs, scores the kernel's row there.
+            wide = functools.lru_cache(maxsize=None)(
+                lambda: K.bscsr_topk_spmv_multiquery_plain(x64, words, k=cfg.k + MIXED_WIDER_K,
+                                                           splits=1, **kwc))
             for q in (1, 8, 64):
                 got = K.bscsr_topk_spmv_multiquery(x64[:q].contiguous(), words, k=cfg.k, **kwc)
-                ok, err = compare(got, (want[0][:, :q], want[1][:, :q]), bitwise=False)
+                ok, err = compare(got, (want[0][:, :q], want[1][:, :q]), bitwise=False,
+                                  wider=lambda: tuple(t[:, :q] for t in wide()))
                 errs[name] = max(errs[name], err)
                 check.expect(ok, f"{label} {cname}: {name} Q={q} differs from plain "
                                  f"(max err {err:.3g})")
             plain_mq[0][cores], plain_mq[1][cores] = want
             name = "bscsr_topk_spmv"
             ok, err = compare(K.bscsr_topk_spmv(x0, words, k=cfg.k, **kwc),
-                              (want[0][:, 0], want[1][:, 0]), False)
+                              (want[0][:, 0], want[1][:, 0]), False,
+                              wider=lambda: tuple(t[:, 0] for t in wide()))
             errs[name] = max(errs[name], err)
             check.expect(ok, f"{label} {cname}: {name} differs from plain (max err {err:.3g})")
             name = "bscsr_spmv"
@@ -2580,6 +2673,155 @@ def encode_timing(torch, model, cfg, frames) -> dict:
     log(f"  encode B = {b} x {s}: {ms:.3f} ms (CUDA events, mean of 3); bound {bound:.3f} ms "
         f"({flops / 1e12:.2f} TFLOP at 989 TFLOP/s bf16)")
     return {"encode_ms": ms, "encode_bound_ms": bound, "encode_flops": flops}
+
+
+def train_phase(torch, K, seed, root) -> dict:
+    """Phase 11: SmolLM-360M trained at full width and depth on the card
+    through ``repro_torch.train.loop.train``.
+
+    The port's own init from ``seed``; B = 32 x S = 2048 in 4 microbatches,
+    lr 1e-3 with 2 warm-up steps.  8 steps uninterrupted (checkpoint at step
+    4, under ``root/full``); step 4's checkpoint restored (timed) and saved
+    (timed) into ``root/part``, which then holds it alone; a second ``train``
+    there resumes to step 8.  Both runs under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, so that an op
+    without a deterministic version warns and is named.  Checks: finite
+    losses, step 7's below step 0's, the resumed steps' losses equal to the
+    uninterrupted run's bit for bit, no non-deterministic op warned, the
+    three kernels launched 0 times, and one smoke-size step on the card equal
+    to the same step on the CPU (``repro_torch.train.parity``).  Returns the
+    drive's launches and the ``TRAIN`` line.
+    """
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import parity
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import train
+
+    check = Check("train")
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_cell", "train", TRAIN_SEQ, TRAIN_BATCH)
+    shutil.rmtree(root, ignore_errors=True)
+    full, part = root / "full", root / "part"
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                     microbatches=TRAIN_MICRO, seed=seed, checkpoint_every=TRAIN_CKPT_AT,
+                     checkpoint_dir=str(full))
+    n_params = cfg.param_count()
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}: {n_params} parameters; "
+        f"B {TRAIN_BATCH} x S {TRAIN_SEQ} in {TRAIN_MICRO} microbatches")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.time()
+            out = train(cfg, shape, tc, device="cuda", log_every=1)
+            run_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            history, step_ms = out["history"], out["step_ms"]
+            like = {"params": out["masters"], "opt": opt_lib.init_opt_state(out["masters"])}
+            del out
+            ckpt_bytes = sum(f.stat().st_size for f in full.glob(f"ckpt_{TRAIN_CKPT_AT:08d}.*"))
+            t0 = time.time()
+            _, state = CheckpointManager(str(full)).restore(like, step=TRAIN_CKPT_AT,
+                                                            device="cuda")
+            restore_s = time.time() - t0
+            del like
+            t0 = time.time()
+            CheckpointManager(str(part), async_save=False).save(TRAIN_CKPT_AT, state)
+            save_s = time.time() - t0
+            del state
+            gc.collect()
+            t0 = time.time()
+            again = train(cfg, shape, dataclasses.replace(tc, checkpoint_dir=str(part)),
+                          device="cuda", log_every=1)
+            resume_s = time.time() - t0
+        nondeterministic = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = launch_counts(K)
+
+    check.expect(len(history) == TRAIN_STEPS and bool(np.isfinite(history).all()),
+                 f"losses {history}")
+    check.expect(history[-1] < history[0], f"step {TRAIN_STEPS - 1}'s loss {history[-1]} is "
+                                           f"not below step 0's {history[0]}")
+    resumed = again["history"]
+    check.expect(len(resumed) == TRAIN_STEPS - TRAIN_CKPT_AT,
+                 f"the resume ran {len(resumed)} steps, not {TRAIN_STEPS - TRAIN_CKPT_AT}")
+    resume_diff = float(np.abs(np.subtract(resumed, history[TRAIN_CKPT_AT:])).max())
+    check.expect(resume_diff == 0.0, f"the resumed losses differ by {resume_diff:.3g} "
+                                     f"(non-deterministic ops warned: {nondeterministic})")
+    check.expect(not nondeterministic, f"non-deterministic ops on the training path: "
+                                       f"{nondeterministic}")
+    log(f"  losses {history}; resumed from step {TRAIN_CKPT_AT}: {resumed} (max difference "
+        f"{resume_diff:.3g}; non-deterministic ops warned: {nondeterministic or 'none'})")
+    log(f"  launches in the train phase: {launches} (none of the three kernels lies on the "
+        f"training path)")
+    for name, n in launches.items():
+        check.expect(n == 0, f"{name} launched {n} times on the training path")
+
+    smoke = dict(parity.step_vs_cpu("cuda"), tolerance=parity.STEP_TOL)
+    log("  smoke step on the card vs the CPU: " + json.dumps(smoke))
+    for key, tol in parity.STEP_TOL.items():
+        check.expect(smoke[key] <= tol, f"smoke step {key} differs by {smoke[key]:.3g} "
+                                        f"(tolerance {tol})")
+    check.expect(smoke["masters_on_device"] and smoke["model_refreshed"],
+                 "smoke step: the masters left the card or the model was not refreshed")
+    del again
+    gc.collect()
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    timed = step_ms[-TRAIN_TIMED:]
+    ms = float(np.median(timed))
+    hd, heads = cfg.resolved_head_dim, cfg.num_heads
+    flops_per_token = 6.0 * n_params + 12.0 * cfg.num_layers * TRAIN_SEQ * heads * hd
+    bound_ms = flops_per_token * tokens / H100_BF16_FLOPS * 1e3
+    res = {"arch": cfg.name, "cut": "none", "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+           "losses": history, "resumed_losses": resumed, "resume_max_diff": resume_diff,
+           "nondeterministic_ops": nondeterministic, "step_ms_each": step_ms,
+           "step_ms": ms, "tokens_per_step": tokens, "tokens_per_s": tokens / ms * 1e3,
+           "flops_per_token": flops_per_token, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms, "run_s": run_s, "resume_s": resume_s,
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_save_s": save_s,
+           "checkpoint_restore_s": restore_s, "smoke_step": smoke,
+           "peak_memory_gb": peak / 1e9, "launches": launches}
+    res.update(profiled_train_step(torch, cfg, shape, tc, seed, ms))
+    check.expect(res["peak_memory_gb"] < 80.0, "peak memory above the card's 80 GB")
+    log(f"  train step {ms:.1f} ms (CUDA events, median of the last {len(timed)}: "
+        f"{' / '.join(f'{t:.1f}' for t in timed)}), {res['tokens_per_s']:.0f} tokens/s; "
+        f"bound {bound_ms:.1f} ms ({flops_per_token * tokens / 1e12:.1f} TFLOP at 989 TFLOP/s "
+        f"bf16): {100 * bound_ms / ms:.1f}% reached")
+    log(f"  checkpoint {ckpt_bytes / 1e9:.3f} GB: save {save_s:.2f} s, restore {restore_s:.2f} s")
+    shutil.rmtree(root, ignore_errors=True)     # four checkpoints of 4.3 GB
+    check.done()
+    return res
+
+
+def profiled_train_step(torch, cfg, shape, tc, seed, step_ms) -> dict:
+    """One train step at the cell's shapes under ``torch.profiler``: kernel ms,
+    the idle share against the timed step, launches and the costliest
+    kernels (from a fresh init: the cost does not depend on the values)."""
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import init_train_state
+
+    model, masters, opt = init_train_state(cfg, tc, shape.seq_len, "cuda")
+    batch = data_lib.batch_for_step(0, cfg, shape, seed, tc.microbatches, "cuda")
+    step = opt_lib.make_train_step(get_model(cfg).loss_fn, tc)
+    busy, top = profiled_kernels(torch, lambda: step(model, masters, opt, batch), steps=1)
+    log(f"  a profiled train step: kernels {'not measured' if busy is None else f'{busy:.1f} ms'}"
+        f" of {step_ms:.1f} ms; " + json.dumps(top))
+    return {"kernel_ms": busy, "idle_share": None if busy is None else 1 - busy / step_ms,
+            "kernels": top}
 
 
 def profiled_kernels(torch, step, steps=3):

@@ -12,7 +12,11 @@ for a mutable index's ``export_state`` output, so a store the reference's
 ``params_from_reference`` carries an LM's weights across: the reference's
 param tree (numpy arrays, leading layer axes on its stacked subtrees)
 becomes the family's model, whose state dict holds the same values per
-layer, each in the dtype its op reads.
+layer, each in the dtype its op reads.  For training, ``named_from_reference``
+gives the same tree as named float32 tensors (the trainer's masters),
+``opt_state_from_reference`` the reference's AdamW state as the port's, and
+``tree_to_reference`` takes named tensors (masters, gradients, moments)
+back to the reference's stacked tree as numpy.
 
 Nothing else needs carrying: a ``ShardedTopKSpMVIndex`` and an
 ``ApproxTopKHead`` hold no state beyond what they build from the same CSR
@@ -21,7 +25,7 @@ is given.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +105,69 @@ _STACKED = {"blocks": 1, "mamba": 2, "mamba_tail": 1, "mlstm": 2, "slstm": 1,
             "enc_blocks": 1, "dec_blocks": 1}
 
 
+def named_from_reference(tree: Mapping, device: str = "cpu") -> Dict[str, torch.Tensor]:
+    """The reference's param-shaped tree as ``{state-dict name: float32
+    tensor}`` on ``device``: a stacked subtree's slices become
+    ``<subtree>.<i>[.<j>].<path>`` (``blocks``; Zamba's ``mamba`` (g, e) and
+    ``mamba_tail``; xLSTM's ``mlstm`` (g, m) and ``slstm``; Whisper's
+    ``enc_blocks`` and ``dec_blocks``)."""
+    state = {}
+
+    def walk(tree: Mapping, prefix: str, axes: int) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{name}.", axes if prefix else _STACKED.get(name, 0))
+                continue
+            arr = np.array(value, np.float32)        # a writable copy
+            if not axes:
+                state[prefix + name] = torch.from_numpy(arr).to(device)
+                continue
+            top, inner = prefix.split(".", 1)
+            for idx in np.ndindex(*arr.shape[:axes]):
+                key = ".".join([top, *map(str, idx), inner + name])
+                state[key] = torch.from_numpy(np.ascontiguousarray(arr[idx])).to(device)
+
+    walk(tree, "", 0)
+    return state
+
+
+def tree_to_reference(named: Mapping[str, torch.Tensor]) -> dict:
+    """Named tensors (any dtype, any device) back in the reference's nested,
+    layer-stacked tree, as float32 numpy: the inverse of
+    ``named_from_reference``."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, value in named.items():
+        parts = name.split(".")
+        arr = value.detach().float().cpu().numpy()
+        axes = _STACKED.get(parts[0], 0)
+        if axes:
+            idx = tuple(int(i) for i in parts[1:1 + axes])
+            stacked.setdefault((parts[0], *parts[1 + axes:]), {})[idx] = arr
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    for (top, *path), slices in stacked.items():
+        shape = tuple(int(n) + 1 for n in np.max(list(slices), axis=0))
+        leaf = np.stack([slices[i] for i in np.ndindex(*shape)])
+        node = tree.setdefault(top, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf.reshape(*shape, *leaf.shape[1:])
+    return tree
+
+
+def opt_state_from_reference(opt: Mapping, device: str = "cpu") -> dict:
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` as the port's:
+    both moments as named float32 tensors, ``step`` a 0-d int32 tensor."""
+    return {"mu": named_from_reference(opt["mu"], device),
+            "nu": named_from_reference(opt["nu"], device),
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                                 device=device)}
+
+
 def params_from_reference(params: Mapping, cfg, device: str = "cuda") -> LanguageModel:
     """The family's model on ``device`` holding the reference's params.
 
@@ -113,23 +180,7 @@ def params_from_reference(params: Mapping, cfg, device: str = "cuda") -> Languag
     ``max_seq``.  The reference's float32 ``embed.tok`` rows are kept as the
     model's ``head_source``.
     """
-    state = {}
-
-    def walk(tree: Mapping, prefix: str, axes: int) -> None:
-        for name, value in tree.items():
-            if isinstance(value, Mapping):
-                walk(value, f"{prefix}{name}.", axes if prefix else _STACKED.get(name, 0))
-                continue
-            arr = np.array(value, np.float32)        # a writable copy
-            if not axes:
-                state[prefix + name] = torch.from_numpy(arr)
-                continue
-            top, inner = prefix.split(".", 1)
-            for idx in np.ndindex(*arr.shape[:axes]):
-                key = ".".join([top, *map(str, idx), inner + name])
-                state[key] = torch.from_numpy(arr[idx])
-
-    walk(params, "", 0)
+    state = named_from_reference(params)
     max_seq = np.shape(params["dec_pos"])[0] if "dec_pos" in params else 0
     model = get_model(cfg).build(device, max_seq)
     model.load_state_dict(state, strict=True)

@@ -15,12 +15,18 @@ Conventions
   ``preferred_element_type=float32``).
 * Masked scores are ``NEG_INF = -1e30``, not ``-inf``, as in the reference.
 * The initializers draw from an explicit ``torch.Generator`` on its device.
+* Gradients: the training paths (each family's ``forward`` / ``loss_fn``)
+  record autograd whenever it is on; ``remat`` and the per-q-chunk
+  checkpoint of ``blockwise_attention`` recompute in the backward pass
+  what the reference's ``jax.checkpoint`` does.  Serving (``prefill``,
+  ``decode_step``) runs under ``torch.no_grad``.
 
 Not ported: ``constrain`` and the ``*_specs`` functions are GSPMD layout
 hints, with no meaning on one device.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 
@@ -40,7 +47,9 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 
 class ParamGroup(nn.Module):
     """Named tensors (and sub-groups) of one layer, read as ``p["name"]``
-    like the reference's param dicts.  Nothing in it takes gradients."""
+    like the reference's param dicts.  Built with ``requires_grad=False``,
+    so serving records no autograd; a trainer turns gradients on
+    (``repro_torch.train.optimizer``)."""
 
     def __init__(self, shapes: dict, device):
         """``shapes`` maps a name to ``(shape, dtype)`` or to a nested dict."""
@@ -105,6 +114,32 @@ class LanguageModel(nn.Module):
             raise ValueError("no float32 embed.tok kept: build the model with init_params or "
                              "params_from_reference, or call keep_head_source")
         return self.head_source.numpy()
+
+
+def _keep_dots():
+    """Selective checkpoint that keeps the outputs of products without batch
+    dimensions (``x @ W``: ``aten.mm``), the reference's
+    ``checkpoint_dots_with_no_batch_dims``; the rest is recomputed."""
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default])
+
+
+def remat(fn, cfg: ModelConfig, dots: bool = False):
+    """``fn`` under the reference's ``cfg.remat``: ``"none"`` keeps every
+    activation for the backward pass, ``"full"`` keeps only ``fn``'s inputs
+    and recomputes the rest (``torch.utils.checkpoint``), ``"dots"`` keeps the
+    ``x @ W`` products too where the family honours it (``dots=True``; the
+    reference's other families treat it as ``"full"``).  With autograd off
+    (serving) ``fn`` runs as it is.  Recomputation repeats the same ops, so
+    gradients are the same bits under every mode."""
+    if cfg.remat == "none":
+        return fn
+    kw = {"context_fn": _keep_dots} if dots and cfg.remat == "dots" else {}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def zero_cache(shapes: dict, device) -> dict:
@@ -242,9 +277,8 @@ def blockwise_attention(
         q_chunk = s
     kpos = torch.arange(sk, device=q.device)
     kf = k.float()
-    outs = []
-    for start in range(0, s, q_chunk):
-        qc = q[:, start:start + q_chunk]
+
+    def one_chunk(qc, kf, v, start: int):
         scores = torch.einsum("bsgqd,btgd->bgqst", qc.float(), kf) * scale
         qpos = q_offset + start + torch.arange(q_chunk, device=q.device)
         mask = torch.ones((q_chunk, sk), dtype=torch.bool, device=q.device)
@@ -254,7 +288,16 @@ def blockwise_attention(
             mask &= kpos[None, :] > qpos[:, None] - sliding_window
         scores = torch.where(mask, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bgqst,btgd->bsgqd", probs, v))   # (B,qc,G,Qg,hd)
+        return torch.einsum("bgqst,btgd->bsgqd", probs, v)         # (B,qc,G,Qg,hd)
+
+    # Under autograd each chunk keeps only its inputs and recomputes its
+    # scores and probs in the backward pass, as the reference's
+    # ``jax.checkpoint`` does (O(S^2) memory otherwise).
+    if torch.is_grad_enabled():
+        chunk = functools.partial(checkpoint, one_chunk, use_reentrant=False)
+    else:
+        chunk = one_chunk
+    outs = [chunk(q[:, start:start + q_chunk], kf, v, start) for start in range(0, s, q_chunk)]
     return torch.cat(outs, dim=1).reshape(b, s, h, hd)
 
 

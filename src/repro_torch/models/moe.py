@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN with top-k routing and capacity-based dispatch.
 
-The reference's ``repro/models/moe.py``, ported (forward only).
+The reference's ``repro/models/moe.py``, ported.
 GShard/Switch-style: tokens are routed to their top-k experts, dispatched by
 scatter into per-expert capacity buffers ``(E, cap, D)`` (so the products
 cover the active experts only), run through batched expert FFNs, and

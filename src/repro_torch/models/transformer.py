@@ -16,9 +16,11 @@ The KV cache is a dict of preallocated ``(L, B, G, S, hd)`` tensors that
 window, and the int8 planes with their per-vector scales under
 ``kv_quant``.
 
-``cfg.scan_layers`` and ``cfg.remat`` are XLA compile knobs (scan over the
-stacked layers; rematerialization for the backward pass).  They are
-accepted and ignored: the blocks run in a Python loop, forward only.
+``forward`` and ``loss_fn`` record autograd when it is on (training); each
+block is recomputed in the backward pass per ``cfg.remat`` (``layers.remat``:
+``"full"``, ``"dots"`` or ``"none"``), as the reference's ``jax.checkpoint``.
+``cfg.scan_layers`` is an XLA compile knob (scan over the stacked layers),
+accepted and ignored: the blocks run in a Python loop.
 """
 from __future__ import annotations
 
@@ -98,7 +100,6 @@ class Transformer(L.LanguageModel):
             y, aux = L.gated_mlp(blk["mlp"], h), 0.0
         return x + y, aux
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (final hidden states (B, S_total, D), MoE aux)."""
@@ -108,15 +109,15 @@ class Transformer(L.LanguageModel):
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = L.remat(self._block, cfg, dots=True)
         for blk in self.blocks:
-            x, aux_i = self._block(x, blk, positions)
+            x, aux_i = block(x, blk, positions)
             aux = aux + aux_i
         return L.rms_norm(x, self.ln_f, cfg.norm_eps), aux
 
-    @torch.no_grad()
     def loss_fn(self, batch: dict) -> torch.Tensor:
         """batch: tokens (B,S), labels (B,S), optional prefix_embeds / loss_mask.
-        The value only (no backward in this port)."""
+        Differentiable when autograd is on."""
         prefix = batch.get("prefix_embeds")
         x, aux = self.forward(batch["tokens"], prefix)
         if prefix is not None:

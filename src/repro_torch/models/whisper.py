@@ -121,31 +121,37 @@ class Whisper(L.LanguageModel):
 
     # -- encoder and teacher-forced decoder ---------------------------------
 
-    @torch.no_grad()
     def encode(self, frame_embeds: torch.Tensor) -> torch.Tensor:
         """frame_embeds (B, S_enc, D), precomputed (the front end's stub) ->
-        the encoder output (B, S_enc, D)."""
+        the encoder output (B, S_enc, D); each block recomputed in the
+        backward pass unless ``cfg.remat == "none"``."""
         cfg = self.cfg
         x = frame_embeds.to(L.cdtype(cfg))
         x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for blk in self.enc_blocks:
+
+        def block(x, blk):
             h = _ln(x, blk["ln1"], cfg.norm_eps)
             q, k, v = L.qkv_project(blk["attn"], h, cfg, positions)
             x = x + L.attention_out(blk["attn"], L.blockwise_attention(q, k, v, causal=False),
                                     cfg)
-            x = x + L.gelu_mlp(blk["mlp"], _ln(x, blk["ln2"], cfg.norm_eps))
+            return x + L.gelu_mlp(blk["mlp"], _ln(x, blk["ln2"], cfg.norm_eps))
+
+        block = L.remat(block, cfg)
+        for blk in self.enc_blocks:
+            x = block(x, blk)
         return _ln(x, self.enc_ln_f, cfg.norm_eps)
 
-    @torch.no_grad()
     def decode_train(self, tokens: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """Teacher-forced decoder: tokens (B, S) against ``enc_out`` -> final
-        hidden states (B, S, D)."""
+        hidden states (B, S, D); each block recomputed in the backward pass
+        unless ``cfg.remat == "none"``."""
         cfg = self.cfg
         x = L.embed_tokens(self.embed, tokens, cfg)
         x = x + self.dec_pos[: x.shape[1]][None]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for blk in self.dec_blocks:
+
+        def block(x, blk, enc_out):
             h = _ln(x, blk["ln1"], cfg.norm_eps)
             q, k, v = L.qkv_project(blk["self_attn"], h, cfg, positions)
             x = x + L.attention_out(blk["self_attn"],
@@ -155,13 +161,16 @@ class Whisper(L.LanguageModel):
             ck, cv = _cross_project(p, enc_out, cfg)
             attn = L.blockwise_attention(_cross_query(p, h, cfg), ck, cv, causal=False)
             x = x + L.attention_out(p, attn, cfg)
-            x = x + L.gelu_mlp(blk["mlp"], _ln(x, blk["ln3"], cfg.norm_eps))
+            return x + L.gelu_mlp(blk["mlp"], _ln(x, blk["ln3"], cfg.norm_eps))
+
+        block = L.remat(block, cfg)
+        for blk in self.dec_blocks:
+            x = block(x, blk, enc_out)
         return _ln(x, self.dec_ln_f, cfg.norm_eps)
 
-    @torch.no_grad()
     def loss_fn(self, batch: dict) -> torch.Tensor:
         """batch: frame_embeds (B, S_enc, D), tokens and labels (B, S),
-        optional loss_mask.  The value only."""
+        optional loss_mask.  Differentiable when autograd is on."""
         x = self.decode_train(batch["tokens"], self.encode(batch["frame_embeds"]))
         logits = L.lm_logits(self.embed, x, self.cfg)
         return L.cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))

@@ -7,6 +7,7 @@ in the context length; ``decode_step`` updates it in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -69,21 +70,23 @@ class XLSTM(L.LanguageModel):
 
     # -- forward (training / prefill) --------------------------------------
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> final hidden states (B, S, D)."""
+        """tokens (B, S) -> final hidden states (B, S, D); each block
+        recomputed in the backward pass unless ``cfg.remat == "none"``."""
         cfg = self.cfg
         x = L.embed_tokens(self.embed, tokens, cfg)
+        mblock = L.remat(functools.partial(X.mlstm_block, cfg=cfg), cfg)
+        sblock = L.remat(functools.partial(X.slstm_block, cfg=cfg), cfg)
         for sblk, grp in self._groups():
             if sblk is not None:
-                x = X.slstm_block(sblk, x, cfg)
+                x = sblock(sblk, x)
             for mblk in grp:
-                x = X.mlstm_block(mblk, x, cfg)
+                x = mblock(mblk, x)
         return L.rms_norm(x, self.ln_f, cfg.norm_eps)
 
-    @torch.no_grad()
     def loss_fn(self, batch: dict) -> torch.Tensor:
-        """batch: tokens (B, S), labels (B, S), optional loss_mask.  The value only."""
+        """batch: tokens (B, S), labels (B, S), optional loss_mask.
+        Differentiable when autograd is on."""
         logits = L.lm_logits(self.embed, self.forward(batch["tokens"]), self.cfg)
         return L.cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
 

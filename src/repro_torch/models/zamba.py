@@ -11,6 +11,7 @@ in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -83,23 +84,27 @@ class Zamba(L.LanguageModel):
 
     # -- forward (training / prefill) --------------------------------------
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> final hidden states (B, S, D)."""
+        """tokens (B, S) -> final hidden states (B, S, D); each Mamba2 block
+        and each application of the shared block recomputed in the backward
+        pass unless ``cfg.remat == "none"``."""
         cfg = self.cfg
         x = L.embed_tokens(self.embed, tokens, cfg)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        mblock = L.remat(functools.partial(ssm.mamba_block, cfg=cfg), cfg)
+        ablock = L.remat(functools.partial(_shared_attn_block, cfg=cfg, positions=positions),
+                         cfg)
         for grp in self.mamba:
             for blk in grp:
-                x = ssm.mamba_block(blk, x, cfg)
-            x = _shared_attn_block(self.shared, x, cfg, positions)
+                x = mblock(blk, x)
+            x = ablock(self.shared, x)
         for blk in getattr(self, "mamba_tail", ()):
-            x = ssm.mamba_block(blk, x, cfg)
+            x = mblock(blk, x)
         return L.rms_norm(x, self.ln_f, cfg.norm_eps)
 
-    @torch.no_grad()
     def loss_fn(self, batch: dict) -> torch.Tensor:
-        """batch: tokens (B, S), labels (B, S), optional loss_mask.  The value only."""
+        """batch: tokens (B, S), labels (B, S), optional loss_mask.
+        Differentiable when autograd is on."""
         logits = L.lm_logits(self.embed, self.forward(batch["tokens"]), self.cfg)
         return L.cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
 

@@ -21,8 +21,13 @@ rtol = atol = 1e-4), ``sample_approx`` against the plain walk at a ragged
 and a full decode batch, and ``kv_quant`` decoding.  The hybrid, ssm and
 audio families likewise (prefill, decode logits and caches, ``generate``),
 and one block of each recurrent kind at full width, chunked against stepped.
+
+Training: one smoke step of ``make_train_step`` on the card against the CPU
+(the f32 tolerances of ``test_torch_train.py``), a checkpoint restored onto
+the card, and ``launch/train.py --smoke`` on the card by default.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1272,3 +1277,50 @@ def test_full_width_block_chunked_equals_stepped(no_tf32, kind):
         outs.append(o)
     np.testing.assert_allclose(torch.cat(outs, 1).cpu().numpy(), full.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+def test_train_step_on_the_card_equals_the_cpu(no_tf32):
+    """One step of ``make_train_step`` (smoke smollm, float32, 2 microbatches)
+    on the card against the same step on the CPU, from the same masters and
+    batch, within ``parity.STEP_TOL``."""
+    from repro_torch.train import parity
+
+    diffs = parity.step_vs_cpu("cuda")
+    for key, tol in parity.STEP_TOL.items():
+        assert diffs[key] <= tol, (key, diffs[key])
+    assert diffs["masters_on_device"] and diffs["model_refreshed"]
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    state = {"params": {"w": torch.randn(4, 5, device="cuda"),
+                        "b": torch.randn(7).to(torch.bfloat16)},
+             "opt": {"step": torch.tensor(3, dtype=torch.int32)}}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(3, state)
+    mgr.wait()
+    step, back = mgr.restore(state, device="cuda")
+    assert step == 3
+    assert back["params"]["w"].is_cuda and torch.equal(back["params"]["w"], state["params"]["w"])
+    assert back["params"]["b"].dtype == torch.bfloat16 and back["params"]["b"].is_cuda
+    assert torch.equal(back["params"]["b"].cpu().view(torch.int16),
+                       state["params"]["b"].view(torch.int16))
+    assert back["opt"]["step"].shape == () and int(back["opt"]["step"]) == 3
+
+
+def test_launch_train_smoke_on_the_card(cuda, tmp_path):
+    """``launch/train.py --smoke`` with no ``--device``: it trains on the card."""
+    from repro_torch.launch import train as launch_train
+
+    out = launch_train.main(["--arch", "smollm-360m", "--smoke", "--steps", "4", "--batch",
+                             "4", "--seq", "64", "--microbatches", "2", "--checkpoint-dir",
+                             str(tmp_path), "--checkpoint-every", "2"])
+    assert len(out["history"]) == 4 and np.isfinite(out["history"]).all()
+    assert all(p.is_cuda for p in out["params"].parameters())
+    assert all(t.is_cuda for t in out["masters"].values())
+    assert sorted(os.listdir(tmp_path)) == ["ckpt_00000002.npz", "ckpt_00000004.npz"]
