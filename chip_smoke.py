@@ -36,6 +36,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              per dispatch key at the first mutation and none over further
              upserts.  Both top-k kernels' launch counts must rise here, and
              the executor's host-to-device copies stay flat in steady state.
+             Before the mutations, ``distributed_topk_spmv_fn`` on the same
+             index over a ("data",) mesh of four positions on this card: the
+             single form bit for bit ``topk_spmv``'s answer, the batched form
+             at Q = 64 ``query_batch``'s.
 4. timings   each top-k kernel at every Q the main path gives it on the main
              path's streams before and after ingest, at the card's S and at
              one split, in turns (with S, the multi-query q_chunk and the
@@ -185,11 +189,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              d_model 960, vocab 49,152, tied, bf16, ``remat="full"``;
              361,821,120 parameters, cut: none; the port's own init from
              ``--seed``) through ``repro_torch.train.loop.train`` at B = 32 x
-             S = 2048 in 4 microbatches, lr 1e-3 with 2 warm-up steps: 8 steps
-             with a checkpoint at step 4, then, in a fresh directory holding
-             only that checkpoint, a resume to step 8, both under
+             S = 2048 in 4 microbatches, lr 1e-3 with 2 warm-up steps: 3 steps
+             with a checkpoint at step 2, then, in a fresh directory holding
+             only that checkpoint, a resume to step 3 (cut since phase 12
+             came: the cell runs 8 and resumes 4), both under
              ``torch.use_deterministic_algorithms(True, warn_only=True)``.
-             Checks: finite losses, step 7's below step 0's, the resumed
+             Checks: finite losses, step 2's below step 0's, the resumed
              losses equal to the uninterrupted run's bit for bit, no
              non-deterministic op warned (each is named), one smoke-size step
              on the card equal to the CPU's within the f32 step tolerances
@@ -200,11 +205,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              kernels), peak memory, the checkpoint's bytes and its save and
              restore seconds.  None of the three kernels lies on this path:
              their launches here must be 0.
-   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``SHARDED`` and ``MIXED`` lines,
-             the ``kernels`` JSON line (each kernel's classes, its mixed-path
-             and per-shard times; ``launches`` counts phases 3, 6, 7, 8, 9, 10
-             and 11, with phase 7's, 8's, 9's, 10's and 11's also apart), the
-             card's name and power limit, and the result line.
+12. mesh     run after phase 8 and before phase 5 (phase 8's indexes freed):
+             phase 3's collection and config behind ``SparseEmbeddingIndex(
+             csr, cfg, mesh=make_serving_mesh(4, 2, devices=[cuda:0] * 8))``
+             (a 2 replica x 4 shard mesh whose positions all name this card:
+             8 partitions a shard, every position pinning its own copy;
+             cut: none); phase 3's mutations replayed: ``query`` and
+             ``query_batch`` at Q = 1, 8, 37 (ragged; against phase 3's Q = 64
+             rows) and 64 and ``index.query`` (the single-query kernel) bit
+             for bit phase 3's answers before, between and after them, the
+             same ids assigned; the bundle's uploads flat in steady state,
+             each mutation's sync shipping fewer than a full re-ship's 32
+             partitions unless a common bucket jumped (each sync timed, and
+             the first pin), retraces at most one per dispatch key and bucket
+             jump.  Phase 6's graph cell on the same mesh: a cold ``rank``
+             bit for bit phase 8's (and so phase 6's), in as many iterations,
+             one accumulate launch per shard and iteration.  The head at
+             Qwen2.5-3B's widths with ``TopKHeadConfig(mesh=...)``:
+             ``topk_logits_batch`` of phase 8's 64 hidden states bit for bit
+             phase 8's unsharded head.  Every kernel must launch here; then
+             each kernel's device time per position and in sum.  One card
+             runs every position, so copies between cards are not exercised
+             and the times say nothing of scaling over replicas.
+   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``SHARDED``, ``MESH`` and ``MIXED``
+             lines, the ``kernels`` JSON line (each kernel's classes, its
+             mixed-path, per-shard and per-position times; ``launches`` counts
+             phases 3, 6, 7, 8, 9, 10, 11 and 12, with phase 7's, 8's, 9's,
+             10's, 11's and 12's also apart), the card's name and power limit,
+             and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
@@ -276,6 +304,15 @@ EIGEN_NODES = 1024
 # head at Qwen2.5-3B's vocabulary and width, from the port's config.
 SHARDS = 4
 HEAD_EXACT = 16               # hidden states held to exact_topk_logits for overlap@64
+# Phase 12: the same cells on a 2 replica x 4 shard mesh of this card's
+# positions; its batches at Q = 1, 8, 37 (ragged) and 64; a short timing
+# budget a position (eight positions, three kernels).
+MESH_SHARDS, MESH_REPLICAS = 4, 2
+MESH_QS = (1, 8, 37, 64)
+MESH_BUDGET_S = 0.1
+# distributed_topk_spmv_fn in phase 3: the core dim over a ("data",) mesh of
+# four positions on this card.
+DIST_POSITIONS = 4
 # Phase 9: Qwen2.5-3B at full width behind ServingEngine with the approximate
 # head: 64 requests of 16 prompt tokens and 32 generated ones.
 LM_ARCH = "qwen25_3b"
@@ -311,11 +348,13 @@ FAM_BLOCK_TOL_F32 = 1e-4
 FAM_BLOCK_TOL_BF16 = 0.25
 # Phase 11: SmolLM-360M trained at full width and depth, the run that the
 # reference's launch/train.py documents for real hardware (--batch 32 --seq
-# 2048), in 4 microbatches: 8 steps with a checkpoint at step 4, then a
-# resume from that checkpoint alone to step 8.
+# 2048), in 4 microbatches, with a checkpoint and a resume from that
+# checkpoint alone to the last step.
 TRAIN_ARCH = "smollm_360m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 32, 2048, 4
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_TIMED = 8, 4, 5
+# Cut (to keep the script inside its time limit with phase 12): 3 steps with a
+# checkpoint at 2 and a resume of 1, where the cell has 8 and a resume of 4.
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_TIMED = 3, 2, 2
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 
 
@@ -809,7 +848,22 @@ def main() -> int:
     executor = api.query_executor(cfg)
     svc.query(xs64[0])                            # pins the snapshot
     topk_spmv_warm = api.topk_spmv(index, torch.from_numpy(xs64[0]).cuda())
+
+    # distributed_topk_spmv_fn on this index (no extra build), before the
+    # main path's counts open: the core dim over a ("data",) mesh of four
+    # positions on this card.  Its launches are its own entry point's.
+    from repro_torch.launch.mesh import DeviceMesh
+
+    dmesh = DeviceMesh(np.array([torch.device("cuda", 0)] * DIST_POSITIONS, dtype=object),
+                       ("data",))
+    K.reset_launch_counts()
+    fn, arrays = api.distributed_topk_spmv_fn(index, dmesh)
+    dist_one = fn(torch.from_numpy(xs64[0]).cuda(), *arrays)
+    fn, arrays = api.distributed_topk_spmv_fn(index, dmesh, batched=True)
+    dist_64 = fn(torch.from_numpy(xs64).cuda(), *arrays)
+    del fn, arrays
     torch.cuda.synchronize()
+    dist_launches = launch_counts(K)
     copies_before = executor.h2d_copies
 
     K.reset_launch_counts()
@@ -850,7 +904,16 @@ def main() -> int:
             answers += [(xs64[0], tuple(t.cpu().numpy() for t in direct))]
         return answers
 
-    # Phase 8 replays this path on four shards and holds its answers to these.
+    dist_ok = same_bits(dist_one, direct), same_bits(dist_64, batch64)
+    log(f"  distributed_topk_spmv_fn over {dmesh.shape} on this card: single == topk_spmv "
+        f"{dist_ok[0]}, batched Q = 64 == topk_spmv_batched {dist_ok[1]} (launches "
+        f"{dist_launches})")
+    check.expect(all(dist_ok), "distributed_topk_spmv_fn differs from the executor's answers")
+    for name in ("bscsr_topk_spmv", "bscsr_topk_spmv_multiquery"):
+        check.expect(dist_launches[name] > 0,
+                     f"{name} was not launched by distributed_topk_spmv_fn")
+
+    # Phases 8 and 12 replay this path sharded and hold their answers to these.
     kept = {"before": (single[0], batch8, batch64, tuple(t.cpu().numpy() for t in direct))}
     answers = all_answers(single, batch8, batch64, direct)
     worst = against_oracle(answers)
@@ -1011,6 +1074,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 12: the mesh dispatch (2 replicas x 4 shards on this card) ----
+    t0 = time.time()
+    meshed = mesh_phase(torch, K, api, SparseEmbeddingIndex, GraphRankingService, csr, cfg,
+                        xs64, kept, sharded, gcsr)
+    meshed["phase_s"] = time.time() - t0
+    log(f"  mesh phase {meshed['phase_s']:.1f} s")
+    for entry in kernels:
+        entry["launches_mesh_path"] = meshed["launches"][entry["name"]]
+        entry["launches"] += meshed["launches"][entry["name"]]
+    del sharded["head_inputs"], sharded["head_answers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phase 5: mixed precision on the first MIXED_ROWS rows of the query cell ----
     if args.rows < MIXED_ROWS or args.seed != 0:
         csr = bscsr.synthetic_embedding_csr(10_000_000, 512, 20.0, "gamma", seed=0)
@@ -1029,13 +1105,16 @@ def main() -> int:
     # ---- phase 6: the graph path at full width ----
     gsvc, spmv_launches, pre = graph_phase(K, api, graph, SparseEmbeddingIndex,
                                            GraphRankingService, csr=gcsr,
-                                           sharded_cold=sharded["ppr"])
+                                           sharded_cold=(
+                                               (f"phase 8's on {SHARDS} shards", sharded["ppr"]),
+                                               ("phase 12's on the 2 x 4 mesh", meshed["ppr"])))
     launches["bscsr_spmv"] = spmv_launches
 
     # ---- phase 4 (continued): the accumulate kernel on phase 6's streams ----
     kernels.append(accumulate_timing(torch, K, bscsr, gsvc, pre, errs, launches))
-    kernels[2]["launches_sharded_path"] = sharded["launches"]["bscsr_spmv"]
-    kernels[2]["launches"] += sharded["launches"]["bscsr_spmv"]
+    for path, res in (("sharded", sharded), ("mesh", meshed)):
+        kernels[2][f"launches_{path}_path"] = res["launches"]["bscsr_spmv"]
+        kernels[2]["launches"] += res["launches"]["bscsr_spmv"]
     del gsvc
     gc.collect()
     torch.cuda.empty_cache()
@@ -1067,6 +1146,9 @@ def main() -> int:
     for entry in kernels:
         entry["launches_train_path"] = trained["launches"][entry["name"]]
         entry["launches"] += trained["launches"][entry["name"]]
+    for entry in kernels:
+        entry["launches_distributed_path"] = dist_launches[entry["name"]]
+        entry["launches"] += dist_launches[entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")
 
     # ---- summary ----
@@ -1098,6 +1180,22 @@ def main() -> int:
     kernels[1]["sharded"] = {k: timing[k] for k in (
         "splits_by_q", "ms_by_shard_by_q", "ms_sum_by_q", "bound_ms_by_q")}
     kernels[2]["sharded"] = timing["accumulate"]
+    mtiming = meshed["timing"]
+    kernels[0]["mesh"] = mtiming["single"]
+    kernels[1]["mesh"] = {k: mtiming[k] for k in (
+        "splits_by_q", "ms_by_position_by_q", "ms_sum_by_q", "bound_ms_by_q")}
+    kernels[2]["mesh"] = mtiming["accumulate"]
+    log("MESH " + json.dumps({
+        "mesh": meshed["mesh"], "positions_on": meshed["positions_on"],
+        "phase_s": meshed["phase_s"], "build_s": meshed["build_s"],
+        "first_pin_s": meshed["first_pin_s"], "first_pin": meshed["first_pin"],
+        "ships": meshed["ships"], "bucket_jumps": meshed["bucket_jumps"],
+        "retraces": meshed["retraces"], "bundle": meshed["bundle"],
+        "launches": meshed["launches"], "end_to_end": meshed["end_to_end"],
+        "end_to_end_per_shard": sharded["end_to_end"],
+        "distributed_launches": dist_launches, "head_build_s": meshed["head_build_s"],
+        "ppr": {k: v for k, v in meshed["ppr"].items() if k != "scores"},
+        "timing": mtiming, "card": card_line()}))
     log("SHARDED " + json.dumps({
         "shards": sharded["shards"], "build_s": sharded["build_s"],
         "recover_ms": sharded["recover_ms"], "launches": sharded["launches"],
@@ -1646,9 +1744,12 @@ def serving_phase(torch, K, api, svc, xs64, deleted, rng, root, device="cuda") -
     try:
         K.reset_launch_counts()
         # 1. A fixed burst: 37 submits and flush() make one pass of Q = 37.
+        # Only flush() may end the pass: the default 10 ms flush deadline
+        # split it once when the host stalled between submits (12 + 25).
         fixed = StreamingSimilarityService(
             svc, store=DurableIndexStore(root, device=device),
-            frontend=FrontendConfig(adaptive=False, target_batch=64, max_batch=64))
+            frontend=FrontendConfig(adaptive=False, target_batch=64, max_batch=64,
+                                    flush_deadline_s=60.0))
         store = fixed.store
         out["checkpoint"] = dict(store.last_checkpoint)
         log(f"  anchoring checkpoint: {out['checkpoint']['bytes']} bytes, export_state "
@@ -2036,6 +2137,7 @@ def sharded_phase(torch, K, api, graph, SparseEmbeddingIndex, GraphRankingServic
         f"overlap@{big_k} {overlap:.4f} over {HEAD_EXACT} hidden states (partition "
         f"precision {head.partition_precision:.4f})")
     check.expect(same_bits(a, b), "sharded head answers differ from the unsharded head's")
+    out["head_inputs"], out["head_answers"] = (emb, hidden), a     # phase 12's reference
     check.expect(ok, f"head topk_logits kernel vs plain (max err {err:.3g})")
     check.expect(0.0 < overlap <= 1.0 and np.isfinite(a[0]).all(), "head answers")
 
@@ -2123,6 +2225,275 @@ def sharded_timing(torch, K, api, ex, index, gindex, xs64, phase4, cfg, device="
     out["accumulate"] = {"splits": splits, "ms_by_shard": per, "ms_sum": sum(per)}
     log(f"  accumulate kernel per shard of the graph cell (S = {splits}): "
         f"{' / '.join(f'{m:.4f}' for m in per)} ms, sum {sum(per):.4f} ms")
+    return out
+
+
+def mesh_phase(torch, K, api, SparseEmbeddingIndex, GraphRankingService, csr, cfg, xs64,
+               kept, sharded, gcsr) -> dict:
+    """Phase 12: the mesh dispatch on a 2 replica x 4 shard mesh whose eight
+    positions all name this card (``make_serving_mesh(4, 2, devices=
+    [cuda:0] * 8)``): phase 3's cell, phase 8's graph cell and head, held
+    bit for bit to their single-device answers.
+
+    ``kept`` holds phase 3's answers and mutation inputs; ``sharded`` phase
+    8's result (its end-to-end latency, cold rank and head).  Returns the
+    launches of the phase's drive (counted from 0), the bundle's counters
+    and ship times, the facade's latency, the mesh's cold rank (phase 6
+    holds its own to it) and each kernel's device time per position.
+    """
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import ApproxTopKHead, TopKHeadConfig
+
+    check = Check("mesh")
+    sync = torch.cuda.synchronize
+    dev = torch.device("cuda", 0)
+    mesh = make_serving_mesh(MESH_SHARDS, MESH_REPLICAS,
+                             devices=[dev] * (MESH_SHARDS * MESH_REPLICAS))
+    n_rows = csr.shape[0]
+    out = {"mesh": dict(mesh.shape), "positions_on": sorted({str(d) for d in mesh.devices.flat})}
+
+    t0 = time.time()
+    fac = SparseEmbeddingIndex(csr, cfg, mesh=mesh)
+    index = fac.index
+    disp = index._spmd
+    bundle = disp.bundle
+    out["build_s"] = time.time() - t0
+    info = fac.dispatch_info()
+    log(f"  mesh build: {out['build_s']:.1f} s; {mesh.shape} on {out['positions_on']}: "
+        f"{MESH_SHARDS} shards x {index._cps} partitions, rows "
+        f"{[sh.n_rows for sh in index.shards]}; path {info['path']}")
+    check.expect(info["path"] == "spmd" and index._cps == 8 and fac.replica_factor == 2,
+                 f"mesh index: path {info['path']}, {index._cps} partitions a shard, "
+                 f"replica factor {fac.replica_factor}")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    disp._sync()                                  # the first pin: every position
+    sync()
+    out["first_pin_s"] = time.perf_counter() - t0
+    out["first_pin"] = bundle.counters()
+    log(f"  first pin: {out['first_pin_s']:.3f} s, {bundle.uploads} uploads, "
+        f"{bundle.host_bytes_shipped / 1e9:.3f} GB to {mesh.size} positions")
+
+    def hold(label, want, qi=0):
+        """Q = 1, 8, 37, 64 and index.query against phase 3's answers."""
+        one, b8, b64 = want[:3]
+        got = {1: fac.query(xs64[qi]), 8: fac.query_batch(xs64[:8]),
+               37: fac.query_batch(xs64[:37]), 64: fac.query_batch(xs64)}
+        expect = {1: one, 8: b8, 37: (b64[0][:37], b64[1][:37]), 64: b64}
+        direct = index.query(torch.from_numpy(xs64[qi]).to(dev))
+        oks = [same_bits(got[q], expect[q]) for q in MESH_QS]
+        oks.append(same_bits(direct, want[3] if len(want) > 3 else one))
+        for q, ok in zip(MESH_QS + ("index.query",), oks):
+            check.expect(ok, f"{label}: {q} on the mesh differs from phase 3's answers")
+        log(f"  {label}: Q = 1, 8, 37, 64 and index.query on the mesh == phase 3 bit for "
+            f"bit: {all(oks)}")
+        return got
+
+    def steady(label):
+        uploads = bundle.uploads
+        fac.query(xs64[0])
+        fac.query_batch(xs64[:8])
+        fac.query_batch(xs64)
+        check.expect(bundle.uploads == uploads, f"{label}: {bundle.uploads - uploads} uploads "
+                                                f"in steady state")
+
+    hold("before mutations", kept["before"])
+    steady("before mutations")
+
+    # Phase 3's mutations replayed; after each, one sync ships what moved.
+    muts = kept["mutations"]
+    ships, jumps = [], 0
+
+    def ship(label, sig):
+        """The sync after a mutation (``sig``: the signature before it)."""
+        nonlocal jumps
+        before = bundle.counters()
+        t0 = time.perf_counter()
+        new_sig = disp._sync()[1]
+        sync()
+        secs = time.perf_counter() - t0
+        jumped = new_sig != sig
+        jumps += jumped
+        rec = {"label": label, "s": secs, "bucket_jump": jumped,
+               "uploads": bundle.uploads - before["uploads"],
+               "bytes": bundle.host_bytes_shipped - before["host_bytes_shipped"],
+               "partitions": bundle.partitions_shipped - before["partitions_shipped"]}
+        ships.append(rec)
+        log(f"  ship after {label}: " + json.dumps(rec))
+        full = MESH_SHARDS * index._cps
+        check.expect(jumped or rec["partitions"] < full,
+                     f"{label}: {rec['partitions']} partitions shipped within the buckets "
+                     f"(a full re-ship is {full})")
+        return rec
+
+    sig = disp._sync()[1]
+    new_ids = fac.upsert(muts["new_rows"])
+    fac.delete(muts["deleted"])
+    check.expect(list(new_ids) == list(range(n_rows, n_rows + 64)),
+                 "mesh upsert did not assign phase 3's ids")
+    ship("the ingest of 64 and 64 deletes", sig)
+    hold("after the ingest of 64 and 64 deletes", kept["after_ingest"])
+    for i, rows8 in enumerate(muts["upserts"]):
+        sig = disp._sync()[1]
+        ids = fac.upsert(rows8)
+        check.expect(list(ids) == list(range(n_rows + 64 + 8 * i, n_rows + 72 + 8 * i)),
+                     "mesh upsert of 8 did not assign phase 3's ids")
+        rec = ship(f"upsert of 8 #{i}", sig)
+        check.expect(rec["bucket_jump"] or rec["partitions"] > 0,
+                     f"upsert of 8 #{i} shipped no partition")
+        fac.query(xs64[i])
+        fac.query_batch(xs64[:8])
+        fac.query_batch(xs64)
+    hold("after three upserts of 8", kept["after_upserts"], qi=2)
+    steady("after the mutations")
+    keys = len(disp._last_sig)
+    log(f"  retraces {disp.retraces} over {jumps} bucket jumps and {keys} dispatch keys")
+    check.expect(disp.retraces <= jumps * keys,
+                 f"{disp.retraces} retraces for {jumps} bucket jumps x {keys} keys")
+    check.expect(index.deleted_rows == 64 and index.n_rows == n_rows + 64 + 24 - 64,
+                 f"mesh counts: {index.n_rows} live, {index.deleted_rows} deleted")
+    out["ships"], out["bucket_jumps"], out["retraces"] = ships, jumps, disp.retraces
+    out["end_to_end"] = {name: median_ms(fn) for name, fn in (
+        ("query_ms", lambda: fac.query(xs64[0])),
+        ("query_batch_q8_ms", lambda: fac.query_batch(xs64[:8])),
+        ("query_batch_q64_ms", lambda: fac.query_batch(xs64)))}
+    log("MESH_END_TO_END " + json.dumps(out["end_to_end"]) + " per-shard (phase 8) "
+        + json.dumps(sharded["end_to_end"]))
+
+    # The graph cell's cold rank on the same mesh shape.
+    t0 = time.time()
+    gfac = SparseEmbeddingIndex(gcsr, graph_config(api, "cuda"), mesh=mesh)
+    gsvc = GraphRankingService(gfac.index, tol=1e-5)
+    gbuild_s = time.time() - t0
+    spmv0 = K.bscsr_spmv.launches
+    t0 = time.perf_counter()
+    res = gsvc.rank(GRAPH_SEEDS, top_k=10).result
+    cold_s = time.perf_counter() - t0
+    spmv_launches = K.bscsr_spmv.launches - spmv0
+    n_diff, gap = ulp_gap(res.scores, sharded["ppr"]["scores"])
+    log(f"  graph cell on the mesh: build {gbuild_s:.1f} s; cold rank {res.iterations} "
+        f"iterations, {res.refine_iterations} refine steps, {cold_s:.2f} s, accumulate "
+        f"launches {spmv_launches}; vs phase 8's: {n_diff} scores differ")
+    check.expect(res.converged and res.canonical and res.retraces == 0,
+                 "mesh cold rank did not converge cleanly")
+    check.expect(n_diff == 0 and res.iterations == sharded["ppr"]["iterations"],
+                 f"mesh cold rank differs from phase 8's in {n_diff} scores (up to {gap} ulp)")
+    check.expect(spmv_launches == MESH_SHARDS * res.iterations,
+                 f"{spmv_launches} accumulate launches for {res.iterations} iterations")
+    out["ppr"] = {"scores": res.scores, "iterations": res.iterations, "seconds": cold_s,
+                  "launches": spmv_launches}
+
+    # The head at Qwen2.5-3B's widths on the mesh against phase 8's unsharded head.
+    emb, hidden = sharded["head_inputs"]
+    t0 = time.time()
+    head = ApproxTopKHead(emb, TopKHeadConfig(device="cuda", mesh=mesh))
+    head_build_s = time.time() - t0
+    got = head.topk_logits_batch(hidden)
+    ok = same_bits(got, sharded["head_answers"])
+    log(f"  head on the mesh (built in {head_build_s:.1f} s): Q = 64 == phase 8's unsharded "
+        f"head bit for bit: {ok}")
+    check.expect(ok, "the head on the mesh differs from the unsharded head")
+    out["head_build_s"] = head_build_s
+
+    out["launches"] = launch_counts(K)
+    out["bundle"] = bundle.counters()
+    log(f"  launches in the mesh phase: {out['launches']}; bundle {out['bundle']['uploads']} "
+        f"uploads, {out['bundle']['host_bytes_shipped'] / 1e9:.3f} GB, "
+        f"{out['bundle']['partitions_shipped']} partitions")
+    for name, count in out["launches"].items():
+        check.expect(count > 0, f"{name} was not launched in the mesh phase")
+    out["timing"] = mesh_timing(torch, K, index, gfac.index, xs64, cfg)
+    check.done()
+    return out
+
+
+def mesh_timing(torch, K, index, gindex, xs64, cfg) -> dict:
+    """Each kernel's device time at each mesh position it runs on, on that
+    position's pinned words, and the sum over the positions, with the
+    bound of each position's pass summed likewise (the bytes of the steps
+    its split table walks, to each core's last flagged step, not the
+    bucket's padding; x; the outputs).  A batch of Q gives each replica row
+    Q / 2 (padded) queries; the single query and the accumulate step run on
+    replica row 0."""
+    t, block, k = cfg.packets_per_step, cfg.block_size, cfg.k
+    x64 = torch.from_numpy(xs64).cuda()
+    disp = index._spmd
+    args, _ = disp._sync()
+    n_slots = int(args[1].shape[2])
+    nnz = [sh.packed.nnz for sh in index.shards]
+    rows = disp._rows
+    shard_of = {pos: s for row in rows for s, pos in enumerate(row)}
+    out = {"splits_by_q": {}, "ms_by_position_by_q": {}, "ms_sum_by_q": {}, "bound_ms_by_q": {}}
+
+    def bound(words, tab, s, q, out_bytes=None, m=xs64.shape[1]):
+        walked = int(tab[0][:, -1].sum()) * t * words.shape[2] * 4
+        out_bytes = words.shape[0] * q * k * 8 if out_bytes is None else out_bytes
+        nbytes = walked + q * m * 4 + out_bytes
+        return max(nbytes / HBM_BYTES_PER_S, 2.0 * nnz[s] * q / F32_FLOPS) * 1e3
+
+    for q in (1, 8, 64):
+        per_row = 1 << max(-(-q // MESH_REPLICAS) - 1, 0).bit_length()   # padded
+        x = x64[:per_row].contiguous()
+        q_chunk, n_chunks = K.query_chunks(per_row)
+        per, splits, bounds = {}, {}, 0.0
+        for pos, s in shard_of.items():
+            words = args[0].pieces[pos]
+            sp = K.topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
+                               block_size=block, m=x.shape[1], q_chunk=q_chunk, k=k)
+            tab = disp._table(pos, words, sp)
+            per[str(pos)] = time_cuda(torch, lambda: K.bscsr_topk_spmv_multiquery(
+                x, words, table=tab, k=k, n_rows=n_slots, packets_per_step=t,
+                fmt_name=cfg.value_format, block_size=block), MESH_BUDGET_S)
+            splits[str(pos)] = sp
+            bounds += bound(words, tab, s, per_row)
+        out["splits_by_q"][q] = splits
+        out["ms_by_position_by_q"][q] = per
+        out["ms_sum_by_q"][q] = sum(per.values())
+        out["bound_ms_by_q"][q] = bounds
+        log(f"  multi-query kernel, Q = {q} ({per_row} a replica row), per position: "
+            f"{' / '.join(f'{m:.3f}' for m in per.values())} ms, sum "
+            f"{out['ms_sum_by_q'][q]:.3f} ms; bound {bounds:.3f} ms")
+    x1 = x64[0].contiguous()
+    per, splits, bounds = {}, {}, 0.0
+    for s, pos in enumerate(rows[0]):
+        words = args[0].pieces[pos]
+        sp = K.single_splits(words.device, words.shape[0], packets_per_step=t, block_size=block,
+                             m=x1.shape[0], k=k, width=words.shape[2],
+                             fmt_name=cfg.value_format)
+        tab = disp._table(pos, words, sp)
+        per[str(pos)] = time_cuda(torch, lambda: K.bscsr_topk_spmv(
+            x1, words, table=tab, k=k, n_rows=n_slots, packets_per_step=t,
+            fmt_name=cfg.value_format, block_size=block), MESH_BUDGET_S)
+        splits[str(pos)] = sp
+        bounds += bound(words, tab, s, 1)
+    out["single"] = {"splits": splits, "ms_by_position": per, "ms_sum": sum(per.values()),
+                     "bound_ms": bounds}
+    log(f"  single-query kernel per position of row 0: "
+        f"{' / '.join(f'{m:.3f}' for m in per.values())} ms, sum {sum(per.values()):.3f} ms; "
+        f"bound {bounds:.3f} ms")
+    gdisp = gindex._spmd
+    gargs, _ = gdisp._sync()
+    n = gindex.n_rows_total
+    xg = torch.full((n,), 1.0 / n, dtype=torch.float32, device="cuda")
+    g_slots = int(gargs[1].shape[2])
+    nnz = [sh.packed.nnz for sh in gindex.shards]
+    per, splits, bounds = {}, {}, 0.0
+    for s, pos in enumerate(gdisp._rows[0]):
+        words = gargs[0].pieces[pos]
+        sp = K.spmv_splits(words.device, words.shape[0], packets_per_step=t, block_size=block,
+                           m=n)
+        tab = gdisp._table(pos, words, sp)
+        per[str(pos)] = time_cuda(torch, lambda: K.bscsr_spmv(
+            xg, words, n_rows=g_slots, packets_per_step=t, fmt_name="F32",
+            block_size=block, table=tab), MESH_BUDGET_S)
+        splits[str(pos)] = sp
+        bounds += bound(words, tab, s, 1, out_bytes=words.shape[0] * g_slots * 4, m=n)
+    out["accumulate"] = {"splits": splits, "ms_by_position": per, "ms_sum": sum(per.values()),
+                         "bound_ms": bounds}
+    log(f"  accumulate kernel per position of row 0 (graph cell): "
+        f"{' / '.join(f'{m:.4f}' for m in per.values())} ms, sum {sum(per.values()):.4f} ms; "
+        f"bound {bounds:.4f} ms")
     return out
 
 
@@ -2680,13 +3051,13 @@ def train_phase(torch, K, seed, root) -> dict:
     through ``repro_torch.train.loop.train``.
 
     The port's own init from ``seed``; B = 32 x S = 2048 in 4 microbatches,
-    lr 1e-3 with 2 warm-up steps.  8 steps uninterrupted (checkpoint at step
-    4, under ``root/full``); step 4's checkpoint restored (timed) and saved
-    (timed) into ``root/part``, which then holds it alone; a second ``train``
-    there resumes to step 8.  Both runs under
+    lr 1e-3 with 2 warm-up steps.  ``TRAIN_STEPS`` steps uninterrupted
+    (checkpoint at step ``TRAIN_CKPT_AT``, under ``root/full``); that
+    checkpoint restored (timed) and saved (timed) into ``root/part``, which
+    then holds it alone; a second ``train`` there resumes to the last step.  Both runs under
     ``torch.use_deterministic_algorithms(True, warn_only=True)``, so that an op
     without a deterministic version warns and is named.  Checks: finite
-    losses, step 7's below step 0's, the resumed steps' losses equal to the
+    losses, the last step's below step 0's, the resumed steps' losses equal to the
     uninterrupted run's bit for bit, no non-deterministic op warned, the
     three kernels launched 0 times, and one smoke-size step on the card equal
     to the same step on the CPU (``repro_torch.train.parity``).  Returns the
@@ -2702,6 +3073,10 @@ def train_phase(torch, K, seed, root) -> dict:
     from repro_torch.train.loop import train
 
     check = Check("train")
+    cut = (f"{TRAIN_STEPS} steps (checkpoint at {TRAIN_CKPT_AT}) and a resume of "
+           f"{TRAIN_STEPS - TRAIN_CKPT_AT}, where the cell has 8 and a resume of 4")
+    log(f"CUT: phase 11 trains {cut} (the run's length only: widths, depth, batch, "
+        f"sequence and microbatches kept), to keep the script inside its time limit")
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeConfig("train_cell", "train", TRAIN_SEQ, TRAIN_BATCH)
     shutil.rmtree(root, ignore_errors=True)
@@ -2783,7 +3158,7 @@ def train_phase(torch, K, seed, root) -> dict:
     hd, heads = cfg.resolved_head_dim, cfg.num_heads
     flops_per_token = 6.0 * n_params + 12.0 * cfg.num_layers * TRAIN_SEQ * heads * hd
     bound_ms = flops_per_token * tokens / H100_BF16_FLOPS * 1e3
-    res = {"arch": cfg.name, "cut": "none", "params": n_params, "batch": TRAIN_BATCH,
+    res = {"arch": cfg.name, "cut": cut, "params": n_params, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
            "losses": history, "resumed_losses": resumed, "resume_max_diff": resume_diff,
            "nondeterministic_ops": nondeterministic, "step_ms_each": step_ms,
@@ -2900,11 +3275,12 @@ def update_node(svc, csr):
 
 
 def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
-                n_nodes=GRAPH_NODES, device="cuda", csr=None, sharded_cold=None):
+                n_nodes=GRAPH_NODES, device="cuda", csr=None, sharded_cold=()):
     """Phase 6: PPR solves through the ranking service, then top-k eigen.
 
-    ``sharded_cold`` is phase 8's cold rank on the sharded operator, which
-    the first cold rank here must equal bit for bit, in as many iterations.
+    ``sharded_cold`` holds (label, cold rank) pairs: phase 8's on the
+    sharded operator and phase 12's on the mesh, which the first cold rank
+    here must each equal bit for bit, in as many iterations.
     Returns (the graph facade, the accumulate kernel's launches in this phase).
     """
     check = Check("graph")
@@ -2929,13 +3305,13 @@ def graph_phase(K, api, graph, SparseEmbeddingIndex, GraphRankingService,
 
     K.reset_launch_counts()
     cold, _ = solve("cold rank", lambda: svc.rank(GRAPH_SEEDS, top_k=10))
-    if sharded_cold is not None:
-        n_diff, gap = ulp_gap(cold.result.scores, sharded_cold["scores"])
-        log(f"  cold rank vs phase 8's on {SHARDS} shards: {n_diff} of {n_nodes} scores "
-            f"differ, iterations {cold.result.iterations} / {sharded_cold['iterations']}")
-        check.expect(n_diff == 0 and cold.result.iterations == sharded_cold["iterations"],
-                     f"sharded cold rank differs in {n_diff} scores (up to {gap} ulp), "
-                     f"iterations {sharded_cold['iterations']} vs {cold.result.iterations}")
+    for label, other in sharded_cold:
+        n_diff, gap = ulp_gap(cold.result.scores, other["scores"])
+        log(f"  cold rank vs {label}: {n_diff} of {n_nodes} scores "
+            f"differ, iterations {cold.result.iterations} / {other['iterations']}")
+        check.expect(n_diff == 0 and cold.result.iterations == other["iterations"],
+                     f"cold rank differs from {label} in {n_diff} scores (up to {gap} ulp), "
+                     f"iterations {other['iterations']} vs {cold.result.iterations}")
     # The build's snapshot, kept for phase 4: the first mutation moves the
     # index to churn-stable buckets (padded packets, a doubled slot bucket).
     pre = {"words": np.array(fac.index.packed.words), "n_rows": fac.index.packed.max_slots}

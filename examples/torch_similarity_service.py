@@ -4,10 +4,9 @@ through the multi-query kernel and serve-while-ingest on the mutable index
 
     PYTHONPATH=src python examples/torch_similarity_service.py [--rows N] [--device cpu]
 
-The reference's example ends with a query on a device mesh
-(``distributed_topk_spmv_fn``); that part waits for the port's mesh
-dispatch (ROADMAP Queue 1 item 3): ``SparseEmbeddingIndex(..., mesh=...)``
-raises in the port.
+It ends, as the reference's example does, with a query on a device mesh
+(``distributed_topk_spmv_fn``): the index's cores split over a ("data",)
+mesh of every visible card (or of the CPU with ``--device cpu``).
 """
 import argparse
 import time
@@ -17,7 +16,8 @@ import torch
 
 from repro_torch.core import bscsr
 from repro_torch.core.similarity import SparseEmbeddingIndex
-from repro_torch.core.topk_spmv import TopKSpMVConfig
+from repro_torch.core.topk_spmv import TopKSpMVConfig, distributed_topk_spmv_fn
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.serve import CompactionPolicy, StreamingSimilarityService
 
 
@@ -76,6 +76,14 @@ def main(argv=None):
     st = svc.stats()
     print(f"  final compact(): delta={st.delta_fraction:.3f}  "
           f"bytes/nnz={st.bytes_per_nnz:.2f} (base-only restored)")
+
+    # --- mesh-distributed path: the cores split over every visible device ---
+    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+               if args.device == "cuda" else [torch.device("cpu")])
+    mesh = DeviceMesh(np.array(devices, dtype=object), ("data",))
+    fn, arrays = distributed_topk_spmv_fn(index.index, mesh)
+    v, r = fn(torch.from_numpy(queries[0]), *arrays)
+    print(f"\ndistributed query on mesh {mesh.shape}: top-3 rows {r[:3].cpu().numpy()}")
     return precision, svc
 
 

@@ -17,8 +17,9 @@ the hooks stay in production code paths permanently.
 
 A copy of the reference's ``repro/core/faults.py`` with the same registered
 points.  ``dispatch.shard`` fires in ``ShardedTopKSpMVIndex``'s per-shard
-dispatch (the failover path); ``bundle.scatter`` has no caller in this
-package until the mesh dispatch is ported.
+dispatch (the failover path); ``bundle.scatter`` in
+``kernels.executor.ShardedDeviceBundle.sync`` (the mesh dispatch), before a
+changed shard's bytes move.
 """
 from __future__ import annotations
 

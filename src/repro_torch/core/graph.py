@@ -151,7 +151,8 @@ def make_spmv_step(index, use_kernel: bool = True) -> Tuple[Callable, Callable[[
     runs ONE accumulate dispatch; ``builds()`` reads the executor's function
     build counter (for zero-retrace assertions).  A sharded index steps
     through its own ``spmv`` (one dispatch per shard, the partials summed);
-    ``builds()`` then reads the executor of its shard-local config."""
+    ``builds()`` then reads its mesh dispatch's counter, or the executor of
+    its shard-local config."""
     index = _unwrap(index)
     if isinstance(index, ShardedTopKSpMVIndex):
         ex = query_executor(index._local_config)
@@ -159,7 +160,12 @@ def make_spmv_step(index, use_kernel: bool = True) -> Tuple[Callable, Callable[[
         def sharded_step(x, alpha, beta, y, resident: bool = False):
             return index.spmv(x, alpha, beta, y, use_kernel=use_kernel, resident=resident)
 
-        return sharded_step, (lambda: ex.fn_builds)
+        def builds() -> int:
+            if index._spmd is not None and use_kernel:
+                return index._spmd.fn_builds
+            return ex.fn_builds
+
+        return sharded_step, builds
 
     ex = query_executor(index.config)
     path = "accumulate" if use_kernel else "accumulate_ref"

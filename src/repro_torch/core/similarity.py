@@ -12,12 +12,13 @@ square operator.  ``recall_target`` gives each partition its own value
 format (mixed precision, ``core/adaptive.py``).  ``from_index`` wraps an
 index that ``core/persistence.py`` recovered.
 
-With ``n_shards > 1`` the backing index is a
+With ``mesh=`` (a ``launch.mesh.make_serving_mesh`` mesh) or ``n_shards > 1``
+the backing index is a
 :class:`~repro_torch.core.sharded.ShardedTopKSpMVIndex` instead: the rows
-shard at partition granularity, each shard dispatches on the device, and
-the per-shard candidates merge under global ids, bit for bit equal to
-the single-device index.  ``mesh=`` (shards pinned across devices) raises
-``NotImplementedError`` naming its ROADMAP item.
+shard at partition granularity (on a mesh, each shard pinned at every
+position of its mesh column), the per-shard candidates merge under global
+ids, bit for bit equal to the single-device index, and query batches fan
+out across the mesh's "replica" axis (``replica_factor``).
 """
 from __future__ import annotations
 
@@ -94,8 +95,10 @@ class SparseEmbeddingIndex:
     def replica_factor(self) -> int:
         """Query fan-out of one kernel pass (the mesh's replica count).
 
-        The micro-batching frontend multiplies its target Q by it.  1 for a
-        single-device index and for the per-shard path, which has no mesh.
+        A sharded index on a mesh spreads a coalesced batch across its R
+        replica rows, so the micro-batching frontend multiplies its target
+        Q by it.  1 for a single-device index and for the per-shard path,
+        which has no mesh.
         """
         return self.index.n_replicas if self.is_sharded else 1
 

@@ -23,6 +23,7 @@ from repro_torch.core.precision_model import expected_precision, min_partitions_
 from repro_torch.kernels import executor as executor_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.launch.mesh import MeshArray
 from repro_torch.core.quantization import F32, FORMATS, width_class_of
 
 
@@ -952,3 +953,80 @@ def topk_spmv_exact(
     return ref_lib.csr_topk_numpy(
         csr.indptr, csr.indices, csr.data, np.asarray(x, np.float32), big_k
     )
+
+
+# ---------------------------------------------------------------------------
+# Mesh-distributed query
+# ---------------------------------------------------------------------------
+
+def distributed_topk_spmv_fn(index: TopKSpMVIndex, mesh, shard_axis="data",
+                             batched: bool = False):
+    """A query function with the index split core-wise over ``mesh``.
+
+    Returns ``(fn, device_arrays)``: ``device_arrays`` holds the word
+    stream as a :class:`~repro_torch.launch.mesh.MeshArray`, its core dim
+    split over ``shard_axis`` (a mesh axis name or a tuple such as
+    ``("pod", "data")``): one group of C/n cores per position along those
+    axes, the same group at every position of the other axes.
+    ``fn(x, *device_arrays) -> (topk_vals, topk_rows)`` runs the local
+    kernel at the positions whose other axes are 0 (the others hold the
+    same cores and would compute the same bits), gathers the c*k candidates
+    at the first position and finalizes them there, as the reference
+    finalizes its replicated candidates.
+
+    With ``batched`` ``fn`` takes a (Q, M) batch and answers it in one
+    multi-query pass per position, returning (Q, big_k) arrays.  A
+    mixed-precision snapshot ships its f32 twins (one F32 word stream), as
+    the reference ships its split twins: the width-class groups are ragged
+    across cores, which a core-split layout cannot carry.
+    """
+    cfg = index.config
+    packed = index.packed
+    axes = (shard_axis,) if isinstance(shard_axis, str) else tuple(shard_axis)
+    n_dev = 1
+    for a in axes:
+        n_dev *= mesh.shape[a]
+    shard_axis = axes if len(axes) > 1 else axes[0]
+    if packed.num_cores % n_dev != 0:
+        raise ValueError(
+            f"num_partitions ({packed.num_cores}) must be a multiple of the "
+            f"mesh axis {shard_axis!r} size ({n_dev})"
+        )
+    per = packed.num_cores // n_dev
+    names = mesh.axis_names
+    words = kernel_ops.kernel_words(packed)
+    pieces, runners = {}, []
+    for pos in mesh.positions():
+        group = 0
+        for a in axes:
+            group = group * mesh.shape[a] + pos[names.index(a)]
+        pieces[pos] = kernel_ops.host_tensor(words[group * per:(group + 1) * per],
+                                             mesh.device(pos))
+        if all(i == 0 for n, i in zip(names, pos) if n not in axes):
+            runners.append((group, pos))
+    runners.sort()
+    device_arrays = (MeshArray(words.shape, words.dtype, pieces),)
+    first = runners[0][1]
+    fin = kernel_ops.finalize_tensors(packed, mesh.device(first))
+    if not packed.has_tombstones:
+        fin.pop("tombstones", None)      # as the reference: only when a bit is set
+    kw = dict(k=cfg.k, n_rows=packed.max_slots, packets_per_step=cfg.packets_per_step,
+              fmt_name=packed.value_format.name, block_size=packed.block_size,
+              inner_loop=cfg.inner_loop,
+              gather_mode=kernel_ops.resolve_gather_mode(cfg.gather_mode))
+    tables: dict = {}       # position -> (words piece, {S: split table})
+
+    def local(pos, x, w):
+        x = torch.as_tensor(x, dtype=torch.float32).to(w.device).contiguous()
+        return executor_lib.local_topk(x, w, tables, pos, **kw)
+
+    def query(x, *arrays):
+        dev = mesh.device(first)
+        outs = [local(pos, x, arrays[0].pieces[pos]) for _, pos in runners]
+        lv = torch.cat([v.to(dev) for v, _ in outs])
+        lr = torch.cat([r.to(dev) for _, r in outs])
+        finalize = (kernel_ops.finalize_candidates_batched if batched
+                    else kernel_ops.finalize_candidates)
+        return finalize(lv, lr, big_k=cfg.big_k, **fin)
+
+    return query, device_arrays

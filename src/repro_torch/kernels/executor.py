@@ -52,11 +52,14 @@ import threading
 import weakref
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_lib
 from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.launch.mesh import MeshArray
 from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_spmv,
     bscsr_topk_spmv,
@@ -497,6 +500,206 @@ class QueryExecutor:
             return ops.accumulate_epilogue(sums, s.finalize, n_out, alpha, beta, y)
 
         return run
+
+
+def position_split_table(cache: dict, pos, words: torch.Tensor, splits: int, *,
+                         packets_per_step: int, block_size: int):
+    """The split table of the words pinned at mesh position ``pos``, cached
+    in ``cache`` by (position, words tensor): a ship swaps a new tensor in
+    at the position, so its tables are rebuilt, and words other than the
+    cached ones never walk a stale table."""
+    cached = cache.get(pos)
+    if cached is None or cached[0] is not words:
+        cached = cache[pos] = (words, {})
+    table = cached[1].get(splits)
+    if table is None:
+        table = cached[1][splits] = spmv_split_table(
+            words, packets_per_step=packets_per_step, block_size=block_size, splits=splits)
+    return table
+
+
+def local_topk(x: torch.Tensor, words: torch.Tensor, table_cache: dict, pos, *, k: int,
+               n_rows: int, packets_per_step: int, block_size: int, fmt_name: str,
+               inner_loop: str, gather_mode: str):
+    """Per-core top-k of the cores pinned at mesh position ``pos``: an (M,)
+    query through the single-query kernel, a (Q, M) batch through the
+    multi-query kernel, each on its split table (``position_split_table``)."""
+    t, cores = packets_per_step, words.shape[0]
+    kw = dict(k=k, n_rows=n_rows, packets_per_step=t, fmt_name=fmt_name,
+              block_size=block_size, inner_loop=inner_loop)
+    if x.dim() == 2:
+        q_chunk, n_chunks = query_chunks(x.shape[0])
+        splits = topk_splits(words.device, cores, n_chunks, packets_per_step=t,
+                             block_size=block_size, m=x.shape[1], q_chunk=q_chunk, k=k)
+        table = position_split_table(table_cache, pos, words, splits, packets_per_step=t,
+                                     block_size=block_size)
+        return bscsr_topk_spmv_multiquery(x, words, table=table, **kw)
+    splits = single_splits(words.device, cores, packets_per_step=t, block_size=block_size,
+                           m=x.shape[0], k=k, width=words.shape[2], fmt_name=fmt_name)
+    table = position_split_table(table_cache, pos, words, splits, packets_per_step=t,
+                                 block_size=block_size)
+    return bscsr_topk_spmv(x, words, table=table, gather_mode=gather_mode, **kw)
+
+
+class ShardedDeviceBundle:
+    """Per-shard host blocks pinned at every position of their mesh column,
+    as :class:`~repro_torch.launch.mesh.MeshArray` s: the multi-position
+    analogue of the device pin.
+
+    Each *family* (one named array the mesh dispatch takes: word streams,
+    slot maps, live-slot counts, tombstone bitmaps, id maps) is a list of
+    per-shard host blocks along a leading shard dim.  ``sync`` ships shard
+    ``s``'s block to every position of its column (all replicas) ONLY when
+    that shard's version changed, and, when per-partition mutation stamps
+    are given and the block shape is unchanged, ships only the *dirty
+    partitions* (the COW stamps say which).  Steady-state queries then
+    dispatch against the cached pieces with no host-to-device copy.
+
+    Pieces are keyed by mesh position, never by device: positions that
+    share a card each keep their own pin.  A piece is never written in
+    place: a dirty ship scatters into a new tensor (``index_copy``) and
+    swaps it in, so a query that took the old pieces reads the old bytes.
+
+    Shipped-byte accounting is per shard (``shard_uploads`` /
+    ``shard_bytes``) plus global counters, counted as the reference counts
+    them (one upload per position placed); ``counters()`` surfaces them.
+    """
+
+    def __init__(self, mesh, shard_axis: str = "shard"):
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.n_shards = int(mesh.shape[shard_axis])
+        ax = mesh.axis_names.index(shard_axis)
+        # position -> the shard whose block it holds
+        self._devmap = {pos: pos[ax] for pos in mesh.positions()}
+        self._fams: dict = {}
+        self.uploads = 0
+        self.host_bytes_shipped = 0
+        self.partitions_shipped = 0
+        self.shard_uploads = [0] * self.n_shards
+        self.shard_bytes = [0] * self.n_shards
+
+    def _count(self, s, nbytes: int) -> None:
+        self.uploads += 1
+        self.host_bytes_shipped += int(nbytes)
+        if s is not None:
+            self.shard_uploads[s] += 1
+            self.shard_bytes[s] += int(nbytes)
+
+    def _put(self, arr: np.ndarray, pos) -> torch.Tensor:
+        return ops.host_tensor(arr, self.mesh.device(pos)).reshape(arr.shape)
+
+    def sync(self, name: str, block_shape: tuple, dtype, blocks_fn, versions,
+             stamps=None):
+        """The family's :class:`MeshArray`, shipping only what changed.
+
+        ``blocks_fn(s)`` materialises shard ``s``'s host block (only called
+        for shards whose version moved).  ``stamps[s]`` (optional) enables
+        partition-granular updates along the block's leading dim.  A
+        ``block_shape`` change (a common bucket doubled) rebuilds the family
+        outright.
+        """
+        n = self.n_shards
+        versions = list(versions)
+        gshape = (n,) + tuple(block_shape)
+        np_dtype = np.dtype(dtype)
+        fam = self._fams.get(name)
+        if fam is None or fam["gshape"] != gshape or fam["dtype"] != np_dtype:
+            blocks = [np.ascontiguousarray(blocks_fn(s)).astype(np_dtype, copy=False)
+                      for s in range(n)]
+            pieces = {}
+            for pos, s in self._devmap.items():
+                pieces[pos] = self._put(blocks[s], pos)
+                self._count(s, blocks[s].nbytes)
+            fam = {
+                "gshape": gshape, "dtype": np_dtype, "pieces": pieces,
+                "versions": versions,
+                "stamps": [None if stamps is None or stamps[s] is None
+                           else np.array(stamps[s]) for s in range(n)],
+            }
+            fam["global"] = MeshArray(gshape, np_dtype, pieces)
+            self._fams[name] = fam
+            return fam["global"]
+
+        pieces = dict(fam["pieces"])
+        changed = False
+        for s in range(n):
+            if fam["versions"][s] == versions[s]:
+                continue
+            blk = np.ascontiguousarray(blocks_fn(s)).astype(np_dtype, copy=False)
+            # A crash past this point leaves this shard's version marker
+            # unmoved (it advances only after every piece is placed), so the
+            # next sync re-ships the shard; pieces are replaced, never
+            # written, so a re-ship is safe.
+            faults_lib.fault_point("bundle.scatter")
+            st_old = fam["stamps"][s]
+            st_new = (None if stamps is None or stamps[s] is None
+                      else np.asarray(stamps[s]))
+            dirty = None
+            if st_old is not None and st_new is not None and st_old.shape == st_new.shape:
+                dirty = np.nonzero(st_new != st_old)[0]
+            if dirty is not None and dirty.size == 0:
+                pass  # version moved but every partition's bytes are current
+            elif dirty is not None and dirty.size <= max(1, blk.shape[0] // 2):
+                rows = np.ascontiguousarray(blk[dirty])
+                nb = ops.pow2_bucket(int(dirty.size))
+                if nb != dirty.size:
+                    # Pad the scatter to a power-of-two width by REPEATING
+                    # the first dirty index (the padded rows carry that same
+                    # partition's data), as the reference does.
+                    pad = nb - dirty.size
+                    idxp = np.concatenate([dirty, np.full(pad, dirty[0])]).astype(np.int32)
+                    rows = np.concatenate([rows, np.repeat(rows[:1], pad, axis=0)])
+                else:
+                    idxp = dirty.astype(np.int32)
+                for pos, sb in self._devmap.items():
+                    if sb != s:
+                        continue
+                    di = self._put(idxp, pos).long()
+                    pieces[pos] = pieces[pos].index_copy(0, di, self._put(rows, pos))
+                    self._count(s, idxp.nbytes + rows.nbytes)
+                self.partitions_shipped += int(dirty.size)
+            else:
+                for pos, sb in self._devmap.items():
+                    if sb != s:
+                        continue
+                    pieces[pos] = self._put(blk, pos)
+                    self._count(s, blk.nbytes)
+                if dirty is not None:
+                    self.partitions_shipped += int(dirty.size)
+            fam["pieces"] = pieces      # a new dict: earlier MeshArrays keep theirs
+            fam["versions"][s] = versions[s]
+            fam["stamps"][s] = st_new
+            changed = True
+        if changed:
+            fam["global"] = MeshArray(gshape, np_dtype, fam["pieces"])
+        return fam["global"]
+
+    def sync_replicated(self, name: str, value: np.ndarray, version):
+        """A fully replicated :class:`MeshArray` (one piece at every
+        position) for small metadata such as the global row-id sentinel."""
+        value = np.asarray(value)
+        fam = self._fams.get(name)
+        if fam is not None and fam["versions"] == [version] and fam["gshape"] == value.shape:
+            return fam["global"]
+        pieces = {}
+        for pos in self._devmap:
+            pieces[pos] = self._put(value, pos)
+            self._count(None, value.nbytes)
+        fam = {"gshape": value.shape, "dtype": value.dtype, "pieces": pieces,
+               "versions": [version], "stamps": []}
+        fam["global"] = MeshArray(value.shape, value.dtype, pieces)
+        self._fams[name] = fam
+        return fam["global"]
+
+    def counters(self) -> dict:
+        return {
+            "uploads": self.uploads,
+            "host_bytes_shipped": self.host_bytes_shipped,
+            "partitions_shipped": self.partitions_shipped,
+            "per_shard": [{"uploads": u, "bytes_shipped": b}
+                          for u, b in zip(self.shard_uploads, self.shard_bytes)],
+        }
 
 
 def get_executor(big_k: int, k: int = 8, packets_per_step: int = 2,

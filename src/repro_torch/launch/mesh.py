@@ -1,0 +1,163 @@
+"""Device meshes: a named grid of ``torch.device`` positions in one process.
+
+The reference builds ``jax.sharding.Mesh`` objects: a grid of devices under
+one controller.  :class:`DeviceMesh` is the port's counterpart: an object
+array of ``torch.device`` with named axes.  One device may stand at several
+positions, so a mesh that names ``cuda:0`` eight times is a 2 replica x 4
+shard serving mesh on one card (the reference's own test topology) and
+``[torch.device("cpu")] * 8`` the same mesh on the CPU.  Code that pins
+state on a mesh keys it by position, never by device, so two positions on
+one card keep apart.
+
+:class:`MeshArray` is a global array over a mesh: one piece per position,
+each a tensor on that position's device (``jax.Array``'s sharded form).
+
+Functions, not module-level constants, so importing this module touches no
+device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def normalize_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index: ``cuda`` becomes
+    ``cuda:<current>``, as ``TopKSpMVConfig.resolve_device`` does."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {device!r} needs a CUDA device; none is "
+                               "available")
+        dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"mesh devices must be cuda or cpu, got {device!r}")
+    return dev
+
+
+class DeviceMesh:
+    """A grid of ``torch.device`` positions with named axes.
+
+    ``devices`` is an object ndarray of ``torch.device`` (one per position),
+    ``axis_names`` names its axes, ``shape`` maps each name to its size in
+    axis order, ``empty`` is true for a mesh of no position.  Every position
+    is normalised (``cuda`` -> ``cuda:<current>``); a mesh that mixes CPU
+    and CUDA positions is refused.
+    """
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        grid = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if grid.ndim != len(axis_names):
+            raise ValueError(f"mesh of rank {grid.ndim} needs {grid.ndim} axis names, got "
+                             f"{axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh axis names must be distinct, got {axis_names}")
+        norm = np.empty(grid.shape, dtype=object)
+        for pos in np.ndindex(grid.shape):
+            norm[pos] = normalize_device(grid[pos])
+        types = {d.type for d in norm.flat}
+        if len(types) > 1:
+            raise ValueError("a mesh may not mix CPU and CUDA positions")
+        self.devices = norm
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, (int(n) for n in self.devices.shape)))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def empty(self) -> bool:
+        return self.devices.size == 0
+
+    @property
+    def device_type(self) -> Optional[str]:
+        """``"cuda"`` or ``"cpu"`` (None for an empty mesh)."""
+        return None if self.empty else self.devices.flat[0].type
+
+    def positions(self) -> Tuple[tuple, ...]:
+        """Every position (an index tuple), in row-major order."""
+        return tuple(np.ndindex(self.devices.shape))
+
+    def device(self, pos: tuple) -> torch.device:
+        return self.devices[pos]
+
+    def __repr__(self) -> str:
+        return f"DeviceMesh({self.shape}, {sorted({str(d) for d in self.devices.flat})})"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshArray:
+    """A global array of ``shape`` over a mesh: ``pieces`` maps each position
+    to its block, a tensor on that position's device."""
+
+    shape: tuple
+    dtype: np.dtype
+    pieces: dict
+
+
+def _visible_devices(devices) -> list:
+    if devices is not None:
+        return list(devices)
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _grid(devs: list, shape: tuple, what: str):
+    need = int(np.prod(shape))
+    if len(devs) < need:
+        raise ValueError(f"{what} needs {need} devices, have {len(devs)}")
+    grid = np.empty(need, dtype=object)
+    grid[:] = devs[:need]
+    return grid.reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The reference's production mesh: ("data", "model") 16 x 16, or
+    ("pod", "data", "model") 2 x 16 x 16, over the visible CUDA devices;
+    raises when there are fewer."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return DeviceMesh(_grid(_visible_devices(None), shape, "the production mesh"), axes)
+
+
+def make_host_mesh(model: int = 1) -> DeviceMesh:
+    """("data", "model") over every visible CUDA device: (n // model, model)."""
+    devs = _visible_devices(None)
+    n = len(devs)
+    if n == 0 or n % model:
+        raise ValueError(f"the host mesh needs a positive multiple of model={model} "
+                         f"devices, have {n}")
+    return DeviceMesh(_grid(devs, (n // model, model), "the host mesh"), ("data", "model"))
+
+
+def make_serving_mesh(n_shards: int = 1, n_replicas: int = 1, devices=None) -> DeviceMesh:
+    """A ("replica", "shard") mesh for the sharded top-k serving plane.
+
+    Rows (the index) shard across the "shard" axis; queries fan out across
+    the "replica" axis, each replica group holding a full copy of every
+    shard.  Uses the first ``n_replicas * n_shards`` visible CUDA devices
+    unless ``devices`` pins an explicit ordering, which may name a device
+    more than once (``[torch.device("cuda", 0)] * 8`` is a 2 x 4 mesh on
+    one card).  Never falls back to the CPU.
+    """
+    devs = _visible_devices(devices)
+    need = n_shards * n_replicas
+    if len(devs) < need:
+        raise ValueError(
+            f"serving mesh needs {need} devices "
+            f"({n_replicas} replicas x {n_shards} shards), "
+            f"have {len(devs)}"
+        )
+    grid = np.empty((n_replicas, n_shards), dtype=object)
+    for i, d in enumerate(devs[:need]):
+        grid[i // n_shards, i % n_shards] = d
+    return DeviceMesh(grid, ("replica", "shard"))

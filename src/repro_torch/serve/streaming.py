@@ -16,8 +16,10 @@ This is the reference's ``repro/serve/streaming.py``, ported.  Answers come
 from the multi-query kernel by default (``use_kernel=True``; the reference
 defaults to its oracle only because its kernel runs interpreted off the
 TPU); ``use_kernel=False`` selects the plain torch path.  The backing index
-may be sharded (``SparseEmbeddingIndex(..., n_shards=S)``), but then no
-store may be attached: a store persists a single-device index.
+may be sharded (``SparseEmbeddingIndex(..., n_shards=S)`` or ``mesh=
+make_serving_mesh(...)``, whose replica count multiplies the frontend's
+per-pass capacity), but then no store may be attached: a store persists a
+single-device index.
 
 **Crash safety + guardrails**:
 attaching a :class:`~repro_torch.core.persistence.DurableIndexStore` makes every

@@ -13,8 +13,9 @@ sparsification (embedding-dependent; report overlap@K).
 
 Dispatch goes through the device-resident executor: the sparsified embedding
 stream is pinned on the device at the head's first query and every decode
-step reuses it.  With ``n_shards > 1`` the vocabulary rows shard across a
-``ShardedTopKSpMVIndex`` (bit for bit the unsharded head's answers).
+step reuses it.  With ``mesh=`` or ``n_shards > 1`` the vocabulary rows
+shard across a ``ShardedTopKSpMVIndex`` (bit for bit the unsharded head's
+answers); on a mesh its positions must be of ``device``'s kind.
 
 The reference's ``repro/serve/topk_head.py``, ported; ``TopKHeadConfig.device``
 takes the place of the reference's interpret mode (``"cuda"`` unless the
@@ -44,8 +45,10 @@ class TopKHeadConfig:
     block_size: int = 256
     value_format: str = "BF16"
     stream_layout: str = "fused"    # one contiguous word stream per core
-    mesh: Optional[object] = None   # serving mesh: not ported (raises)
-    n_shards: int = 1               # shard count without a mesh
+    mesh: Optional[object] = None   # ("replica", "shard") serving mesh: shard
+                                    # the vocab rows, fan queries out
+                                    # (launch.mesh.make_serving_mesh)
+    n_shards: int = 1               # shard count without a mesh (testing)
     device: str = "cuda"            # cuda (kernels) | cpu (plain versions)
 
 

@@ -239,7 +239,8 @@ def test_import_hygiene():
             "repro_torch.configs.qwen25_3b", "repro_torch.models.transformer",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
             "repro_torch.models.ssm", "repro_torch.models.zamba", "repro_torch.models.xlstm",
-            "repro_torch.models.xlstm_lm", "repro_torch.models.whisper"} <= set(modules)
+            "repro_torch.models.xlstm_lm", "repro_torch.models.whisper",
+            "repro_torch.launch.mesh", "repro_torch.sharding.rules"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -22,6 +22,10 @@ and a full decode batch, and ``kv_quant`` decoding.  The hybrid, ssm and
 audio families likewise (prefill, decode logits and caches, ``generate``),
 and one block of each recurrent kind at full width, chunked against stepped.
 
+The mesh dispatch: a 4 x 2 and a 3 x 1 mesh of this card's positions
+against the per-shard path and the single device, and
+``distributed_topk_spmv_fn`` over four positions.
+
 Training: one smoke step of ``make_train_step`` on the card against the CPU
 (the f32 tolerances of ``test_torch_train.py``), a checkpoint restored onto
 the card, and ``launch/train.py --smoke`` on the card by default.
@@ -1088,6 +1092,102 @@ def test_sharded_topk_head_on_the_card(cuda):
     pv, pr = h1.topk_logits(hs[1], use_kernel=False)
     np.testing.assert_allclose(kv, pv, rtol=1e-5, atol=1e-5)
     assert h4.dispatch_info()["path"] == "per_shard"
+
+
+# ---------------------------------------------------------------------------
+# The mesh dispatch on the card: meshes whose positions all name this card
+# (a 4 x 2 mesh and a 3 x 1 one).  Each position pins its own copy of its
+# shard and walks it at the S the card picks for its cores.
+# ---------------------------------------------------------------------------
+
+def card_mesh(cuda, n_shards, n_replicas=1):
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    return make_serving_mesh(n_shards, n_replicas, devices=[cuda] * (n_shards * n_replicas))
+
+
+@pytest.mark.parametrize("layout", ["fused", "split"])
+@pytest.mark.parametrize("s,r", [(4, 2), (3, 1)])
+def test_mesh_matches_per_shard_and_single_device_bitwise(cuda, s, r, layout):
+    """query / query_batch at Q = 1, 8, 37, 64, index.query (the single-query
+    kernel) and spmv on the mesh equal the per-shard path and the single
+    device bit for bit, before and after an ingest and after a dirty
+    partition ship in the same buckets (a split table left stale by the
+    ship would walk the old packets)."""
+    csr = bscsr.synthetic_embedding_csr(20_000, 128, 12, "gamma", seed=4)
+    cfg = api.TopKSpMVConfig(big_k=20, k=8, value_format="BF16", num_partitions=24,
+                             stream_layout=layout, device="cuda")
+    one = SparseEmbeddingIndex(csr, cfg)
+    per = SparseEmbeddingIndex(csr, cfg, n_shards=s)
+    msh = SparseEmbeddingIndex(csr, cfg, mesh=card_mesh(cuda, s, r))
+    assert msh.dispatch_info()["path"] == "spmd" and msh.replica_factor == r
+    rng = np.random.default_rng(10 * s + r)
+    xs = rng.standard_normal((64, 128)).astype(np.float32)
+
+    def check(what):
+        for q in (1, 8, 37, 64):
+            want = one.query_batch(xs[:q])
+            assert_pair_bits(msh.query_batch(xs[:q]), want, f"{what} Q={q}")
+            assert_pair_bits(per.query_batch(xs[:q]), want, f"{what} Q={q} per shard")
+        x = torch.from_numpy(xs[2]).to(cuda)
+        assert_pair_bits(msh.index.query(x), api.topk_spmv(one.index, x), what)
+        y = torch.from_numpy(rng.random(one.index.n_rows_total).astype(np.float32)).to(cuda)
+        xa = torch.from_numpy(xs[3]).to(cuda)
+        want = api.query_executor(cfg).spmv(xa, one.index.packed, alpha=0.5, beta=2.0, y=y)
+        assert torch.equal(msh.index.spmv(xa, 0.5, 2.0, y).view(torch.int32),
+                           want.view(torch.int32)), what
+
+    check("build")
+    new = rng.standard_normal((40, 128)).astype(np.float32)
+    for fac in (one, per, msh):
+        np.testing.assert_array_equal(fac.upsert(new), np.arange(20_000, 20_040))
+        fac.delete([0, 7, 19_999, 20_003])
+    check("after ingest")
+    disp = msh.index._spmd
+    for attempt in range(4):
+        info = msh.dispatch_info()
+        row = rng.standard_normal((1, 128)).astype(np.float32)
+        for fac in (one, per, msh):
+            fac.upsert(row)
+        check(f"dirty ship {attempt}")
+        after = msh.dispatch_info()
+        if (after["retraces"] == info["retraces"] and after["bundle"]["partitions_shipped"]
+                > info["bundle"]["partitions_shipped"]):
+            break
+    else:
+        pytest.fail("no mutation shipped dirty partitions within its buckets")
+    assert all(t[0] is disp._sync()[0][0].pieces[pos] for pos, t in disp._tables.items())
+    K.reset_launch_counts()
+    msh.query_batch(xs)
+    msh.index.query(torch.from_numpy(xs[0]).to(cuda))
+    assert K.bscsr_topk_spmv_multiquery.launches == s * r
+    assert K.bscsr_topk_spmv.launches == s
+
+
+def test_mesh_distributed_topk_spmv_fn_on_the_card(cuda):
+    """distributed_topk_spmv_fn over four cuda:0 positions: the single form
+    equals topk_spmv and the batched form at Q = 64 topk_spmv_batched, bit
+    for bit, with one launch a position."""
+    from repro_torch.launch.mesh import DeviceMesh
+
+    csr = bscsr.synthetic_embedding_csr(20_000, 128, 12, "gamma", seed=5)
+    cfg = api.TopKSpMVConfig(big_k=20, k=8, value_format="BF16", num_partitions=32,
+                             device="cuda")
+    xs = torch.from_numpy(np.random.default_rng(11).standard_normal((64, 128))
+                          .astype(np.float32)).to(cuda)
+    for index in (api.build_index(csr, cfg), api.MutableTopKSpMVIndex(csr, cfg)):
+        for axes, shape in ((("data",), (4,)), (("pod", "data"), (2, 2))):
+            mesh = DeviceMesh(np.full(shape, cuda, dtype=object), axes)
+            axis = axes if len(axes) > 1 else axes[0]
+            fn, arrays = api.distributed_topk_spmv_fn(index, mesh, shard_axis=axis)
+            want = api.topk_spmv(index, xs[0])
+            K.reset_launch_counts()
+            got = fn(xs[0], *arrays)
+            assert K.bscsr_topk_spmv.launches == 4
+            assert_pair_bits(got, want)
+            fn, arrays = api.distributed_topk_spmv_fn(index, mesh, shard_axis=axis,
+                                                      batched=True)
+            assert_pair_bits(fn(xs, *arrays), api.topk_spmv_batched(index, xs))
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from repro_torch.core import topk_spmv as ttopk
 from repro_torch.core.similarity import SparseEmbeddingIndex as TorchIndex
 from repro_torch.kernels import executor as texecutor
 from repro_torch.kernels import ops as tops
+from repro_torch.launch.mesh import make_serving_mesh
 
 # ``repro.core`` re-exports a function named ``topk_spmv`` over its submodule.
 jtopk = importlib.import_module("repro.core.topk_spmv")
@@ -277,10 +278,10 @@ class TestFacade:
 
     @pytest.mark.parametrize("case", ["mesh", "n_shards", "from_index"])
     def test_later_slices_raise(self, facades, case):
-        """The mesh dispatch raises naming its ROADMAP item; ``n_shards``
-        (ported with the sharded plane) builds a sharded facade bit for bit
-        equal to the single-device one; ``from_index`` (ported with the
-        serving plane) wraps the index it is given."""
+        """``mesh=`` (ported with the mesh dispatch) and ``n_shards`` (ported
+        with the sharded plane) build sharded facades bit for bit equal to
+        the single-device one; ``from_index`` (ported with the serving
+        plane) wraps the index it is given."""
         j, t = facades
         csr = port_csr(j.csr)
         xs = np.random.default_rng(9).standard_normal((3, N_COLS)).astype(np.float32)
@@ -300,8 +301,15 @@ class TestFacade:
             for a, b in zip(sharded.query(xs[0]), single.query(xs[0])):
                 np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchIndex(csr, tcfg(), mesh=object())
+        mesh = make_serving_mesh(n_shards=2, n_replicas=2, devices=[torch.device("cpu")] * 4)
+        single = TorchIndex(csr, t.config)
+        sharded = TorchIndex(csr, t.config, mesh=mesh)
+        assert sharded.is_sharded and sharded.replica_factor == 2
+        assert sharded.dispatch_info()["path"] == "spmd"
+        for a, b in zip(sharded.query_batch(xs), single.query_batch(xs)):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+        for a, b in zip(sharded.query(xs[0]), single.query(xs[0])):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
 
 
 class TestQueryValidation:

@@ -45,6 +45,7 @@ from repro_torch.core.faults import INJECTION_POINTS, FaultInjected, FaultPlan, 
 from repro_torch.core.persistence import DurableIndexStore, WriteAheadLog
 from repro_torch.core.sharded import ShardedTopKSpMVIndex
 from repro_torch.core.similarity import SparseEmbeddingIndex
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serve import frontend as tfrontend
 from repro_torch.serve import (
     CompactionPolicy,
@@ -55,13 +56,14 @@ from repro_torch.serve import (
 from repro_torch.utils.watchdog import DeadlineExceeded
 
 jtopk = importlib.import_module("repro.core.topk_spmv")
+CPU = torch.device("cpu")
 
 N_COLS = 64
 TOL = 1e-5
-# The points with a caller in the port; bundle.scatter waits for the mesh
-# dispatch of the sharded plane.
+# The points with a caller in the port: all of them since the mesh dispatch.
 PORTED_POINTS = ("refresh.cow_rewrite", "refresh.swap", "compact.swap", "wal.append",
-                 "checkpoint.write", "checkpoint.rename", "dispatch.shard")
+                 "checkpoint.write", "checkpoint.rename", "dispatch.shard",
+                 "bundle.scatter")
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +418,7 @@ class TestDurableIndexStore:
 class TestEveryInjectionPointFires:
     def test_points_are_the_references(self):
         assert INJECTION_POINTS == jfaults.INJECTION_POINTS
-        assert set(PORTED_POINTS) < set(INJECTION_POINTS)
+        assert set(PORTED_POINTS) == set(INJECTION_POINTS)
         with pytest.raises(ValueError, match="unregistered"):
             with FaultPlan({}):
                 fault_point("no.such.point")
@@ -445,6 +447,15 @@ class TestEveryInjectionPointFires:
                     index.compact()
                 elif point == "wal.append":
                     store.log_add(random_rows(rng, 2))
+                elif point == "bundle.scatter":
+                    # As the reference's scenario: the first sync builds the
+                    # families, the sync after a mutation takes the changed
+                    # branch.
+                    sharded = ShardedTopKSpMVIndex(index.live_csr()[0], index.config,
+                                                   mesh=make_serving_mesh(1, 1, devices=[CPU]))
+                    sharded.query(np.zeros(N_COLS, np.float32))
+                    sharded.add_rows(random_rows(rng, 2))
+                    sharded.query(np.zeros(N_COLS, np.float32))
                 else:
                     store.checkpoint(index)
         assert e.value.point == point

@@ -26,6 +26,7 @@ The same seeded inputs go through ``repro`` and ``repro_torch``
 import dataclasses
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,6 +49,7 @@ from repro_torch.core.persistence import DurableIndexStore
 from repro_torch.core.sharded import ShardedTopKSpMVIndex
 from repro_torch.core.similarity import SparseEmbeddingIndex as TIndex
 from repro_torch.kernels import executor as texecutor
+from repro_torch.launch.mesh import DeviceMesh, make_serving_mesh
 from repro_torch.serve import (
     ApproxTopKHead,
     FrontendConfig,
@@ -57,6 +59,8 @@ from repro_torch.serve import (
 )
 
 jtopk = importlib.import_module("repro.core.topk_spmv")
+jmesh_lib = importlib.import_module("repro.launch.mesh")
+CPU = torch.device("cpu")
 
 N_COLS = 96
 TOL = 1e-5
@@ -380,8 +384,27 @@ class TestPerShardEquivalence:
                 big_k=16, k=8, num_partitions=12, block_size=64), n_shards=5)
 
     def test_mesh_raises_naming_its_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            ShardedTopKSpMVIndex(port_csr(gamma_csr()), tcfg(num_partitions=4), mesh=object())
+        """The mesh path (ported since) holds the per-shard answers bit for
+        bit; a mesh without a "shard" axis and an ``n_shards`` that
+        contradicts the mesh raise with the reference's texts."""
+        csr = gamma_csr()
+        cfg = tcfg(big_k=16, k=8, num_partitions=4, block_size=64)
+        per_shard = ShardedTopKSpMVIndex(port_csr(csr), cfg, n_shards=2)
+        mesh = make_serving_mesh(n_shards=2, n_replicas=1, devices=[CPU] * 2)
+        on_mesh = ShardedTopKSpMVIndex(port_csr(csr), cfg, mesh=mesh)
+        xs = queries(np.random.default_rng(4), 3, False)
+        assert_bits(per_shard.query(xs[0]), on_mesh.query(xs[0]))
+        assert_bits(per_shard.query_batched(xs), on_mesh.query_batched(xs))
+        jcfg = jtopk.TopKSpMVConfig(big_k=16, k=8, num_partitions=4, block_size=64)
+        no_shard = DeviceMesh(np.array([CPU], dtype=object), ("data",))
+        jno_shard = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
+        for make, m, c in ((ShardedTopKSpMVIndex, no_shard, cfg), (JSharded, jno_shard, jcfg)):
+            with pytest.raises(ValueError, match="serving mesh needs a 'shard' axis"):
+                make(csr if make is JSharded else port_csr(csr), c, mesh=m)
+        for make, m, c in ((ShardedTopKSpMVIndex, mesh, cfg),
+                           (JSharded, jmesh_lib.make_serving_mesh(1, 1), jcfg)):
+            with pytest.raises(ValueError, match="contradicts the mesh's shard axis"):
+                make(csr if make is JSharded else port_csr(csr), c, mesh=m, n_shards=3)
 
     def test_evict_snapshot_repins(self):
         csr = gamma_csr(seed=2)
@@ -696,10 +719,24 @@ class TestFacade:
         assert_bits(a.query_batch(q), b.query_batch(q))
 
     def test_facade_mesh_raises(self):
-        emb = np.random.default_rng(1).standard_normal((32, 40)).astype(np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            TIndex.from_dense(emb, nnz_per_row=8, config=tcfg(num_partitions=4),
-                              mesh=object())
+        """The facade on a 2 x 2 mesh (ported since) == the unsharded facade
+        bit for bit, through an upsert and a delete; its replica factor is
+        the mesh's replica count."""
+        rng = np.random.default_rng(1)
+        emb = rng.standard_normal((32, 40)).astype(np.float32)
+        cfg = tcfg(num_partitions=4, big_k=8)
+        a = TIndex.from_dense(emb, nnz_per_row=8, config=cfg)
+        b = TIndex.from_dense(emb, nnz_per_row=8, config=cfg,
+                              mesh=make_serving_mesh(2, 2, devices=[CPU] * 4))
+        assert b.replica_factor == 2 and b.dispatch_info()["path"] == "spmd"
+        q = rng.standard_normal((3, 40)).astype(np.float32)
+        assert_bits(a.query_batch(q), b.query_batch(q))
+        new = rng.standard_normal((2, 40)).astype(np.float32)
+        assert np.array_equal(a.upsert(new), b.upsert(new))
+        a.delete([3])
+        b.delete([3])
+        assert_bits(a.query_batch(q), b.query_batch(q))
+        assert_bits(a.query(q[0]), b.query(q[0]))
 
     @pytest.mark.parametrize("n_shards", [2, 4])
     def test_topk_head_sharded(self, n_shards):
@@ -727,10 +764,16 @@ class TestFacade:
     def test_topk_head_defaults_and_mesh(self):
         assert dataclasses.asdict(TopKHeadConfig()) == dict(
             dataclasses.asdict(JHeadConfig()), device="cuda")
-        emb = np.random.default_rng(2).standard_normal((64, 40)).astype(np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ApproxTopKHead(emb, TopKHeadConfig(num_partitions=8, mesh=object(),
-                                               device="cpu"))
+        rng = np.random.default_rng(2)
+        emb = rng.standard_normal((64, 40)).astype(np.float32)
+        kw = dict(big_k=16, k=4, num_partitions=8, nnz_per_row=8, device="cpu")
+        plain = ApproxTopKHead(emb, TopKHeadConfig(**kw))
+        meshed = ApproxTopKHead(emb, TopKHeadConfig(
+            mesh=make_serving_mesh(4, 2, devices=[CPU] * 8), **kw))
+        hs = rng.standard_normal((5, 40)).astype(np.float32)
+        assert_bits(plain.topk_logits_batch(hs), meshed.topk_logits_batch(hs))
+        assert_bits(plain.topk_logits(hs[0]), meshed.topk_logits(hs[0]))
+        assert meshed.dispatch_info()["path"] == "spmd"
 
     def test_topk_head_decodes_through_the_kernel_by_default(self, monkeypatch):
         """Unlike the reference (whose kernel runs interpreted off the TPU),
