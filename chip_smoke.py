@@ -140,9 +140,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              kernel must launch here; then each kernel's device time per
              shard and in sum, beside phase 4's single-device time and the
              bound.
-9. lm        run last (the earlier facades freed): Qwen2.5-3B at full width
-             (``repro_torch.configs.get_config("qwen25_3b")``: 36 layers,
-             d_model 2048, vocab 151,936, bf16, cut: none; the port's own
+9. lm        run after phase 6 (the earlier facades freed): Qwen2.5-3B at full
+             width (``repro_torch.configs.get_config("qwen25_3b")``: d_model
+             2048, vocab 151,936, bf16; cut since phase 13 came to 12 of its
+             36 layers, depth only, printed on a ``CUT:`` line; the port's own
              init on the card from ``--seed``) behind ``ServingEngine(...,
              batch_size=64, max_seq=128, use_approx_head=True,
              head_cfg=TopKHeadConfig())``: 64 prompts of 16 tokens through
@@ -159,7 +160,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              kernel at Q = 64 and the dense ``lm_logits`` + argmax it
              replaces, each beside its bound; host tokens/s, peak memory.
 10. families run after phase 9 (its model freed): the hybrid, ssm and
-             audio families at full width (cut: none), one model at a time,
+             audio families at full width (cut since phase 13 came to a third
+             of each model's depth, ``FAM_DEPTH``, printed on a ``CUT:``
+             line; the counts below are the full models'), one model at a time,
              each the port's own init on the card from ``--seed``, its
              parameter count held to ``param_count()`` (Whisper's
              ``dec_pos`` adds 1500 - 128 rows) and the init's peak memory
@@ -184,7 +187,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              ``generate`` tokens/s (host clock), Whisper's ``encode`` beside its
              FLOP bound.  None of the three kernels lies on these paths: their
              launches here must be 0.
-11. train    run last: SmolLM-360M at full width and depth
+11. train    run after phase 10: SmolLM-360M at full width and depth
              (``repro_torch.configs.get_config("smollm_360m")``: 32 layers,
              d_model 960, vocab 49,152, tied, bf16, ``remat="full"``;
              361,821,120 parameters, cut: none; the port's own init from
@@ -204,7 +207,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              profiled step (kernel ms, idle share, launches, the costliest
              kernels), peak memory, the checkpoint's bytes and its save and
              restore seconds.  None of the three kernels lies on this path:
-             their launches here must be 0.
+             their launches here must be 0.  Leaves its step-2 checkpoint
+             and the resumed run's last one for phase 13.
 12. mesh     run after phase 8 and before phase 5 (phase 8's indexes freed):
              phase 3's collection and config behind ``SparseEmbeddingIndex(
              csr, cfg, mesh=make_serving_mesh(4, 2, devices=[cuda:0] * 8))``
@@ -227,18 +231,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              each kernel's device time per position and in sum.  One card
              runs every position, so copies between cards are not exercised
              and the times say nothing of scaling over replicas.
-   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``SHARDED``, ``MESH`` and ``MIXED``
-             lines, the ``kernels`` JSON line (each kernel's classes, its
-             mixed-path, per-shard and per-position times; ``launches`` counts
-             phases 3, 6, 7, 8, 9, 10, 11 and 12, with phase 7's, 8's, 9's,
-             10's, 11's and 12's also apart), the card's name and power limit,
-             and the result line.
+13. train mesh  run after phase 11, at the same full width and depth:
+             (a) phase 11's step-2 checkpoint (saved from one device)
+             resumed by ``train(..., mesh=DeviceMesh([[cuda:0] * 2] * 2,
+             ("data", "model")))`` to step 3 under deterministic
+             algorithms: the losses bit for bit phase 11's, and the mesh
+             run's last checkpoint restored onto one device bit for bit
+             phase 11's last (masters, moments, step); printed: the step's
+             ms, each position's piece bytes, the peak memory.  (b)
+             ``train.pipeline.pipelined_loss_fn`` at 4 stages x 4
+             microbatches on a (4, 2, 1) ("stage", "data", "model") mesh of
+             ``cuda:0`` positions, B 8 x S 2048 at float32 (TF32 off),
+             against the sequential ``loss_fn`` + backward: loss within
+             rtol 1e-5, every gradient leaf within 1e-4 of max(|g|, 1);
+             both times (CUDA events), 7 ticks, bubble 3/7.  One card runs
+             every position, so the moves between positions and stages are
+             no-ops.  The three kernels launch 0 times here.
+   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``TRAIN_MESH``, ``SHARDED``, ``MESH``
+             and ``MIXED`` lines, the ``kernels`` JSON line (each kernel's
+             classes, its mixed-path, per-shard and per-position times;
+             ``launches`` counts phases 3, 6, 7, 8, 9, 10, 11, 12 and 13, with
+             phase 7's, 8's, 9's, 10's, 11's, 12's and 13's also apart), the
+             card's name and power limit, and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
 result line: a short check of a kernel change before the full run.
 ``--only lm`` runs phases 1 and 9, ``--only families`` phases 1 and 10,
-``--only train`` phases 1 and 11; each stops without the result line.
+``--only train`` phases 1, 11 and 13; each stops without the result line.
 
 The script needs one CUDA device and imports only ``repro_torch`` (from
 ``src/`` beside it) and torch/numpy.
@@ -317,6 +337,9 @@ DIST_POSITIONS = 4
 # head: 64 requests of 16 prompt tokens and 32 generated ones.
 LM_ARCH = "qwen25_3b"
 LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_SEQ = 64, 16, 32, 128
+# Cut (to keep the script inside its time limit with phase 13): 12 of the
+# model's 36 layers (depth only: widths, vocabulary and traffic kept).
+LM_LAYERS = 12
 LM_TIMED_STEPS = 5            # decode steps timed (CUDA events) after 2 of warm-up
 # Decode vs prefill at bf16: both round every product to bf16 in other
 # shapes (and so other summation orders), and the differences grow over
@@ -326,6 +349,12 @@ H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
 # Phase 10: Zamba2-7B and xLSTM-350M behind ServingEngine (no head) as phase 9
 # serves Qwen2.5-3B, and Whisper-small over a 30-second window of frames.
 FAMILY_ARCHS = ("zamba2_7b", "xlstm_350m", "whisper_small")
+# Cut (to keep the script inside its time limit with phase 13): a third of
+# each model's depth, its structure kept: Zamba2-7B 27 of 81 layers (4
+# groups of 6 Mamba2 blocks and the tail of 3), xLSTM-350M 8 of 24 (2 x
+# [1 sLSTM + 3 mLSTM]), Whisper-small 4 of 12 encoder and decoder layers.
+FAM_DEPTH = {"zamba2_7b": {"num_layers": 27}, "xlstm_350m": {"num_layers": 8},
+             "whisper_small": {"num_layers": 4, "encoder_layers": 4}}
 FAM_BATCH, FAM_PROMPT, FAM_GEN, FAM_MAX_SEQ = 64, 16, 32, 128
 FAM_WHISPER_SEQ = 1500        # encoder frames of 30 s, and the decoder's positions
 FAM_BLOCK_SEQ = 256           # two chunks of 128: the inter-chunk carry is used
@@ -356,6 +385,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 32, 2048, 4
 # checkpoint at 2 and a resume of 1, where the cell has 8 and a resume of 4.
 TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_TIMED = 3, 2, 2
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# Phase 13: phase 11's run resumed on a 2 x 2 ("data", "model") mesh of this
+# card's positions, and the pipeline at S = 4 stages and M = 4 microbatches
+# on a (4, 2, 1) ("stage", "data", "model") mesh, B 8 x S 2048 at float32
+# (TF32 off): loss within rtol 1e-5, each gradient leaf within 1e-4 of
+# max(its max |g|, 1), the bounds of the reference's pipeline test.
+TRAIN_MESH = (2, 2)
+PIPE_MESH, PIPE_MICRO = (4, 2, 1), 4
+PIPE_BATCH, PIPE_SEQ = 8, 2048
+PIPE_LOSS_RTOL, PIPE_GRAD_TOL = 1e-5, 1e-4
 
 
 def log(*args) -> None:
@@ -755,7 +793,7 @@ def main() -> int:
     parser.add_argument("--only", choices=("accumulate", "lm", "families", "train"),
                         help="accumulate: phases 1 and 2 and the accumulate kernel's "
                              "timing on phase 6's streams (no solves); lm: phases 1 "
-                             "and 9; families: phases 1 and 10; train: phases 1 and 11; "
+                             "and 9; families: phases 1 and 10; train: phases 1, 11 and 13; "
                              "then stop without the result line")
     args = parser.parse_args()
 
@@ -802,6 +840,11 @@ def main() -> int:
     if args.only == "train":
         trained = train_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train")
         log("TRAIN " + json.dumps(dict(trained, card=card_line())))
+        gc.collect()
+        torch.cuda.empty_cache()
+        meshed_train = train_mesh_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train",
+                                        trained)
+        log("TRAIN_MESH " + json.dumps(dict(meshed_train, card=card_line())))
         log(f"ONLY train: done in {time.time() - t_start:.1f} s (no result line)")
         return 0
 
@@ -1146,6 +1189,16 @@ def main() -> int:
     for entry in kernels:
         entry["launches_train_path"] = trained["launches"][entry["name"]]
         entry["launches"] += trained["launches"][entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the training mesh at SmolLM-360M's full width and depth ----
+    t0 = time.time()
+    meshed_train = train_mesh_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train", trained)
+    log(f"  train mesh phase {time.time() - t0:.1f} s")
+    for entry in kernels:
+        entry["launches_train_mesh_path"] = meshed_train["launches"][entry["name"]]
+        entry["launches"] += meshed_train["launches"][entry["name"]]
     for entry in kernels:
         entry["launches_distributed_path"] = dist_launches[entry["name"]]
         entry["launches"] += dist_launches[entry["name"]]
@@ -1205,6 +1258,7 @@ def main() -> int:
     log("LM " + json.dumps(dict(lm, card=card_line())))
     log("FAMILIES " + json.dumps(dict(families, card=card_line())))
     log("TRAIN " + json.dumps(dict(trained, card=card_line())))
+    log("TRAIN_MESH " + json.dumps(dict(meshed_train, card=card_line())))
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -2498,8 +2552,9 @@ def mesh_timing(torch, K, index, gindex, xs64, cfg) -> dict:
 
 
 def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
-    """Phase 9: Qwen2.5-3B at full width (``cfg`` cuts it only for a CPU
-    rehearsal) behind ``ServingEngine`` with the approximate head.
+    """Phase 9: Qwen2.5-3B at full width and ``LM_LAYERS`` of its layers
+    (``cfg`` replaces it for a CPU rehearsal) behind ``ServingEngine`` with
+    the approximate head.
 
     The model is the port's own init on the device from ``seed`` (no
     weights are in the repo).  Drive: the engine and its head, 64 prompts
@@ -2517,7 +2572,14 @@ def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
 
     check = Check("lm")
     on_card = device == "cuda"
-    cfg = cfg or get_config(LM_ARCH)
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+        cut = (f"{LM_LAYERS} of {get_config(LM_ARCH).num_layers} layers (depth only: "
+               f"widths, vocabulary and traffic kept)")
+        log(f"CUT: phase 9 serves {LM_ARCH} at {cut}, to keep the script inside its time "
+            f"limit")
+    else:
+        cut = "widths cut for a CPU rehearsal"
     model_api = get_model(cfg)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     if on_card:
@@ -2610,7 +2672,6 @@ def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
         f"argmax of tok in {int((ids == np.argmax(h32 @ head.embedding.T, -1)).sum())} of "
         f"{LM_BATCH} rows")
 
-    cut = "none" if cfg == get_config(LM_ARCH) else "widths cut for a CPU rehearsal"
     out = {"model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "cut": cut,
            "parameters": n_params, "weight_bytes": weight_bytes, "init_s": init_s,
@@ -2704,9 +2765,9 @@ def lm_timing(torch, K, api, L, model, engine, hidden, cfg) -> dict:
 
 
 def families_phase(torch, K, seed, cfgs=None, device="cuda") -> dict:
-    """Phase 10: Zamba2-7B, xLSTM-350M and Whisper-small at full width
-    (``cfgs`` cuts them only for a CPU rehearsal), each the port's own init
-    on the device from ``seed``, one at a time.
+    """Phase 10: Zamba2-7B, xLSTM-350M and Whisper-small at full width and
+    ``FAM_DEPTH``'s depth (``cfgs`` replaces them for a CPU rehearsal), each
+    the port's own init on the device from ``seed``, one at a time.
 
     Returns the phase's launches of the three kernels (counted from 0 before
     each model's drive; none lies on this path) and the ``FAMILIES`` line.
@@ -2714,7 +2775,16 @@ def families_phase(torch, K, seed, cfgs=None, device="cuda") -> dict:
     from repro_torch.configs import get_config
 
     on_card = device == "cuda"
-    cfgs = cfgs or {arch: get_config(arch) for arch in FAMILY_ARCHS}
+    if cfgs is None:
+        cfgs = {arch: dataclasses.replace(get_config(arch), **FAM_DEPTH[arch])
+                for arch in FAMILY_ARCHS}
+        cuts = {arch: ", ".join(f"{v} of {getattr(get_config(arch), k)} {k}"
+                                for k, v in FAM_DEPTH[arch].items())
+                for arch in FAMILY_ARCHS}
+        log(f"CUT: phase 10 serves {cuts} (depth only: widths, vocabularies, block "
+            f"structure and traffic kept), to keep the script inside its time limit")
+    else:
+        cuts = {arch: "widths cut for a CPU rehearsal" for arch in cfgs}
     out = {"launches": {name: 0 for name in REPLACES}}
     for arch, cfg in cfgs.items():
         t0 = time.time()
@@ -2722,7 +2792,7 @@ def families_phase(torch, K, seed, cfgs=None, device="cuda") -> dict:
         res = drive(torch, K, cfg, seed, device)
         for name, n in res.pop("launches").items():
             out["launches"][name] += n
-        res["cut"] = "none" if cfg == get_config(arch) else "widths cut for a CPU rehearsal"
+        res["cut"] = cuts[arch]
         res["phase_s"] = time.time() - t0
         out[arch] = res
         log(f"  {cfg.name}: {res['phase_s']:.1f} s")
@@ -3175,7 +3245,200 @@ def train_phase(torch, K, seed, root) -> dict:
         f"bound {bound_ms:.1f} ms ({flops_per_token * tokens / 1e12:.1f} TFLOP at 989 TFLOP/s "
         f"bf16): {100 * bound_ms / ms:.1f}% reached")
     log(f"  checkpoint {ckpt_bytes / 1e9:.3f} GB: save {save_s:.2f} s, restore {restore_s:.2f} s")
-    shutil.rmtree(root, ignore_errors=True)     # four checkpoints of 4.3 GB
+    # Four checkpoints of 4.3 GB: phase 13 resumes from the first and checks
+    # against the resumed run's last; the other two go now.
+    (full / f"ckpt_{TRAIN_STEPS:08d}.npz").unlink()
+    (part / f"ckpt_{TRAIN_CKPT_AT:08d}.npz").unlink()
+    check.done()
+    return res
+
+
+def train_mesh_phase(torch, K, seed, root, trained) -> dict:
+    """Phase 13: the training mesh at SmolLM-360M's full width and depth.
+
+    (a) Phase 11's step-``TRAIN_CKPT_AT`` checkpoint (saved from one device)
+    restored onto a ``TRAIN_MESH`` ("data", "model") mesh of this card's
+    positions by ``train(..., mesh=...)`` with phase 11's ``TrainConfig``,
+    run to ``TRAIN_STEPS`` under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: its losses must be phase 11's bit for bit, and its
+    final checkpoint, restored onto one device, must hold phase 11's final
+    masters and moments bit for bit.  Printed: the step's ms, each
+    position's piece bytes (masters and moments), the peak memory.
+
+    (b) ``pipelined_loss_fn`` with ``PIPE_MESH``'s 4 stages and
+    ``PIPE_MICRO`` microbatches at B ``PIPE_BATCH`` x S ``PIPE_SEQ`` on
+    float32 working weights (TF32 off), against the sequential ``loss_fn``
+    on the same weights and batch: loss and every gradient leaf within
+    ``PIPE_LOSS_RTOL`` / ``PIPE_GRAD_TOL``.  Every position is this card, so
+    the moves between stages are no-ops: the times say what the schedule
+    costs on one device, not what copies between cards cost.
+
+    ``trained`` is phase 11's result; phase 11 leaves its two checkpoints
+    under ``root``, which this phase removes.  None of the three kernels
+    lies on these paths: their launches here must be 0.
+    """
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import data as data_lib
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import train
+    from repro_torch.train.pipeline import pipelined_loss_fn
+
+    check = Check("train mesh")
+    t_phase = time.time()
+    card = torch.device("cuda", 0)
+    cfg = get_config(TRAIN_ARCH)
+
+    def fresh_memory() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb() -> float:
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    shape = ShapeConfig("train_cell", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mesh_dir = root / "mesh"
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    mesh_dir.mkdir(parents=True)
+    shutil.copy(root / "full" / f"ckpt_{TRAIN_CKPT_AT:08d}.npz", mesh_dir)
+    mesh = DeviceMesh(np.full(TRAIN_MESH, card, dtype=object), ("data", "model"))
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                     microbatches=TRAIN_MICRO, seed=seed, checkpoint_every=TRAIN_CKPT_AT,
+                     checkpoint_dir=str(mesh_dir))
+    log(f"  (a) phase 11's step-{TRAIN_CKPT_AT} checkpoint (one device) resumed on a "
+        f"{TRAIN_MESH[0]} x {TRAIN_MESH[1]} (data, model) mesh of {card} positions to step "
+        f"{TRAIN_STEPS}: {cfg.name} at full width and depth, B {TRAIN_BATCH} x S {TRAIN_SEQ} "
+        f"in {TRAIN_MICRO} microbatches")
+    fresh_memory()
+    K.reset_launch_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.time()
+            out = train(cfg, shape, tc, mesh=mesh, log_every=1)
+            resume_s = time.time() - t0
+        nondeterministic = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peak = peak_gb()
+    want = trained["losses"][TRAIN_CKPT_AT:]
+    losses_equal = out["history"] == want
+    check.expect(losses_equal, f"mesh resume losses {out['history']} != phase 11's "
+                                         f"{want}")
+    check.expect(not nondeterministic, f"non-deterministic ops: {nondeterministic}")
+    piece_bytes = {}
+    for arrs in (out["masters"], out["opt_state"]["mu"], out["opt_state"]["nu"]):
+        for arr in arrs.values():
+            for pos, t in arr.pieces.items():
+                key = "x".join(map(str, pos))
+                piece_bytes[key] = piece_bytes.get(key, 0) + t.numel() * t.element_size()
+    step_ms = out["step_ms"]
+    log(f"  losses {out['history']} == phase 11's {want}: {losses_equal}; step "
+        f"{' / '.join(f'{t:.1f}' for t in step_ms)} ms (CUDA events; phase 11's "
+        f"{trained['step_ms']:.1f}); piece bytes by position {piece_bytes} (unsharded "
+        f"{3 * 4 * cfg.param_count()}); peak {peak:.2f} GB; resume {resume_s:.1f} s")
+    del out
+    fresh_memory()
+
+    # The mesh run's final checkpoint onto one device against phase 11's final one.
+    shapes = {n: tuple(p.shape) for n, p in get_model(cfg).build("meta", 1).named_parameters()}
+    meta = {n: torch.empty(sh, device="meta") for n, sh in shapes.items()}
+    like = {"params": meta, "opt": {"mu": meta, "nu": meta, "step": torch.zeros(())}}
+    t0 = time.time()
+    _, mine = CheckpointManager(str(mesh_dir)).restore(like, step=TRAIN_STEPS, device=card)
+    restore_s = time.time() - t0
+    _, theirs = CheckpointManager(str(root / "part")).restore(like, step=TRAIN_STEPS,
+                                                              device=card)
+    def trees(state):
+        return {"masters": state["params"], "mu": state["opt"]["mu"], "nu": state["opt"]["nu"]}
+
+    differ = {part: sorted(n for n, t in tree.items() if not torch.equal(t, trees(theirs)[part][n]))
+              for part, tree in trees(mine).items()}
+    same_step = int(mine["opt"]["step"]) == int(theirs["opt"]["step"]) == TRAIN_STEPS
+    check.expect(not any(differ.values()) and same_step,
+                 f"the mesh run's final state restored onto one device differs from phase "
+                 f"11's: {({k: v[:4] for k, v in differ.items() if v})}, step {same_step}")
+    log(f"  the mesh run's step-{TRAIN_STEPS} checkpoint restored onto one device "
+        f"({restore_s:.1f} s): masters, mu, nu and step == phase 11's final bit for bit: "
+        f"{not any(differ.values()) and same_step}")
+    del mine, theirs
+    shutil.rmtree(root, ignore_errors=True)
+    fresh_memory()
+
+    # (b) the pipeline at full width, float32 working weights, TF32 off.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    pshape = ShapeConfig("pipeline", "train", PIPE_SEQ, PIPE_BATCH)
+    pmesh = DeviceMesh(np.full(PIPE_MESH, card, dtype=object), ("stage", "data", "model"))
+    stages = PIPE_MESH[0]
+    ticks = PIPE_MICRO + stages - 1
+    model = get_model(cfg32).init_params(torch.Generator(device=card).manual_seed(seed),
+                                         PIPE_SEQ)
+    batch = data_lib.batch_for_step(0, cfg32, pshape, seed, 1, card)
+    names, weights = zip(*model.named_parameters())
+    for w in weights:
+        w.requires_grad_(True)
+
+    def timed(fn):
+        """(loss, gradients, ms of CUDA events)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = fn()
+        grads = torch.autograd.grad(loss, weights)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, ev[0].elapsed_time(ev[1])
+
+    seq_loss, seq_grads, seq_ms = timed(lambda: model.loss_fn(batch))
+    pipe_loss, pipe_grads, pipe_ms = timed(
+        lambda: pipelined_loss_fn(model, cfg32, batch, pmesh, PIPE_MICRO))
+    pipe_peak = peak_gb()
+    for w in weights:
+        w.requires_grad_(False)
+    loss_rel = abs(pipe_loss - seq_loss) / abs(seq_loss)
+    worst, worst_leaf = 0.0, None
+    for name, a, b in zip(names, pipe_grads, seq_grads):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+        if err > worst:
+            worst, worst_leaf = err, name
+    check.expect(loss_rel <= PIPE_LOSS_RTOL, f"pipelined loss {pipe_loss} vs sequential "
+                                             f"{seq_loss}: {loss_rel:.3g} relative")
+    check.expect(worst <= PIPE_GRAD_TOL, f"pipelined gradient {worst_leaf} off by {worst:.3g} "
+                                         f"of max(|g|, 1)")
+    log(f"  (b) pipeline: {stages} stages x {PIPE_MICRO} microbatches on a {PIPE_MESH} "
+        f"(stage, data, model) mesh of {card} positions, {ticks} ticks (bubble "
+        f"{stages - 1}/{ticks}), B {PIPE_BATCH} x S {PIPE_SEQ} at float32: loss {pipe_loss} vs "
+        f"sequential {seq_loss} ({loss_rel:.3g} relative); worst gradient {worst_leaf} "
+        f"{worst:.3g} of max(|g|, 1); loss + backward {pipe_ms:.1f} ms pipelined, "
+        f"{seq_ms:.1f} ms sequential (CUDA events); peak {pipe_peak:.2f} GB")
+    del model, seq_grads, pipe_grads, batch
+    fresh_memory()
+
+    launches = launch_counts(K)
+    for name, n in launches.items():
+        check.expect(n == 0, f"{name} launched {n} times on the training mesh's paths")
+    phase_s = time.time() - t_phase
+    res = {"mesh": dict(zip(("data", "model"), TRAIN_MESH)), "losses": want,
+           "mesh_losses_equal": losses_equal, "step_ms_each": step_ms,
+           "phase11_step_ms": trained["step_ms"], "piece_bytes_by_position": piece_bytes,
+           "unsharded_bytes": 3 * 4 * cfg.param_count(), "peak_memory_gb": peak,
+           "resume_s": resume_s, "restore_one_device_s": restore_s,
+           "restored_differ": differ, "nondeterministic_ops": nondeterministic,
+           "pipeline": {"mesh": dict(zip(("stage", "data", "model"), PIPE_MESH)),
+                        "microbatches": PIPE_MICRO, "batch": PIPE_BATCH, "seq": PIPE_SEQ,
+                        "ticks": ticks, "bubble_share": (stages - 1) / ticks,
+                        "loss": pipe_loss, "sequential_loss": seq_loss,
+                        "loss_rel_err": loss_rel, "grad_err": worst, "grad_err_leaf": worst_leaf,
+                        "ms": pipe_ms, "sequential_ms": seq_ms, "peak_memory_gb": pipe_peak,
+                        "tolerance": {"loss_rtol": PIPE_LOSS_RTOL, "grad": PIPE_GRAD_TOL}},
+           "launches": launches, "phase_s": phase_s}
+    log(f"  train mesh phase's own {phase_s:.1f} s")
     check.done()
     return res
 

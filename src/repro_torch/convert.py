@@ -34,7 +34,7 @@ from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels.ops import PackedPartitions
 from repro_torch.models.layers import LanguageModel
-from repro_torch.models.model_zoo import get_model
+from repro_torch.models.model_zoo import STACKED, get_model
 
 _OPTIONAL_ARRAYS = ("words", "slot_to_row", "num_slots", "tombstones")
 _OPTIONAL_COUNTS = ("n_rows_total", "base_packets", "delta_nnz", "dead_nnz",
@@ -99,12 +99,6 @@ def state_from_reference(meta: Mapping, arrays: Mapping, device: str = "cuda"
     return dict(meta, config=config), out
 
 
-# The reference's layer-stacked subtrees and their stacked axes: each
-# becomes an ``nn.ModuleList`` (of ``nn.ModuleList``s for two axes).
-_STACKED = {"blocks": 1, "mamba": 2, "mamba_tail": 1, "mlstm": 2, "slstm": 1,
-            "enc_blocks": 1, "dec_blocks": 1}
-
-
 def named_from_reference(tree: Mapping, device: str = "cpu") -> Dict[str, torch.Tensor]:
     """The reference's param-shaped tree as ``{state-dict name: float32
     tensor}`` on ``device``: a stacked subtree's slices become
@@ -116,7 +110,7 @@ def named_from_reference(tree: Mapping, device: str = "cpu") -> Dict[str, torch.
     def walk(tree: Mapping, prefix: str, axes: int) -> None:
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{name}.", axes if prefix else _STACKED.get(name, 0))
+                walk(value, f"{prefix}{name}.", axes if prefix else STACKED.get(name, 0))
                 continue
             arr = np.array(value, np.float32)        # a writable copy
             if not axes:
@@ -140,7 +134,7 @@ def tree_to_reference(named: Mapping[str, torch.Tensor]) -> dict:
     for name, value in named.items():
         parts = name.split(".")
         arr = value.detach().float().cpu().numpy()
-        axes = _STACKED.get(parts[0], 0)
+        axes = STACKED.get(parts[0], 0)
         if axes:
             idx = tuple(int(i) for i in parts[1:1 + axes])
             stacked.setdefault((parts[0], *parts[1 + axes:]), {})[idx] = arr

@@ -11,6 +11,9 @@ one card keep apart.
 
 :class:`MeshArray` is a global array over a mesh: one piece per position,
 each a tensor on that position's device (``jax.Array``'s sharded form).
+``distribute`` cuts a tensor into the blocks a sharding ``(mesh, spec)``
+gives each position (``piece_slices``; a spec as ``sharding.rules`` writes
+it), and ``gather`` puts the global array back together.
 
 Functions, not module-level constants, so importing this module touches no
 device.
@@ -96,11 +99,71 @@ class DeviceMesh:
 @dataclasses.dataclass(frozen=True)
 class MeshArray:
     """A global array of ``shape`` over a mesh: ``pieces`` maps each position
-    to its block, a tensor on that position's device."""
+    to its block, a tensor on that position's device.  ``dtype`` is the
+    element type as its maker names it (numpy's, or torch's for
+    ``distribute``); ``sharding`` is the ``(mesh, spec)`` that laid out the
+    pieces, where one did."""
 
     shape: tuple
     dtype: np.dtype
     pieces: dict
+    sharding: Optional[tuple] = None
+
+
+def piece_slices(shape: Sequence[int], spec: tuple, mesh: DeviceMesh, pos: tuple) -> tuple:
+    """The block of a global array of ``shape`` that position ``pos`` holds
+    under ``spec``: a dim split over several mesh axes takes them major to
+    minor, as ``PartitionSpec`` does."""
+    out = []
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        if entry is None:
+            out.append(slice(None))
+            continue
+        index, parts = 0, 1
+        for name in ((entry,) if isinstance(entry, str) else entry):
+            a = mesh.axis_names.index(name)
+            index = index * mesh.devices.shape[a] + pos[a]
+            parts *= mesh.devices.shape[a]
+        if size % parts:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split {parts} ways "
+                             f"under {spec}")
+        step = size // parts
+        out.append(slice(index * step, (index + 1) * step))
+    return tuple(out)
+
+
+def unique_blocks(shape: Sequence[int], sharding: tuple) -> list:
+    """``(position, slices)`` for each distinct block, at the first position
+    (in row-major order) that holds it."""
+    mesh, spec = sharding
+    seen, out = set(), []
+    for pos in mesh.positions():
+        sl = piece_slices(shape, spec, mesh, pos)
+        key = tuple((s.start, s.stop) for s in sl)
+        if key not in seen:
+            seen.add(key)
+            out.append((pos, sl))
+    return out
+
+
+def distribute(t: torch.Tensor, sharding: tuple) -> MeshArray:
+    """``t`` cut into the blocks ``sharding`` gives each position: every
+    position gets its own copy on its device, also where a block is
+    replicated, so no two positions alias one tensor."""
+    mesh, spec = sharding
+    pieces = {pos: t[piece_slices(t.shape, spec, mesh, pos)].to(mesh.device(pos), copy=True)
+              for pos in mesh.positions()}
+    return MeshArray(tuple(t.shape), t.dtype, pieces, sharding)
+
+
+def gather(arr: MeshArray, device) -> torch.Tensor:
+    """The global array of ``arr`` on ``device``, each block copied once."""
+    first = next(iter(arr.pieces.values()))
+    out = torch.empty(arr.shape, dtype=first.dtype, device=device)
+    for pos, sl in unique_blocks(arr.shape, arr.sharding):
+        out[sl].copy_(arr.pieces[pos])
+    return out
 
 
 def _visible_devices(devices) -> list:
@@ -129,9 +192,10 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     return DeviceMesh(_grid(_visible_devices(None), shape, "the production mesh"), axes)
 
 
-def make_host_mesh(model: int = 1) -> DeviceMesh:
-    """("data", "model") over every visible CUDA device: (n // model, model)."""
-    devs = _visible_devices(None)
+def make_host_mesh(model: int = 1, devices=None) -> DeviceMesh:
+    """("data", "model") over ``devices`` (every visible CUDA device unless
+    given): (n // model, model)."""
+    devs = _visible_devices(devices)
     n = len(devs)
     if n == 0 or n % model:
         raise ValueError(f"the host mesh needs a positive multiple of model={model} "

@@ -20,9 +20,10 @@ Conventions
   checkpoint of ``blockwise_attention`` recompute in the backward pass
   what the reference's ``jax.checkpoint`` does.  Serving (``prefill``,
   ``decode_step``) runs under ``torch.no_grad``.
-
-Not ported: ``constrain`` and the ``*_specs`` functions are GSPMD layout
-hints, with no meaning on one device.
+* The ``*_specs`` functions give each weight's logical axis names as the
+  reference's do (``sharding.rules.P`` tuples, a leading ``"layers"`` on a
+  stacked subtree); ``constrain`` checks an activation's logical dims where
+  the reference places it.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.rules import P, constrain
 
 NEG_INF = -1e30
 
@@ -224,6 +226,21 @@ def attention_shapes(cfg: ModelConfig) -> dict:
     return s
 
 
+def attention_specs(cfg: ModelConfig, layers: bool) -> dict:
+    lead = ("layers",) if layers else ()
+    s = {
+        "wq": P(*lead, "embed_fsdp", "heads"),
+        "wk": P(*lead, "embed_fsdp", "kv_heads"),
+        "wv": P(*lead, "embed_fsdp", "kv_heads"),
+        "wo": P(*lead, "heads", "embed_fsdp"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P(*lead, "heads")
+        s["bk"] = P(*lead, "kv_heads")
+        s["bv"] = P(*lead, "kv_heads")
+    return s
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     shapes = attention_shapes(cfg)
     p = {name: dense_init(gen, shapes[name][0]) for name in ("wq", "wk", "wv", "wo")}
@@ -364,6 +381,22 @@ def mlp_shapes(d: int, ff: int, dtype, gated: bool = True) -> dict:
             "b2": ((d,), dtype)}
 
 
+def mlp_specs(layers: bool, gated=True) -> dict:
+    lead = ("layers",) if layers else ()
+    if gated:
+        return {
+            "w_gate": P(*lead, "embed_fsdp", "mlp"),
+            "w_up": P(*lead, "embed_fsdp", "mlp"),
+            "w_down": P(*lead, "mlp", "embed_fsdp"),
+        }
+    return {
+        "w1": P(*lead, "embed_fsdp", "mlp"),
+        "b1": P(*lead, "mlp"),
+        "w2": P(*lead, "mlp", "embed_fsdp"),
+        "b2": P(*lead, "embed_fsdp"),
+    }
+
+
 def init_mlp(gen: torch.Generator, d: int, ff: int, gated: bool = True) -> dict:
     if gated:
         return {"w_gate": dense_init(gen, (d, ff)), "w_up": dense_init(gen, (d, ff)),
@@ -406,8 +439,16 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def embedding_specs(cfg: ModelConfig) -> dict:
+    s = {"tok": P("vocab", "embed_fsdp")}
+    if not cfg.tie_embeddings:
+        s["out"] = P("embed_fsdp", "vocab")
+    return s
+
+
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(cdtype(cfg))
+    x = p["tok"][tokens.long()].to(cdtype(cfg))
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -420,7 +461,7 @@ def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, NEG_INF)
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -7,18 +7,22 @@ moe and vlm, ``zamba.Zamba`` for hybrid, ``xlstm_lm.XLSTM`` for ssm,
 ``whisper.Whisper`` for audio) on the device of the generator that drew
 them (or the one ``convert.params_from_reference`` was given).
 
-Left out: the sharding members (``param_specs``, ``cache_specs``,
-``batch_spec``, ``batch_logical``), which place arrays on a GSPMD mesh.
+The sharding members name logical axes as the reference's do:
+``param_specs()`` keyed by the model's parameter names (the family's
+reference-shaped tree unstacked by ``unstack_specs``), ``cache_specs()`` by
+the cache's, ``batch_logical(shape)`` by the batch's; ``batch_spec(shape)``
+gives the batch as ``meta`` tensors (the reference's ``ShapeDtypeStruct``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Iterable, Mapping
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer, whisper, xlstm_lm, zamba
+from repro_torch.sharding.rules import P
 
 # Each family's module: its model class and its cache functions.
 _FAMILIES = {"dense": (transformer, transformer.Transformer),
@@ -29,16 +33,88 @@ _FAMILIES = {"dense": (transformer, transformer.Transformer),
              "audio": (whisper, whisper.Whisper)}
 
 
+# The reference's layer-stacked subtrees and their stacked axes: each
+# becomes an ``nn.ModuleList`` (of ``nn.ModuleList``s for two axes) whose
+# parameters are named ``<subtree>.<i>[.<j>].<path>``.
+STACKED = {"blocks": 1, "mamba": 2, "mamba_tail": 1, "mlstm": 2, "slstm": 1,
+           "enc_blocks": 1, "dec_blocks": 1}
+
+
+def unstack_specs(tree: Mapping, names: Iterable[str]) -> Dict[str, tuple]:
+    """A reference-shaped tree of logical specs keyed by ``names`` (state-dict
+    names), as ``convert.named_from_reference`` unstacks arrays: a leaf under
+    a stacked subtree loses one leading entry per stacked axis and serves
+    every ``<subtree>.<i>[.<j>].<path>``."""
+    flat: Dict[tuple, tuple] = {}
+
+    def walk(node: Mapping, path: tuple, axes: int) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + (key,), axes if path else STACKED.get(key, 0))
+            else:
+                flat[path + (key,)] = P(*value[axes:])
+
+    walk(tree, (), 0)
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        axes = STACKED.get(parts[0], 0)
+        out[name] = flat[(parts[0], *parts[1 + axes:])]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
     build: Callable[..., Any]
     init_params: Callable[..., Any]
+    param_specs: Callable[[], Dict[str, tuple]]
     loss_fn: Callable[[Any, Dict], torch.Tensor]
     prefill: Callable[[Any, Dict], torch.Tensor]
     decode_step: Callable[..., Any]
     cache_shape: Callable[[int, int], Dict]
+    cache_specs: Callable[[], Dict[str, tuple]]
     init_cache: Callable[..., Dict]
+    batch_spec: Callable[[ShapeConfig], Dict]
+    batch_logical: Callable[[ShapeConfig], Dict]
+
+
+def _token_batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """``meta`` tensors standing in for every model input (the dry run's
+    input specs): the reference's shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = lambda *sh: torch.empty(sh, dtype=torch.int32, device="meta")  # noqa: E731
+    emb = lambda *sh: torch.empty(sh, dtype=getattr(torch, cfg.dtype),  # noqa: E731
+                                  device="meta")
+    if shape.kind == "decode":
+        return {
+            "cache": None,  # filled by caller via cache_shape
+            "tokens": tok(b, 1),
+            "pos": tok(),
+        }
+    if cfg.family == "audio":
+        d = {"frame_embeds": emb(b, s, cfg.d_model), "tokens": tok(b, s)}
+    elif cfg.family == "vlm":
+        ft = cfg.frontend_tokens
+        d = {"prefix_embeds": emb(b, ft, cfg.d_model), "tokens": tok(b, s - ft)}
+    else:
+        d = {"tokens": tok(b, s)}
+    if shape.kind == "train":
+        d["labels"] = tok(*d["tokens"].shape)
+    return d
+
+
+def _token_batch_logical(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    if shape.kind == "decode":
+        return {"cache": None, "tokens": P("batch"), "pos": P()}
+    out = {"tokens": P("batch", "seq")}
+    if cfg.family == "audio":
+        out["frame_embeds"] = P("batch", "seq", "embed")
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = P("batch", "seq", "embed")
+    if shape.kind == "train":
+        out["labels"] = P("batch", "seq")
+    return out
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -68,15 +144,26 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         def prefill(params, batch):
             return params.prefill(batch["tokens"])
 
+    def param_specs():
+        names = (name for name, _ in build("meta", 1).named_parameters())
+        return unstack_specs(mod.param_specs(cfg), names)
+
+    def cache_specs():
+        return unstack_specs(mod.cache_specs(cfg), mod.cache_shape(cfg, 1, 1))
+
     return ModelAPI(
         cfg=cfg,
         build=build,
         init_params=init_params,
+        param_specs=param_specs,
         loss_fn=lambda params, batch: params.loss_fn(batch),
         prefill=prefill,
         decode_step=lambda params, cache, tokens, pos: params.decode_step(cache, tokens, pos),
         cache_shape=lambda batch, seq: mod.cache_shape(cfg, batch, seq),
+        cache_specs=cache_specs,
         init_cache=lambda batch, seq, device="cuda": mod.init_cache(cfg, batch, seq, device),
+        batch_spec=lambda shape: _token_batch_spec(cfg, shape),
+        batch_logical=lambda shape: _token_batch_logical(cfg, shape),
     )
 
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import P, constrain
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -28,6 +29,16 @@ def moe_shapes(cfg: ModelConfig) -> dict:
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return {name: L.dense_init(gen, shape, in_axis=0 if name == "router" else 1)
             for name, (shape, _) in moe_shapes(cfg).items()}
+
+
+def moe_specs(cfg: ModelConfig, layers: bool) -> dict:
+    lead = ("layers",) if layers else ()
+    return {
+        "router": P(*lead, "embed", None),
+        "w_gate": P(*lead, "experts", "embed_fsdp", "expert_mlp"),
+        "w_up": P(*lead, "experts", "embed_fsdp", "expert_mlp"),
+        "w_down": P(*lead, "experts", "expert_mlp", "embed_fsdp"),
+    }
 
 
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -72,12 +83,14 @@ def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.T
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
     buf.index_put_((flat_expert, safe_pos), torch.where(keep[:, None], src, 0),
                    accumulate=True)
+    buf = constrain(buf, ("experts", "expert_cap", "embed"))
 
     # --- expert FFNs (batched over E) ---
     gate = torch.bmm(buf, p["w_gate"])
     up = torch.bmm(buf, p["w_up"])
     act = (F.silu(gate.float()) * up.float()).to(x.dtype)
     out = torch.bmm(act, p["w_down"])
+    out = constrain(out, ("experts", "expert_cap", "embed"))
 
     # --- combine: gather each (token, slot)'s result, weight, and sum ---
     gathered = torch.where(keep[:, None], out[flat_expert, safe_pos], 0)

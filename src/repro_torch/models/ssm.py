@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import P
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
@@ -60,6 +61,21 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "dt_bias": torch.full(h, -2.0, device=dev),          # softplus ~ 0.12
             "norm": L.zeros_init(gen, shapes["norm"][0]),
             "out_proj": L.dense_init(gen, shapes["out_proj"][0])}
+
+
+def mamba_specs(cfg: ModelConfig, layers: bool = True) -> dict:
+    lead = ("layers",) if layers else ()
+    return {
+        "ln": P(*lead, "embed"),
+        "in_proj": P(*lead, "embed_fsdp", "conv_dim"),
+        "conv_w": P(*lead, "conv_dim", None),
+        "conv_b": P(*lead, "conv_dim"),
+        "a_log": P(*lead, "ssm_heads"),
+        "d_skip": P(*lead, "ssm_heads"),
+        "dt_bias": P(*lead, "ssm_heads"),
+        "norm": P(*lead, "conv_dim"),
+        "out_proj": P(*lead, "conv_dim", "embed_fsdp"),
+    }
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,6 +167,13 @@ def mamba_cache_shape(cfg: ModelConfig, layers: int, batch: int) -> dict:
     _, h, p_dim, n, conv_dim = dims(cfg)
     return {"ssm": ((layers, batch, h, p_dim, n), torch.float32),
             "conv": ((layers, batch, cfg.ssm_conv - 1, conv_dim), L.cdtype(cfg))}
+
+
+def mamba_cache_specs() -> dict:
+    return {
+        "ssm": P("layers", "batch", "ssm_heads", None, None),
+        "conv": P("layers", "batch", None, "conv_dim"),
+    }
 
 
 def mamba_decode_block(blk, x: torch.Tensor, ssm_state: torch.Tensor,

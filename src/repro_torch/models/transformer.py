@@ -32,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding.rules import P
 
 
 def is_moe(cfg: ModelConfig) -> bool:
@@ -58,6 +59,24 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     else:
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff)
     return p
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names of the reference's (layer-stacked) param tree."""
+    blocks = {
+        "ln1": P("layers", "embed"),
+        "attn": L.attention_specs(cfg, layers=True),
+        "ln2": P("layers", "embed"),
+    }
+    if is_moe(cfg):
+        blocks["moe"] = moe_lib.moe_specs(cfg, layers=True)
+    else:
+        blocks["mlp"] = L.mlp_specs(layers=True)
+    return {
+        "embed": L.embedding_specs(cfg),
+        "blocks": blocks,
+        "ln_f": P("embed"),
+    }
 
 
 class Transformer(L.LanguageModel):
@@ -194,6 +213,16 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
     if cfg.kv_quant:
         out["k_scale"] = (kv[:-1], torch.float32)
         out["v_scale"] = (kv[:-1], torch.float32)
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    spec = P("layers", "batch", "kv_heads", "cache_seq", None)
+    out = {"k": spec, "v": spec}
+    if cfg.kv_quant:
+        sc = P("layers", "batch", "kv_heads", "cache_seq")
+        out["k_scale"] = sc
+        out["v_scale"] = sc
     return out
 
 

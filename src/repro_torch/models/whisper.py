@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.rules import P
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -40,6 +41,10 @@ def _ln_shapes(d: int) -> dict:
 
 def _ln_init(gen: torch.Generator, d: int) -> dict:
     return {"w": torch.ones(d, device=gen.device), "b": L.zeros_init(gen, (d,))}
+
+
+def _ln_specs(lead):
+    return {"w": P(*lead, "embed"), "b": P(*lead, "embed")}
 
 
 def _ln(x, p, eps):
@@ -75,6 +80,33 @@ def _cross_query(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.qkv_bias:
         q = q + p["bq"]
     return q.reshape(*x.shape[:2], cfg.num_heads, cfg.resolved_head_dim)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names of the reference's (layer-stacked) param tree."""
+    lead = ("layers",)
+    enc = {
+        "ln1": _ln_specs(lead),
+        "attn": L.attention_specs(cfg, layers=True),
+        "ln2": _ln_specs(lead),
+        "mlp": L.mlp_specs(layers=True, gated=False),
+    }
+    dec = {
+        "ln1": _ln_specs(lead),
+        "self_attn": L.attention_specs(cfg, layers=True),
+        "ln2": _ln_specs(lead),
+        "cross_attn": L.attention_specs(cfg, layers=True),
+        "ln3": _ln_specs(lead),
+        "mlp": L.mlp_specs(layers=True, gated=False),
+    }
+    return {
+        "embed": L.embedding_specs(cfg),
+        "dec_pos": P("seq", "embed_fsdp"),
+        "enc_blocks": enc,
+        "enc_ln_f": _ln_specs(()),
+        "dec_blocks": dec,
+        "dec_ln_f": _ln_specs(()),
+    }
 
 
 class Whisper(L.LanguageModel):
@@ -231,6 +263,11 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
     kv = ((cfg.num_layers, batch, cfg.num_kv_heads, seq, cfg.resolved_head_dim),
           L.cdtype(cfg))
     return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv, "cross_len": ((), torch.int32)}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    kv = P("layers", "batch", "kv_heads", "cache_seq", None)
+    return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv, "cross_len": P()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> dict:

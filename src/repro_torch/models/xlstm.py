@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import causal_conv, chunk_len, conv_step
+from repro_torch.sharding.rules import P
 
 MIN_LOG = -30.0
 
@@ -61,6 +62,24 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig) -> dict:
              b_i=torch.full(s["b_i"], -3.0, device=dev),
              b_f=torch.full(s["b_f"], 3.0, device=dev))      # open forget gate
     return p
+
+
+def mlstm_specs(lead: Tuple[str, ...]) -> dict:
+    return {
+        "ln": P(*lead, "embed"),
+        "up": P(*lead, "embed_fsdp", "conv_dim"),
+        "conv_w": P(*lead, "conv_dim", None),
+        "conv_b": P(*lead, "conv_dim"),
+        "wq": P(*lead, "embed_fsdp", "conv_dim"),
+        "wk": P(*lead, "embed_fsdp", "conv_dim"),
+        "wv": P(*lead, "embed_fsdp", "conv_dim"),
+        "w_i": P(*lead, "conv_dim", "ssm_heads"),
+        "b_i": P(*lead, "ssm_heads"),
+        "w_f": P(*lead, "conv_dim", "ssm_heads"),
+        "b_f": P(*lead, "ssm_heads"),
+        "norm": P(*lead, "conv_dim"),
+        "down": P(*lead, "conv_dim", "embed_fsdp"),
+    }
 
 
 def _gates(blk, xm: torch.Tensor):
@@ -194,6 +213,17 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig) -> dict:
                             torch.zeros(2 * di, device=dev)]),       # z, o
             "norm": L.zeros_init(gen, s["norm"]),
             "down": L.dense_init(gen, s["down"])}
+
+
+def slstm_specs(lead: Tuple[str, ...]) -> dict:
+    return {
+        "ln": P(*lead, "embed"),
+        "w_in": P(*lead, "embed_fsdp", "conv_dim"),
+        "r": P(*lead, "ssm_heads", None, None),
+        "b": P(*lead, "conv_dim"),
+        "norm": P(*lead, "conv_dim"),
+        "down": P(*lead, "conv_dim", "embed_fsdp"),
+    }
 
 
 def _slstm_cell(blk, wx_t: torch.Tensor, state, cfg: ModelConfig):

@@ -16,6 +16,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import xlstm as X
+from repro_torch.sharding.rules import P
 
 _SLSTM_STATE = ("s_c", "s_n", "s_h", "s_m")
 _MLSTM_STATE = ("m_c", "m_n", "m_m", "m_conv")
@@ -29,6 +30,19 @@ def grouping(cfg: ModelConfig) -> Tuple[int, int]:
     if cfg.num_layers % r:
         raise ValueError("num_layers must divide by slstm_every")
     return cfg.num_layers // r, r - 1
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names of the reference's param tree (``mlstm`` stacked
+    over (groups, blocks), ``slstm`` over its groups)."""
+    s = {
+        "embed": L.embedding_specs(cfg),
+        "mlstm": X.mlstm_specs(("layers", None)),
+        "ln_f": P("embed"),
+    }
+    if cfg.slstm_every > 0:
+        s["slstm"] = X.slstm_specs(("layers",))
+    return s
 
 
 class XLSTM(L.LanguageModel):
@@ -128,6 +142,19 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
     if cfg.slstm_every > 0:
         out.update({name: ((g, batch, di), f32) for name in _SLSTM_STATE})
     return out
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    s = {
+        "m_c": P("layers", None, "batch", "ssm_heads", None, None),
+        "m_n": P("layers", None, "batch", "ssm_heads", None),
+        "m_m": P("layers", None, "batch", "ssm_heads"),
+        "m_conv": P("layers", None, "batch", None, "conv_dim"),
+    }
+    if cfg.slstm_every > 0:
+        for name in _SLSTM_STATE:
+            s[name] = P("layers", "batch", "conv_dim")
+    return s
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> dict:

@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.sharding.rules import P
 
 
 def grouping(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -41,6 +42,28 @@ def _shared_attn_block(shared, x, cfg: ModelConfig, positions):
     x = x + L.attention_out(shared["attn"], L.blockwise_attention(q, k, v, causal=True), cfg)
     h = L.rms_norm(x, shared["ln2"], cfg.norm_eps)
     return x + L.gated_mlp(shared["mlp"], h)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axis names of the reference's param tree (``mamba`` stacked
+    over (groups, blocks), ``mamba_tail`` over its blocks)."""
+    _, _, tail = grouping(cfg)
+    mamba = ssm.mamba_specs(cfg, layers=True)
+    grouped = {name: P("layers", None, *s[1:]) for name, s in mamba.items()}
+    s = {
+        "embed": L.embedding_specs(cfg),
+        "mamba": grouped,
+        "shared": {
+            "ln1": P("embed"),
+            "attn": L.attention_specs(cfg, layers=False),
+            "ln2": P("embed"),
+            "mlp": L.mlp_specs(layers=False),
+        },
+        "ln_f": P("embed"),
+    }
+    if tail:
+        s["mamba_tail"] = mamba
+    return s
 
 
 class Zamba(L.LanguageModel):
@@ -152,6 +175,12 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int) -> dict:
     out = ssm.mamba_cache_shape(cfg, g * e + tail, batch)
     kv = ((g, batch, cfg.num_kv_heads, seq, cfg.resolved_head_dim), L.cdtype(cfg))
     return dict(out, k=kv, v=kv)
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    m = ssm.mamba_cache_specs()
+    kv = P("layers", "batch", "kv_heads", "cache_seq", None)
+    return {"ssm": m["ssm"], "conv": m["conv"], "k": kv, "v": kv}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> dict:

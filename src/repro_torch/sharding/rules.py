@@ -10,7 +10,8 @@ The reference's ``repro/sharding/rules.py``, ported over
 :class:`~repro_torch.launch.mesh.DeviceMesh`.  A spec is a tuple with one
 entry per leading dimension (a mesh axis name, a tuple of names, or None),
 trailing Nones dropped: the contents of the reference's ``PartitionSpec``.
-A sharding is ``(mesh, spec)``.
+A sharding is ``(mesh, spec)``.  The models' ``*_specs`` write their
+logical specs with :func:`P` in the same form.
 """
 from __future__ import annotations
 
@@ -19,6 +20,15 @@ from typing import Any, Optional, Sequence, Tuple, Union
 
 LogicalAxis = Optional[str]
 MeshAxes = Union[None, str, Tuple[str, ...]]
+
+
+def P(*entries: LogicalAxis) -> tuple:
+    """A spec in the port's form: the reference's ``PartitionSpec(*entries)``
+    as a tuple, trailing Nones dropped."""
+    out = list(entries)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,11 @@ the order of their sorted key paths, bfloat16 leaves as ``uint16`` bits
 (as ``core/persistence.py`` stores them), their dtypes in a JSON entry.
 The reference writes msgpack + zstd; the port needs only numpy, and the
 float32 masters and moments compress little.
+
+Elastic, as the reference's: a leaf that is a ``launch.mesh.MeshArray`` is
+saved as its gathered global array (the file holds what a one-device save
+of the same values holds), and ``restore(..., shardings=)`` cuts each leaf
+into the pieces of the restoring mesh, which may differ from the saving one.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Any, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.launch.mesh import MeshArray, distribute, gather
 
 _PREFIX, _SUFFIX = "ckpt_", ".npz"
 
@@ -43,8 +50,11 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
 
 def _to_host(x: Any) -> Tuple[np.ndarray, str]:
     """A host copy of one leaf and its dtype's name (bf16 as uint16 bits)."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, MeshArray):
+        x = gather(x, "cpu")            # a new host tensor
+    elif isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
+    if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return x.numpy(), str(x.dtype).removeprefix("torch.")
@@ -66,23 +76,33 @@ def serialize(f, host: List[Tuple[np.ndarray, str]]) -> None:
     np.savez(f, dtypes=np.array(json.dumps([dt for _, dt in host])), **arrays)
 
 
-def deserialize(path: str, like: Any, device="cpu") -> Any:
+def _shape(x: Any) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def deserialize(path: str, like: Any, device="cpu", shardings: Any = None) -> Any:
     """The checkpoint at ``path`` in ``like``'s structure, as tensors on
-    ``device``.  Raises ``ValueError`` if its leaf count or a leaf's shape
-    differs from ``like``'s."""
+    ``device``, or, with ``shardings`` (``like``'s structure with a ``(mesh,
+    spec)`` at each leaf), as ``MeshArray`` s laid out by them.  Raises
+    ``ValueError`` if its leaf count or a leaf's shape differs from
+    ``like``'s."""
     want = list(_leaves(like))
+    places = list(_leaves(shardings)) if shardings is not None else [None] * len(want)
     with np.load(path) as data:
         dtypes = json.loads(str(data["dtypes"]))
         if len(dtypes) != len(want):
             raise ValueError(f"checkpoint has {len(dtypes)} leaves, expected {len(want)} "
                              "(architecture mismatch?)")
         out = []
-        for i, (dtype, ref) in enumerate(zip(dtypes, want)):
+        for i, (dtype, ref, place) in enumerate(zip(dtypes, want, places)):
             arr = data[f"leaf_{i:06d}"]
-            if tuple(arr.shape) != tuple(np.shape(ref)):
+            if tuple(arr.shape) != _shape(ref):
                 raise ValueError(f"checkpoint leaf {i} has shape {arr.shape}, expected "
-                                 f"{tuple(np.shape(ref))}")
-            out.append(_from_host(arr, dtype, device))
+                                 f"{_shape(ref)}")
+            if place is None:
+                out.append(_from_host(arr, dtype, device))
+            else:
+                out.append(distribute(_from_host(arr, dtype, "cpu"), place))
     return _unflatten(like, iter(out))
 
 
@@ -152,10 +172,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None, device="cpu") -> Tuple[int, Any]:
+    def restore(self, like: Any, step: Optional[int] = None, device="cpu",
+                shardings: Any = None) -> Tuple[int, Any]:
         """(step, state) of checkpoint ``step`` (the latest by default), in
-        ``like``'s structure as tensors on ``device``."""
+        ``like``'s structure as tensors on ``device``; re-sharded onto
+        ``shardings`` if given (elastic: the restoring job's mesh may differ
+        from the saving job's), each leaf a ``MeshArray``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        return step, deserialize(self._path(step), like, device)
+        return step, deserialize(self._path(step), like, device, shardings)

@@ -12,8 +12,10 @@ model's parameters and cast to float32, and the parameters are refreshed
 from the masters after each update.  At bfloat16 a tied ``tok`` gets its two
 uses' gradients summed in bf16, where the reference sums them in float32.
 
-Left out: ``opt_state_specs``, which places the state on a GSPMD mesh (one
-device here; the sharding rules wait for ROADMAP Queue 1 item 7.5).
+On a mesh (``train.loop.make_sharded_step``) the masters and moments are
+``MeshArray`` s: ``adamw_scalars`` runs once over the whole gradient and
+``adamw_leaf`` on each piece, the same ops ``adamw_update`` runs on whole
+tensors; ``opt_state_specs`` gives the state the masters' shardings.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.launch.mesh import MeshArray, unique_blocks
 
 Named = Dict[str, torch.Tensor]
 
@@ -34,6 +37,14 @@ def init_opt_state(params: Named) -> dict:
     device = next(iter(params.values())).device
     return {"mu": zeros, "nu": {name: z.clone() for name, z in zeros.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def opt_state_specs(param_shardings: Dict[str, tuple]) -> dict:
+    """Optimizer state shards exactly like params (ZeRO-3 style); ``step`` is
+    replicated over the masters' mesh."""
+    shardings = list(param_shardings.values())
+    step = (shardings[0][0], ()) if shardings else ()
+    return {"mu": param_shardings, "nu": param_shardings, "step": step}
 
 
 def lr_at(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
@@ -50,38 +61,62 @@ def global_norm(tree: Named) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
 
 
+def adamw_scalars(grads: Named, step: torch.Tensor, tc: TrainConfig) -> dict:
+    """What every leaf's update at ``step`` (the new step count) shares: the
+    gradient norm before clipping, the clip scale, the learning rate and the
+    two bias corrections (0-d float32 tensors on ``step``'s device)."""
+    gnorm = global_norm(grads)
+    t = step.float()
+    return {"grad_norm": gnorm,
+            "scale": torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0),
+            "lr": lr_at(step, tc),
+            "c1": 1 - torch.pow(torch.tensor(tc.b1, dtype=torch.float32, device=t.device), t),
+            "c2": 1 - torch.pow(torch.tensor(tc.b2, dtype=torch.float32, device=t.device), t)}
+
+
+def adamw_leaf(p, g, mu, nu, s: dict, tc: TrainConfig):
+    """One tensor's (or one piece's) update with the shared scalars ``s``:
+    returns (p, mu, nu)."""
+    b1, b2 = tc.b1, tc.b2
+    g = g.float() * s["scale"]
+    mu = b1 * mu + (1 - b1) * g
+    nu = b2 * nu + (1 - b2) * g * g
+    mu_hat = mu / s["c1"]
+    nu_hat = nu / s["c2"]
+    p = p - s["lr"] * (mu_hat / (torch.sqrt(nu_hat) + 1e-8) + tc.weight_decay * p)
+    return p, mu, nu
+
+
 def adamw_update(params: Named, grads: Named, opt_state: dict, tc: TrainConfig
                  ) -> Tuple[Named, dict, dict]:
     """Returns (new_params, new_opt_state, metrics); ``metrics["grad_norm"]``
     is the norm before clipping."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    lr = lr_at(step, tc)
-    b1, b2 = tc.b1, tc.b2
-    t = step.float()
-    c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t)
-    c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
+    s = adamw_scalars(grads, step, tc)
     new_p, new_mu, new_nu = {}, {}, {}
     for name, p in params.items():
-        g = grads[name].float() * scale
-        mu = b1 * opt_state["mu"][name] + (1 - b1) * g
-        nu = b2 * opt_state["nu"][name] + (1 - b2) * g * g
-        mu_hat = mu / c1
-        nu_hat = nu / c2
-        new_p[name] = p - lr * (mu_hat / (torch.sqrt(nu_hat) + 1e-8) + tc.weight_decay * p)
-        new_mu[name], new_nu[name] = mu, nu
-    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, {"grad_norm": gnorm, "lr": lr}
+        new_p[name], new_mu[name], new_nu[name] = adamw_leaf(
+            p, grads[name], opt_state["mu"][name], opt_state["nu"][name], s, tc)
+    return (new_p, {"mu": new_mu, "nu": new_nu, "step": step},
+            {"grad_norm": s["grad_norm"], "lr": s["lr"]})
 
 
 @torch.no_grad()
 def load_masters(model: torch.nn.Module, params: Named, round_bf16: bool = False) -> None:
     """Refresh the model's working copy from the masters, each cast to the
     dtype the model holds it in; ``round_bf16`` rounds every master to
-    bfloat16 first (the float32-held norms too)."""
+    bfloat16 first (the float32-held norms too).  A master that is a
+    ``MeshArray`` is gathered: each distinct block copied once into its
+    slice of the parameter."""
     for name, p in model.named_parameters():
         src = params[name]
-        p.copy_(src.to(torch.bfloat16) if round_bf16 else src)
+        if isinstance(src, MeshArray):
+            blocks = [(sl, src.pieces[pos]) for pos, sl in unique_blocks(src.shape,
+                                                                         src.sharding)]
+        else:
+            blocks = [((), src)]
+        for sl, block in blocks:
+            p[sl].copy_(block.to(torch.bfloat16) if round_bf16 else block)
 
 
 def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:
@@ -99,8 +134,26 @@ def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:
     at the masters rounded to bfloat16 and is itself rounded to bfloat16
     (the reference differentiates a bf16 copy of its float32 params).
     """
+    grad_fn = make_grad_fn(loss_fn, tc)
+
+    def step_fn(model, params: Named, opt_state: dict, batch: dict):
+        if tc.grad_dtype == "bfloat16":
+            load_masters(model, params, round_bf16=True)
+        loss, grads = grad_fn(model, batch)
+        params, opt_state, metrics = adamw_update(params, grads, opt_state, tc)
+        metrics["loss"] = loss
+        load_masters(model, params)
+        return params, opt_state, metrics
+
+    return step_fn
+
+
+def make_grad_fn(loss_fn: Callable, tc: TrainConfig) -> Callable:
+    """``grad_fn(model, batch) -> (loss, grads)``: the (micro-batched) loss
+    at the model's working copy as a 0-d float32 tensor, and the gradient
+    under the model's parameter names in ``tc.grad_dtype`` (the mean over
+    the microbatches when ``tc.microbatches > 1``)."""
     gdt = getattr(torch, tc.grad_dtype)
-    bf16_grads = tc.grad_dtype == "bfloat16"
 
     def single(model, weights, batch):
         loss = loss_fn(model, batch)
@@ -108,9 +161,7 @@ def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:
         grads = [torch.zeros_like(w) if g is None else g for w, g in zip(weights, grads)]
         return loss.detach().float(), grads
 
-    def step_fn(model, params: Named, opt_state: dict, batch: dict):
-        if bf16_grads:
-            load_masters(model, params, round_bf16=True)
+    def grad_fn(model, batch: dict):
         names, weights = zip(*model.named_parameters())
         for w in weights:
             w.requires_grad_(True)
@@ -130,10 +181,6 @@ def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:
         finally:
             for w in weights:
                 w.requires_grad_(False)
-        params, opt_state, metrics = adamw_update(params, dict(zip(names, grads)), opt_state,
-                                                  tc)
-        metrics["loss"] = loss
-        load_masters(model, params)
-        return params, opt_state, metrics
+        return loss, dict(zip(names, grads))
 
-    return step_fn
+    return grad_fn

@@ -28,7 +28,10 @@ against the per-shard path and the single device, and
 
 Training: one smoke step of ``make_train_step`` on the card against the CPU
 (the f32 tolerances of ``test_torch_train.py``), a checkpoint restored onto
-the card, and ``launch/train.py --smoke`` on the card by default.
+the card, and ``launch/train.py --smoke`` on the card by default.  The
+training mesh: ``train(mesh=)`` on a 2 x 2 mesh of this card's positions bit
+for bit ``mesh=None``, a resume from that mesh's checkpoint on a 4 x 1 one,
+and ``pipelined_loss_fn`` on a (4, 1, 1) mesh against the sequential loss.
 """
 import dataclasses
 import os
@@ -1422,5 +1425,90 @@ def test_launch_train_smoke_on_the_card(cuda, tmp_path):
                              str(tmp_path), "--checkpoint-every", "2"])
     assert len(out["history"]) == 4 and np.isfinite(out["history"]).all()
     assert all(p.is_cuda for p in out["params"].parameters())
-    assert all(t.is_cuda for t in out["masters"].values())
+    # the launcher trains on the host mesh: the masters are its pieces
+    assert all(t.is_cuda for a in out["masters"].values() for t in a.pieces.values())
     assert sorted(os.listdir(tmp_path)) == ["ckpt_00000002.npz", "ckpt_00000004.npz"]
+
+
+# ---------------------------------------------------------------------------
+# The training mesh on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic(no_tf32):
+    """Deterministic kernels (the embedding's backward sums in a fixed
+    order), so two runs of the same step give the same bits."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield no_tf32
+    torch.use_deterministic_algorithms(False)
+
+
+def train_card_mesh(shape, axes=("data", "model")):
+    from repro_torch.launch.mesh import DeviceMesh
+
+    return DeviceMesh(np.full(shape, torch.device("cuda", 0), dtype=object), axes)
+
+
+def test_train_on_a_card_mesh_is_train_without(deterministic, tmp_path):
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import gather
+    from repro_torch.train.loop import train
+
+    cfg, shape = smoke_config("smollm_360m"), ShapeConfig("t", "train", 64, 4)
+    outs = []
+    for i, mesh in enumerate((None, train_card_mesh((2, 2)))):
+        tc = TrainConfig(steps=3, warmup_steps=1, learning_rate=1e-3, microbatches=2,
+                         checkpoint_every=0, checkpoint_dir=str(tmp_path / str(i)))
+        outs.append(train(cfg, shape, tc, mesh=mesh, log_every=100))
+    plain, meshed = outs
+    assert plain["history"] == meshed["history"]
+    for name, t in plain["masters"].items():
+        arr = meshed["masters"][name]
+        assert all(p.is_cuda for p in arr.pieces.values())
+        assert torch.equal(t, gather(arr, "cuda")), name
+
+
+def test_elastic_resume_on_the_card(deterministic, tmp_path):
+    import shutil
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import gather
+    from repro_torch.train.loop import train
+
+    cfg, shape = smoke_config("smollm_360m"), ShapeConfig("t", "train", 64, 4)
+    tc = TrainConfig(steps=4, warmup_steps=1, learning_rate=1e-3, checkpoint_every=2,
+                     checkpoint_dir=str(tmp_path / "full"))
+    full = train(cfg, shape, tc, mesh=train_card_mesh((2, 2)), log_every=100)
+    (tmp_path / "part").mkdir()
+    shutil.copy(tmp_path / "full" / "ckpt_00000002.npz", tmp_path / "part")
+    again = train(cfg, shape, dataclasses.replace(tc, checkpoint_dir=str(tmp_path / "part")),
+                  mesh=train_card_mesh((4, 1)), log_every=100)
+    assert again["history"] == full["history"][2:]
+    for name, arr in full["masters"].items():
+        assert torch.equal(gather(again["masters"][name], "cuda"), gather(arr, "cuda")), name
+
+
+def test_pipeline_on_a_card_mesh(no_tf32):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train.pipeline import pipelined_loss_fn
+
+    cfg = dataclasses.replace(smoke_config("granite_8b"), num_layers=4)
+    model = get_model(cfg).init_params(torch.Generator("cuda").manual_seed(0), 32)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32))
+             .cuda() for k in ("tokens", "labels")}
+    names, weights = zip(*model.named_parameters())
+    for w in weights:
+        w.requires_grad_(True)
+    want = model.loss_fn(batch)
+    g_want = torch.autograd.grad(want, weights)
+    mesh = train_card_mesh((4, 1, 1), ("stage", "data", "model"))
+    got = pipelined_loss_fn(model, cfg, batch, mesh, 4)
+    g_got = torch.autograd.grad(got, weights)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    for name, a, b in zip(names, g_got, g_want):
+        assert float((a - b).abs().max()) < 1e-4 * max(float(b.abs().max()), 1.0), name
