@@ -56,7 +56,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              launches are queued), each checked against its plain version
              on the same inputs, with its bound on an H100 SXM and a library
              yardstick (torch.sparse.mm).
-5. mixed     recall-targeted mixed precision on the first 5,000,000 rows of
+5. mixed     recall-targeted mixed precision on the first 3,000,000 rows of
              the query cell's 10M x 512 collection (seed 0; a cut in depth
              only: c = 32 as phase 3's, the same widths, row lengths, target
              and k), scaled hot/cold as the
@@ -247,12 +247,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
              both times (CUDA events), 7 ticks, bubble 3/7.  One card runs
              every position, so the moves between positions and stages are
              no-ops.  The three kernels launch 0 times here.
-   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``TRAIN_MESH``, ``SHARDED``, ``MESH``
-             and ``MIXED`` lines, the ``kernels`` JSON line (each kernel's
+14. dryrun   run after phase 13: ``repro_torch.launch.dryrun`` on ``meta``
+             tensors at the card's own shapes: (a) phase 11's train step
+             (SmolLM-360M, B 32 x S 2048 in 4 microbatches, a one-position
+             mesh), phase 9's decode step (Qwen2.5-3B at its 12 layers, B 64
+             against a 128-deep cache) and phase 4's Q = 64 multi-query pass
+             on phase 3's word shape; (b) one real step of each counted on
+             the card under the same ``op_costs.OpCounter``, each where its
+             state lives and outside every timed window: the pass at the end
+             of phase 4 on phase 3's snapshot (one launch of the kernel, no
+             plain walk), the decode step at the end of phase 9 on its model
+             (then timed), the train step here on a fresh state.  Checks:
+             each counted FLOP total equal to its ``meta`` trace's, the
+             train step's argument bytes equal to the bytes the card holds
+             for it (masters and moments 4,341,853,440), the pass's bytes
+             equal to its ``meta`` record's and to phase 4's bound bytes.
+             (c) Printed: each cell's bound (compute with the f32 products
+             at 67 TFLOP/s, or memory) and its share of the measured time,
+             the predicted peak (arguments + temp) beside the measured.
+   summary   ``LM``, ``FAMILIES``, ``TRAIN``, ``TRAIN_MESH``, ``DRYRUN``,
+             ``SHARDED``, ``MESH`` and ``MIXED`` lines, ``PHASES`` (each
+             phase's seconds), the ``kernels`` JSON line (each kernel's
              classes, its mixed-path, per-shard and per-position times;
-             ``launches`` counts phases 3, 6, 7, 8, 9, 10, 11, 12 and 13, with
-             phase 7's, 8's, 9's, 10's, 11's, 12's and 13's also apart), the
-             card's name and power limit, and the result line.
+             ``launches`` counts phases 3, 6, 7, 8, 9, 10, 11, 12, 13 and 14,
+             with phase 7's, 8's, 9's, 10's, 11's, 12's, 13's and 14's also
+             apart), the card's name and power limit, and the result line.
 
 ``--only accumulate`` runs phases 1 and 2 and the accumulate timing on the
 graph's streams (built and mutated once, no solves), and stops without the
@@ -282,8 +301,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_FLOPS = 67e12              # H100 SXM f32, outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# The H100 SXM's peaks, from the one place the port keeps them (the module
+# imports nothing, so torch is not imported before main() sets up cuBLAS).
+from repro_torch.launch.analysis import (HBM_BW as HBM_BYTES_PER_S,  # noqa: E402
+                                         PEAK_FLOPS_BF16 as H100_BF16_FLOPS,
+                                         PEAK_FLOPS_F32 as F32_FLOPS)
 TOL = 1e-5
 FORMATS = ("F32", "BF16", "Q15", "Q7")
 SOURCE = "src/repro_torch/csrc/bscsr_topk_spmv.cu"
@@ -310,9 +333,9 @@ MIXED_TARGET = 0.99
 MIXED_COLD_SCALE = 0.25
 MIXED_BUDGET_S = 0.5           # time_cuda budget per timing in the mixed phase
 MIXED_WIDER_K = 8              # extra places of the plain walk that scores a k-th-place tie
-# Its collection: the first 5,000,000 rows of phase 3's (a cut in depth only,
-# to keep the whole script inside its time limit; c stays 32).
-MIXED_ROWS = 5_000_000
+# Its collection: the first 3,000,000 rows of phase 3's (a cut in depth only,
+# to keep the whole script inside its time limit with phase 14; c stays 32).
+MIXED_ROWS = 3_000_000
 GRAPH_NODES = 1 << 21
 GRAPH_NNZ = 5_242_878          # the reference's synthetic_graph_csr("ring", 2**21, 0)
 GRAPH_SEEDS = [5, 17, 4242]
@@ -345,7 +368,6 @@ LM_TIMED_STEPS = 5            # decode steps timed (CUDA events) after 2 of warm
 # shapes (and so other summation orders), and the differences grow over
 # 36 layers; 0.25 is 8-16 bf16 ulps at the top logits (|logit| in 2..8).
 LM_TOL = 0.25
-H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
 # Phase 10: Zamba2-7B and xLSTM-350M behind ServingEngine (no head) as phase 9
 # serves Qwen2.5-3B, and Whisper-small over a 30-second window of frames.
 FAMILY_ARCHS = ("zamba2_7b", "xlstm_350m", "whisper_small")
@@ -806,7 +828,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import bscsr
     from repro_torch.core.similarity import SparseEmbeddingIndex
     from repro_torch.core import topk_spmv as api
@@ -849,6 +870,14 @@ def main() -> int:
         return 0
 
     # ---- phase 2: kernels vs plain versions on small fixtures ----
+    phase_s, clock = {"build": round(time.time() - t_start, 1)}, [time.time()]
+
+    def lap(name: str) -> None:
+        """Each phase's seconds, for the ``PHASES`` line."""
+        now = time.time()
+        phase_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     errs = {"bscsr_topk_spmv": 0.0, "bscsr_topk_spmv_multiquery": 0.0, "bscsr_spmv": 0.0}
     parity_phase(torch, K, ops, bscsr, errs)
     if args.only == "accumulate":
@@ -867,6 +896,7 @@ def main() -> int:
         return 0
 
     # ---- phase 3: the main path at the deployment configuration ----
+    lap("parity")
     check = Check("main path")
     if args.rows != 10_000_000:
         log(f"CUT: n_rows {args.rows} instead of 10000000 (depth only)")
@@ -1040,6 +1070,7 @@ def main() -> int:
     check.done()
 
     # ---- phase 4: timings of the top-k kernels on the main path's streams ----
+    lap("main path")
     # On the snapshot before ingest (the exact packet count, as in earlier
     # runs) and on the snapshot after it (the churn-stable packet bucket),
     # each kernel against its plain version.
@@ -1083,13 +1114,16 @@ def main() -> int:
     for q, x in ((1, x1[:, None]), (64, x64.T.contiguous())):
         yard[f"q{q}_ms"] = time_cuda(
             torch, lambda: torch.topk(torch.sparse.mm(mat, x), cfg.big_k, dim=0))
-    del mat, crow, col, val, words
+    del mat, crow, col, val
+    query_count = dryrun_query_count(torch, K, words, x64, kw, main_cores)
+    del words
     gc.collect()
     torch.cuda.empty_cache()
     log("YARDSTICK exact-search score pass torch.sparse.mm(csr, x) + torch.topk: "
         + json.dumps(yard))
 
     # ---- phase 7: the serving plane on phase 3's facade ----
+    lap("timings")
     t0 = time.time()
     serving = serving_phase(torch, K, api, svc, xs64, deleted, np.random.default_rng(args.seed + 7),
                             ROOT / ".chip_tmp" / "serving_store")
@@ -1101,6 +1135,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 8: the query cell, the graph cell and the head on 4 shards ----
+    lap("serving")
     from repro_torch.core import graph
     from repro_torch.serve import GraphRankingService
 
@@ -1118,6 +1153,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 12: the mesh dispatch (2 replicas x 4 shards on this card) ----
+    lap("sharded")
     t0 = time.time()
     meshed = mesh_phase(torch, K, api, SparseEmbeddingIndex, GraphRankingService, csr, cfg,
                         xs64, kept, sharded, gcsr)
@@ -1131,6 +1167,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 5: mixed precision on the first MIXED_ROWS rows of the query cell ----
+    lap("mesh")
     if args.rows < MIXED_ROWS or args.seed != 0:
         csr = bscsr.synthetic_embedding_csr(10_000_000, 512, 20.0, "gamma", seed=0)
     csr = bscsr.CSRMatrix(csr.indptr[:MIXED_ROWS + 1].copy(),
@@ -1146,6 +1183,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: the graph path at full width ----
+    lap("mixed")
     gsvc, spmv_launches, pre = graph_phase(K, api, graph, SparseEmbeddingIndex,
                                            GraphRankingService, csr=gcsr,
                                            sharded_cold=(
@@ -1163,6 +1201,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 9: the LM serving path at Qwen2.5-3B's full width ----
+    lap("graph")
     t0 = time.time()
     lm = lm_phase(torch, K, api, args.seed)
     log(f"  lm phase {time.time() - t0:.1f} s")
@@ -1173,6 +1212,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 10: Zamba2-7B, xLSTM-350M and Whisper-small at full width ----
+    lap("lm")
     t0 = time.time()
     families = families_phase(torch, K, args.seed)
     log(f"  families phase {time.time() - t0:.1f} s")
@@ -1183,6 +1223,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 11: SmolLM-360M trained at full width and depth ----
+    lap("families")
     t0 = time.time()
     trained = train_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train")
     log(f"  train phase {time.time() - t0:.1f} s")
@@ -1193,6 +1234,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 13: the training mesh at SmolLM-360M's full width and depth ----
+    lap("train")
     t0 = time.time()
     meshed_train = train_mesh_phase(torch, K, args.seed, ROOT / ".chip_tmp" / "train", trained)
     log(f"  train mesh phase {time.time() - t0:.1f} s")
@@ -1202,7 +1244,23 @@ def main() -> int:
     for entry in kernels:
         entry["launches_distributed_path"] = dist_launches[entry["name"]]
         entry["launches"] += dist_launches[entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the dry run against the card's own counts ----
+    lap("train mesh")
+    t0 = time.time()
+    dry = dryrun_phase(torch, K, args.seed, query_count, lm.pop("dryrun_count"),
+                       {"query_ms": kernels[1]["ms_by_q"][64], "trained": trained,
+                        "lm": lm})
+    dry["phase_s"] = time.time() - t0
+    log(f"  dryrun phase {dry['phase_s']:.1f} s")
+    lap("dryrun")
+    for entry in kernels:
+        entry["launches_dryrun_path"] = dry["launches"][entry["name"]]
+        entry["launches"] += dry["launches"][entry["name"]]
     log(f"total {time.time() - t_start:.1f} s")
+    log("PHASES " + json.dumps(dict(phase_s, total=round(time.time() - t_start, 1))))
 
     # ---- summary ----
     classes = list(FORMATS) + ["TAG4", "TAG2", "TAG1"]
@@ -1259,6 +1317,7 @@ def main() -> int:
     log("FAMILIES " + json.dumps(dict(families, card=card_line())))
     log("TRAIN " + json.dumps(dict(trained, card=card_line())))
     log("TRAIN_MESH " + json.dumps(dict(meshed_train, card=card_line())))
+    log("DRYRUN " + json.dumps(dict(dry, card=card_line())))
     log("MIXED " + json.dumps({k: mixed[k] for k in (
         "recall", "predicted_recall", "formats", "bytes_per_nnz", "value_bytes_per_nnz",
         "bf16_bytes_per_nnz", "bf16_value_bytes_per_nnz", "end_to_end")}))
@@ -2685,6 +2744,7 @@ def lm_phase(torch, K, api, seed, cfg=None, device="cuda") -> dict:
         out.update(lm_timing(torch, K, api, L, model, engine, hidden, cfg))
         out["init_max_memory_allocated"] = init_peak
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["dryrun_count"] = dryrun_decode_count(torch, model_api, model)
         log(f"  peak device memory while serving {out['max_memory_allocated'] / 1e9:.3f} GB")
     check.done()
     return out
@@ -3460,6 +3520,242 @@ def profiled_train_step(torch, cfg, shape, tc, seed, step_ms) -> dict:
         f" of {step_ms:.1f} ms; " + json.dumps(top))
     return {"kernel_ms": busy, "idle_share": None if busy is None else 1 - busy / step_ms,
             "kernels": top}
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dryrun_query_count(torch, K, words, x64, kw, main_cores) -> dict:
+    """Phase 14 (b), at the end of phase 4: one Q = 64 pass of the
+    multi-query kernel over phase 3's snapshot (before ingest), at the
+    card's S with its split table built beforehand, under an
+    ``op_costs.OpCounter``.  Returns the counted costs, the launches it
+    made (one of the kernel, none of a plain walk) and the bytes that
+    phase 4's Q = 64 bound counts."""
+    from repro_torch.launch import op_costs
+
+    q = x64.shape[0]
+    q_chunk, n_chunks = K.query_chunks(q)
+    t, block = kw["packets_per_step"], kw["block_size"]
+    splits = K.topk_splits(words.device, words.shape[0], n_chunks, packets_per_step=t,
+                           block_size=block, m=x64.shape[1], q_chunk=q_chunk, k=kw["k"])
+    tab = K.spmv_split_table(words, packets_per_step=t, block_size=block, splits=splits)
+    torch.cuda.synchronize()
+    before = launch_counts(K)
+    with op_costs.OpCounter() as counter:
+        K.bscsr_topk_spmv_multiquery(x64, words, table=tab, **kw)
+    torch.cuda.synchronize()
+    after = launch_counts(K)
+    return {"costs": counter.costs(), "shape": list(words.shape), "q": q,
+            "n_cols": x64.shape[1], "kw": dict(kw),
+            "launches": {name: after[name] - before[name] for name in after},
+            "bound_bytes": words.numel() * 4 + q * x64.shape[1] * 4 + main_cores * q * kw["k"] * 8}
+
+
+def dryrun_decode_count(torch, model_api, model) -> dict:
+    """Phase 14 (b), at the end of phase 9: ``api.decode_step`` at B =
+    ``LM_BATCH`` against an ``LM_MAX_SEQ``-deep cache at its last position
+    (the dry run's decode cell) on phase 9's model, once under an
+    ``op_costs.OpCounter`` (after one warm-up), then ``LM_TIMED_STEPS``
+    times with CUDA events.  Returns the counted costs, the step's ms, the
+    bytes it holds (weights, cache, tokens) and its peak memory."""
+    from repro_torch.launch import op_costs
+
+    cache = model_api.init_cache(LM_BATCH, LM_MAX_SEQ, device="cuda")
+    tokens = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        return model_api.decode_step(model, cache, tokens, LM_MAX_SEQ - 1)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with op_costs.OpCounter() as counter:
+        step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times = [time_once(torch, step)[0] for _ in range(LM_TIMED_STEPS)]
+    held = _tensor_bytes(list(model.parameters()) + list(model.buffers())
+                         + list(cache.values()) + [tokens])
+    return {"costs": counter.costs(), "step_ms": float(np.mean(times)), "step_ms_each": times,
+            "held_bytes": held, "max_memory_allocated": peak}
+
+
+def dryrun_train_count(torch, seed) -> dict:
+    """Phase 14 (b): phase 11's step (SmolLM-360M, B 32 x S 2048 in 4
+    microbatches) on a fresh state on a one-position mesh of this card
+    (``loop.build_sharded_train_state`` + ``make_sharded_step``, the code
+    the dry run traces), once under an ``op_costs.OpCounter``.  Returns the
+    counted costs, the bytes the card holds for the step's arguments (its
+    pieces, working copy and batch) and its peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import op_costs
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import loop
+
+    cfg = get_config(TRAIN_ARCH)
+    api = get_model(cfg)
+    shape = ShapeConfig("train_cell", "train", TRAIN_SEQ, TRAIN_BATCH)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                     microbatches=TRAIN_MICRO, seed=seed)
+    dev = torch.device("cuda", 0)
+    mesh = DeviceMesh(np.full((1, 1), dev, dtype=object), ("data", "model"))
+    model, params, opt_state, param_sh = loop.build_sharded_train_state(api, mesh, tc, TRAIN_SEQ)
+    step_fn, _ = loop.make_sharded_step(api, mesh, tc, shape, param_sh)
+    batch = data_lib.batch_for_step(0, cfg, shape, seed, TRAIN_MICRO, dev)
+    pieces = [p for tree in (params, opt_state["mu"], opt_state["nu"])
+              for arr in tree.values() for p in arr.pieces.values()]
+    held = {"masters_and_moments": _tensor_bytes(pieces),
+            "step": _tensor_bytes(opt_state["step"].pieces.values()),
+            "working_copy": _tensor_bytes(list(model.parameters()) + list(model.buffers())),
+            "batch": _tensor_bytes(batch.values())}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with op_costs.OpCounter() as counter:
+        new = step_fn(model, params, opt_state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(new[2]["loss"])
+    del new, params, opt_state, model
+    return {"costs": counter.costs(), "held": held, "max_memory_allocated": peak,
+            "loss": loss}
+
+
+def dryrun_phase(torch, K, seed, query_count, decode_count, measured) -> dict:
+    """Phase 14: ``repro_torch.launch.dryrun`` at the card's own shapes on
+    ``meta`` tensors, held to one real step of each cell counted on the card.
+
+    (a) The dry run's three cells: phase 11's train step on a one-position
+    mesh, phase 9's decode step, phase 4's Q = 64 pass on phase 3's word
+    shape.  (b) ``query_count`` (phase 4's end) and ``decode_count``
+    (phase 9's end) and the train step counted here on a fresh state: each
+    counted FLOP total must equal its trace's, the train step's arguments
+    the bytes the card holds for them, the pass's bytes its trace's and
+    phase 4's bound bytes.  (c) Each cell's bound beside its measured time
+    (``measured``: phase 4's Q = 64 pass ms, phase 11's result, phase 9's
+    result) and the predicted peak beside the measured.  Returns the
+    ``DRYRUN`` line and the phase's launches.
+    """
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import DeviceMesh
+
+    check = Check("dryrun")
+    one = DeviceMesh(np.full((1, 1), torch.device("meta"), dtype=object), ("data", "model"))
+    out = {"cells": {}}
+    card = card_line()
+
+    def record(name, r, counted, measured_ms, what) -> None:
+        rf, mem = r["roofline"], r["memory"]
+        bound_ms = rf["bound_s"] * 1e3
+        cell = {"trace_s": r["trace_s"], "roofline": rf, "memory": mem,
+                "counted_flops": counted["flops"], "counted_hbm_bytes": counted["hbm_bytes"],
+                "counted_flops_f32": counted["flops_f32"], "measured_ms": measured_ms,
+                "measured": what, "bound_ms": bound_ms,
+                "share": bound_ms / measured_ms if measured_ms else None,
+                "compute_ms": rf["compute_s"] * 1e3,
+                "compute_share": rf["compute_s"] * 1e3 / measured_ms if measured_ms else None}
+        out["cells"][name] = cell
+        # The memory term prices the bytes that today's ops move, so it is a
+        # bound of this implementation; the compute term is the function's.
+        log(f"  {name}: meta {rf['flops']:.6e} FLOPs ({rf['flops_f32']:.6e} f32), "
+            f"{rf['hbm_bytes']:.6e} bytes; counted on the card {counted['flops']:.6e} FLOPs, "
+            f"{counted['hbm_bytes']:.6e} bytes; compute floor {cell['compute_ms']:.3f} ms "
+            f"({100 * cell['compute_share']:.2f}%), the counted ops' bytes "
+            f"{rf['memory_s'] * 1e3:.3f} ms: the larger {bound_ms:.3f} ms "
+            f"({rf['bottleneck']}), {100 * cell['share']:.2f}% of {what} "
+            f"{measured_ms:.3f} ms ({card})")
+        log(f"  {name} roofline " + json.dumps(rf))
+        log(f"  {name} memory " + json.dumps(mem))
+        check.expect(counted["flops"] == rf["flops"],
+                     f"{name}: counted FLOPs {counted['flops']} != the meta trace's {rf['flops']}")
+
+    # The query pass.
+    qc = query_count
+    c, p, w = qc["shape"]
+    q = dryrun.trace_query_pass(c, p, w, qc["q"], qc["n_cols"], **qc["kw"])
+    record("query_q64", q, qc["costs"], measured["query_ms"],
+           "phase 4's Q = 64 pass (before ingest, the card's S)")
+    check.expect(qc["launches"] == {"bscsr_topk_spmv": 0, "bscsr_topk_spmv_multiquery": 1,
+                                    "bscsr_spmv": 0},
+                 f"the counted pass launched {qc['launches']}, not the kernel once")
+    check.expect(list(qc["costs"]["kernels"]) == ["bscsr_topk_spmv_multiquery"]
+                 and qc["costs"]["kernels"]["bscsr_topk_spmv_multiquery"]["calls"] == 1,
+                 f"the counted pass recorded {qc['costs']['kernels']}")
+    check.expect(qc["costs"]["hbm_bytes"] == q["roofline"]["hbm_bytes"] == qc["bound_bytes"],
+                 f"query pass bytes: counted {qc['costs']['hbm_bytes']}, meta "
+                 f"{q['roofline']['hbm_bytes']}, phase 4's bound {qc['bound_bytes']}")
+    log(f"  query pass bytes: counted {qc['costs']['hbm_bytes']:.0f} == meta == phase 4's "
+        f"bound bytes {qc['bound_bytes']} (the stream's {c * p * w * 4 / 1e9:.3f} GB, x, "
+        f"the outputs)")
+
+    # The decode step.
+    lm = measured["lm"]
+    lm_cfg = dc.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    dec = dryrun.trace_cell(lm_cfg, ShapeConfig("lm_decode", "decode", LM_MAX_SEQ, LM_BATCH),
+                            one)
+    record("decode_b64", dec, decode_count["costs"], decode_count["step_ms"],
+           "the counted decode step (logits, CUDA events)")
+    out["cells"]["decode_b64"]["hidden_only_ms"] = lm.get(f"decode_step_ms_b{LM_BATCH}")
+    pred = dec["memory"]["argument_size_in_bytes"] + dec["memory"]["temp_size_in_bytes"]
+    check.expect(decode_count["held_bytes"] == dec["memory"]["argument_size_in_bytes"],
+                 f"decode arguments: held {decode_count['held_bytes']}, meta "
+                 f"{dec['memory']['argument_size_in_bytes']}")
+    log(f"  decode peak: predicted {pred / 1e9:.3f} GB (arguments + temp); the counted step's "
+        f"max_memory_allocated {decode_count['max_memory_allocated'] / 1e9:.3f} GB (the head "
+        f"and engine live beside it), phase 9's {lm.get('max_memory_allocated', 0) / 1e9:.3f} "
+        f"GB ({card})")
+    out["cells"]["decode_b64"].update(
+        predicted_peak_bytes=pred, max_memory_allocated=decode_count["max_memory_allocated"],
+        phase9_max_memory_allocated=lm.get("max_memory_allocated"))
+
+    # The train step: the meta trace, then the same step counted on the card.
+    trained = measured["trained"]
+    t0 = time.time()
+    tr = dryrun.trace_cell(get_config(TRAIN_ARCH),
+                           ShapeConfig("train_cell", "train", TRAIN_SEQ, TRAIN_BATCH), one,
+                           microbatches=TRAIN_MICRO)
+    log(f"  train cell traced on meta in {time.time() - t0:.1f} s "
+        f"({tr['costs']['ops']} ops)")
+    K.reset_launch_counts()
+    t0 = time.time()
+    tcount = dryrun_train_count(torch, seed)
+    log(f"  train step counted on the card in {time.time() - t0:.1f} s (loss "
+        f"{tcount['loss']:.4f})")
+    out["launches"] = launch_counts(K)
+    record("train_step", tr, tcount["costs"], trained["step_ms"],
+           "phase 11's step (median, CUDA events)")
+    held = tcount["held"]
+    n_params = get_config(TRAIN_ARCH).param_count()
+    check.expect(held["masters_and_moments"] == 12 * n_params,
+                 f"masters and moments hold {held['masters_and_moments']}, not 12 x {n_params}")
+    check.expect(sum(held.values()) == tr["memory"]["argument_size_in_bytes"],
+                 f"train arguments: the card holds {held}, the meta trace counts "
+                 f"{tr['memory']['argument_size_in_bytes']}")
+    pred = tr["memory"]["argument_size_in_bytes"] + tr["memory"]["temp_size_in_bytes"]
+    log(f"  train arguments {sum(held.values())} bytes held == meta: {held}")
+    log(f"  train peak: predicted {pred / 1e9:.3f} GB (arguments + temp); the counted step's "
+        f"max_memory_allocated {tcount['max_memory_allocated'] / 1e9:.3f} GB, phase 11's "
+        f"{trained['peak_memory_gb']:.3f} GB ({card})")
+    out["cells"]["train_step"].update(
+        held=held, predicted_peak_bytes=pred, max_memory_allocated=tcount["max_memory_allocated"],
+        phase11_peak_memory_gb=trained["peak_memory_gb"],
+        compute_s_bf16_only=tr["roofline"]["flops"] / H100_BF16_FLOPS)
+    log(f"  launches in the dryrun phase (the train step's; phase 4's pass is counted "
+        f"there): {out['launches']}")
+    for name, n in out["launches"].items():
+        check.expect(n == 0, f"{name} launched {n} times in the train step")
+    out["launches"] = {name: n + qc["launches"][name] for name, n in out["launches"].items()}
+    check.done()
+    return out
 
 
 def profiled_kernels(torch, step, steps=3):

@@ -20,6 +20,7 @@ from repro_torch.core import bscsr as bscsr_lib
 from repro_torch.core import faults as faults_lib
 from repro_torch.core import partition as partition_lib
 from repro_torch.core.precision_model import expected_precision, min_partitions_for_precision
+from repro_torch.kernels import costs
 from repro_torch.kernels import executor as executor_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as ref_lib
@@ -1022,7 +1023,10 @@ def distributed_topk_spmv_fn(index: TopKSpMVIndex, mesh, shard_axis="data",
 
     def query(x, *arrays):
         dev = mesh.device(first)
-        outs = [local(pos, x, arrays[0].pieces[pos]) for _, pos in runners]
+        outs = []
+        for _, pos in runners:
+            with costs.elsewhere(pos != first):
+                outs.append(local(pos, x, arrays[0].pieces[pos]))
         lv = torch.cat([v.to(dev) for v, _ in outs])
         lr = torch.cat([r.to(dev) for _, r in outs])
         finalize = (kernel_ops.finalize_candidates_batched if batched

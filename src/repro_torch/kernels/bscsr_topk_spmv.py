@@ -32,6 +32,11 @@ every row of a partition's stream, padding included, carries its code.
 Each wrapper dispatches on where its tensors lie.  CPU tensors go to the
 plain version; CUDA tensors launch the kernel (and add one to the wrapper's
 ``launches`` count) or raise.  Nothing falls back from one to the other.
+``meta`` tensors (the dry run's device, ``launch/dryrun.py``) get outputs
+of the right shape and dtype and launch nothing.  On ``meta`` and CUDA
+tensors the wrapper's body runs under ``costs.opaque()`` and records the
+kernel's cost with every active ``launch.op_costs.OpCounter``
+(:func:`_record_cost`).
 
 The plain versions are step-faithful to the Pallas kernels: the same tile
 walk of T packets per step, the same stages, vectorised over cores and
@@ -83,6 +88,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import STREAM_FORMATS, TaggedFormatClass, ValueFormat
+from repro_torch.kernels import costs
 
 NEG_INF = float(np.finfo(np.float32).min)
 FLAG_WORD_BITS = 32
@@ -625,6 +631,27 @@ def _step_words(packets_per_step: int, width: int, fmt) -> int:
     return packets_per_step * width - _header_words(fmt)
 
 
+def _meta_outputs(shape: tuple, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A top-k kernel's (values, slots) on ``meta``: shapes and dtypes only."""
+    return (torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev))
+
+
+def _record_cost(name: str, x: torch.Tensor, words: torch.Tensor, outs, block_size: int,
+                 nq: int) -> None:
+    """One launch's cost with every active ``launch.op_costs.OpCounter``:
+    bytes of the word stream, x and the outputs, each once; operations
+    2 x slots x Q f32 FMAs, slots = C * P * B the stream's slot capacity (a ``meta``
+    stream does not know its nnz, which the padding keeps below it)."""
+    if not costs.counting():
+        return
+    n_cores, n_packets, _ = words.shape
+    nbytes = (words.numel() * words.element_size() + x.numel() * x.element_size()
+              + sum(t.numel() * t.element_size() for t in outs))
+    costs.record_kernel(name, flops=2.0 * n_cores * n_packets * block_size * nq,
+                        hbm_bytes=nbytes)
+
+
 def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
                     block_size=256, gather_mode="take", inner_loop="linear",
                     splits=None, table=None):
@@ -650,12 +677,26 @@ def bscsr_topk_spmv(x, words, *, k, n_rows, packets_per_step=2, fmt_name="F32",
             x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
             inner_loop=inner_loop, splits=splits, table=table)
+    with costs.opaque():
+        out = _single_device(x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+                             fmt_name=fmt_name, block_size=block_size,
+                             gather_mode=gather_mode, inner_loop=inner_loop, splits=splits,
+                             table=table)
+    _record_cost("bscsr_topk_spmv", x, words, out, block_size, 1)
+    return out
+
+
+def _single_device(x, words, *, k, n_rows, packets_per_step, fmt_name, block_size,
+                   gather_mode, inner_loop, splits, table):
+    """:func:`bscsr_topk_spmv` on CUDA (a launch) or ``meta`` tensors (outputs only)."""
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
                               gather_mode, inner_loop)
     _check_cuda_args(x, words)
     _check_tile(packets_per_step, block_size)
     n_cores, n_packets, width = words.shape
     dev = words.device
+    if dev.type == "meta":
+        return _meta_outputs((n_cores, k), dev)
     if table is None:
         if splits is None:
             splits = single_splits(dev, n_cores, packets_per_step=packets_per_step,
@@ -736,11 +777,27 @@ def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
             x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop,
             splits=splits, table=table)
+    with costs.opaque():
+        out = _multiquery_device(x, words, k=k, n_rows=n_rows,
+                                 packets_per_step=packets_per_step, fmt_name=fmt_name,
+                                 block_size=block_size, inner_loop=inner_loop,
+                                 splits=splits, table=table, q_chunk=q_chunk)
+    _record_cost("bscsr_topk_spmv_multiquery", x, words, out, block_size, nq)
+    return out
+
+
+def _multiquery_device(x, words, *, k, n_rows, packets_per_step, fmt_name, block_size,
+                       inner_loop, splits, table, q_chunk):
+    """:func:`bscsr_topk_spmv_multiquery` on CUDA (a launch) or ``meta``
+    tensors (outputs only)."""
+    nq = x.shape[0]
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
                               "take", inner_loop)
     _check_cuda_args(x, words)
     _check_tile(packets_per_step, block_size)
     n_cores, n_packets, width = words.shape
+    if words.device.type == "meta":
+        return _meta_outputs((n_cores, nq, k), words.device)
     if table is None:
         table = spmv_split_table(words, packets_per_step=packets_per_step,
                                  block_size=block_size, splits=splits,
@@ -813,6 +870,8 @@ def _one_wave(device, divisor: int, entry: str, *args: int) -> int:
     device = torch.device(device)
     if device.type == "cpu":
         return PLAIN_SPLITS
+    if device.type == "meta":
+        return 1                       # no SMs to fill; no count depends on S
     dev = device.index if device.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, _resident_blocks(dev, entry, *args) * sms // divisor)
@@ -888,6 +947,17 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
             x, words, n_rows=n_rows, packets_per_step=packets_per_step,
             fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
             inner_loop=inner_loop, splits=splits, table=table)
+    with costs.opaque():
+        out = _spmv_device(x, words, n_rows=n_rows, packets_per_step=packets_per_step,
+                           fmt_name=fmt_name, block_size=block_size, gather_mode=gather_mode,
+                           inner_loop=inner_loop, splits=splits, table=table)
+    _record_cost("bscsr_spmv", x, words, (out,), block_size, 1)
+    return out
+
+
+def _spmv_device(x, words, *, n_rows, packets_per_step, fmt_name, block_size, gather_mode,
+                 inner_loop, splits, table):
+    """:func:`bscsr_spmv` on CUDA (a launch) or ``meta`` tensors (the output only)."""
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, 1,
                               gather_mode, inner_loop)
     _check_cuda_args(x, words)
@@ -895,6 +965,8 @@ def bscsr_spmv(x, words, *, n_rows, packets_per_step=2, fmt_name="F32",
         raise ValueError(f"x must be an (M,) vector, got {tuple(x.shape)}")
     _check_tile(packets_per_step, block_size)
     n_cores, n_packets, width = words.shape
+    if words.device.type == "meta":
+        return torch.empty((n_cores, n_rows), dtype=torch.float32, device=words.device)
     if table is None:
         if splits is None:
             splits = spmv_splits(words.device, n_cores, packets_per_step=packets_per_step,

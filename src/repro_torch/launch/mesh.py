@@ -29,15 +29,17 @@ import torch
 
 def normalize_device(device) -> torch.device:
     """``device`` as a ``torch.device`` with its index: ``cuda`` becomes
-    ``cuda:<current>``, as ``TopKSpMVConfig.resolve_device`` does."""
+    ``cuda:<current>``, as ``TopKSpMVConfig.resolve_device`` does.  ``meta``
+    names a placeholder position (the dry run's: every piece placed there
+    is a ``meta`` tensor, and nothing is allocated)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         if not torch.cuda.is_available():
             raise RuntimeError(f"mesh device {device!r} needs a CUDA device; none is "
                                "available")
         dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"mesh devices must be cuda or cpu, got {device!r}")
+    elif dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"mesh devices must be cuda, cpu or meta, got {device!r}")
     return dev
 
 
@@ -47,8 +49,9 @@ class DeviceMesh:
     ``devices`` is an object ndarray of ``torch.device`` (one per position),
     ``axis_names`` names its axes, ``shape`` maps each name to its size in
     axis order, ``empty`` is true for a mesh of no position.  Every position
-    is normalised (``cuda`` -> ``cuda:<current>``); a mesh that mixes CPU
-    and CUDA positions is refused.
+    is normalised (``cuda`` -> ``cuda:<current>``); a mesh that mixes device
+    types (CPU and CUDA, or ``meta`` placeholders and real devices) is
+    refused.
     """
 
     def __init__(self, devices, axis_names: Sequence[str]):
@@ -63,6 +66,8 @@ class DeviceMesh:
         for pos in np.ndindex(grid.shape):
             norm[pos] = normalize_device(grid[pos])
         types = {d.type for d in norm.flat}
+        if "meta" in types and len(types) > 1:
+            raise ValueError("a mesh may not mix meta placeholders and real devices")
         if len(types) > 1:
             raise ValueError("a mesh may not mix CPU and CUDA positions")
         self.devices = norm
@@ -82,7 +87,7 @@ class DeviceMesh:
 
     @property
     def device_type(self) -> Optional[str]:
-        """``"cuda"`` or ``"cpu"`` (None for an empty mesh)."""
+        """``"cuda"``, ``"cpu"`` or ``"meta"`` (None for an empty mesh)."""
         return None if self.empty else self.devices.flat[0].type
 
     def positions(self) -> Tuple[tuple, ...]:
@@ -183,13 +188,14 @@ def _grid(devs: list, shape: tuple, what: str):
     return grid.reshape(shape)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> DeviceMesh:
     """The reference's production mesh: ("data", "model") 16 x 16, or
-    ("pod", "data", "model") 2 x 16 x 16, over the visible CUDA devices;
-    raises when there are fewer."""
+    ("pod", "data", "model") 2 x 16 x 16, over ``devices`` (the visible
+    CUDA devices unless given); raises when there are fewer.  256 (or 512)
+    ``meta`` positions give the dry run's placeholder mesh."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return DeviceMesh(_grid(_visible_devices(None), shape, "the production mesh"), axes)
+    return DeviceMesh(_grid(_visible_devices(devices), shape, "the production mesh"), axes)
 
 
 def make_host_mesh(model: int = 1, devices=None) -> DeviceMesh:

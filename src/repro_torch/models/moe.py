@@ -67,12 +67,16 @@ def moe_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.T
 
     # --- load-balancing auxiliary loss (Switch-style) ---
     me = probs.mean(dim=0)
-    ce = torch.bincount(expert_idx[:, 0], minlength=e).float() / t
+    first = expert_idx[:, 0]
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device)
+    ce = counts.scatter_add_(0, first, torch.ones_like(first)).float() / t   # bincount
     aux = e * torch.sum(me * ce)
 
     # --- capacity assignment: position of each (token, slot) in its expert ---
     flat_expert = expert_idx.reshape(-1)                        # (T*k,)
-    onehot = F.one_hot(flat_expert, e)                          # (T*k, E)
+    # F.one_hot dispatches a scatter on the card and a compare on meta; this
+    # compare dispatches the same ops on every device, as the dry run counts
+    onehot = (flat_expert[:, None] == torch.arange(e, device=x.device)).long()  # (T*k, E)
     pos_in_expert = torch.gather(torch.cumsum(onehot, dim=0) - onehot, 1,
                                  flat_expert[:, None])[:, 0]
     keep = pos_in_expert < cap                                  # overflow dropped

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.kernels import costs
 from repro_torch.launch.mesh import DeviceMesh, MeshArray, distribute, gather, piece_slices
 from repro_torch.models.model_zoo import get_model
 from repro_torch.sharding.rules import (DEFAULT_RULES, active_rules, logical_to_spec,
@@ -90,7 +91,9 @@ def make_sharded_step(api, mesh: DeviceMesh, tc: TrainConfig, shape: ShapeConfig
     piece at its own position with that gradient's block (a replicated block
     once per position).  ``batch_sh`` is the batch's sharding as the
     reference resolves it, reported only: the rows are not split, since
-    MoE's capacity and aux term are not linear in them.
+    MoE's capacity and aux term are not linear in them.  The work done for
+    the other positions runs under ``kernels.costs.elsewhere()``, so a cost
+    counter books it apart from the first position's.
     """
     grad_fn = opt_lib.make_grad_fn(api.loss_fn, tc)
     lead = (None,) if tc.microbatches > 1 else ()
@@ -109,11 +112,12 @@ def make_sharded_step(api, mesh: DeviceMesh, tc: TrainConfig, shape: ShapeConfig
         _, spec = master.sharding
         out = ({}, {}, {})
         for pos, piece in master.pieces.items():
-            s = {k: v.to(piece.device) for k, v in shared.items()}
-            g = grad[piece_slices(master.shape, spec, mesh, pos)].to(piece.device)
-            for store, t in zip(out, opt_lib.adamw_leaf(piece, g, mu.pieces[pos],
-                                                        nu.pieces[pos], s, tc)):
-                store[pos] = t
+            with costs.elsewhere(pos != first):
+                s = {k: v.to(piece.device) for k, v in shared.items()}
+                g = grad[piece_slices(master.shape, spec, mesh, pos)].to(piece.device)
+                for store, t in zip(out, opt_lib.adamw_leaf(piece, g, mu.pieces[pos],
+                                                            nu.pieces[pos], s, tc)):
+                    store[pos] = t
         return tuple(MeshArray(master.shape, master.dtype, pieces, master.sharding)
                      for pieces in out)
 
@@ -122,7 +126,10 @@ def make_sharded_step(api, mesh: DeviceMesh, tc: TrainConfig, shape: ShapeConfig
             opt_lib.load_masters(model, params, round_bf16=True)
         loss, grads = grad_fn(model, batch)
         step = opt_state["step"]
-        steps = {pos: t + 1 for pos, t in step.pieces.items()}
+        steps = {}
+        for pos, t in step.pieces.items():
+            with costs.elsewhere(pos != first):
+                steps[pos] = t + 1
         shared = opt_lib.adamw_scalars(grads, steps[first], tc)
         new_p, new_mu, new_nu = {}, {}, {}
         for name, master in params.items():

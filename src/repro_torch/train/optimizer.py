@@ -25,6 +25,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.kernels import costs
 from repro_torch.launch.mesh import MeshArray, unique_blocks
 
 Named = Dict[str, torch.Tensor]
@@ -111,12 +112,15 @@ def load_masters(model: torch.nn.Module, params: Named, round_bf16: bool = False
     for name, p in model.named_parameters():
         src = params[name]
         if isinstance(src, MeshArray):
-            blocks = [(sl, src.pieces[pos]) for pos, sl in unique_blocks(src.shape,
-                                                                         src.sharding)]
+            blocks = [(pos, sl, src.pieces[pos]) for pos, sl in unique_blocks(src.shape,
+                                                                               src.sharding)]
         else:
-            blocks = [((), src)]
-        for sl, block in blocks:
-            p[sl].copy_(block.to(torch.bfloat16) if round_bf16 else block)
+            blocks = [((), (), src)]
+        for pos, sl, block in blocks:
+            if round_bf16:
+                with costs.elsewhere(any(pos)):      # rounded where the block lives
+                    block = block.to(torch.bfloat16)
+            p[sl].copy_(block)
 
 
 def make_train_step(loss_fn: Callable, tc: TrainConfig) -> Callable:

@@ -1512,3 +1512,78 @@ def test_pipeline_on_a_card_mesh(no_tf32):
     assert float(got) == pytest.approx(float(want), rel=1e-5)
     for name, a, b in zip(names, g_got, g_want):
         assert float((a - b).abs().max()) < 1e-4 * max(float(b.abs().max()), 1.0), name
+
+
+# ---------------------------------------------------------------------------
+# The dry run: counts on the card against the meta traces
+# ---------------------------------------------------------------------------
+
+def one_position(device):
+    from repro_torch.launch.mesh import DeviceMesh
+
+    return DeviceMesh(np.full((1, 1), torch.device(device), dtype=object), ("data", "model"))
+
+
+@pytest.mark.parametrize("arch,kind", [("smollm_360m", "train"), ("mixtral_8x7b", "train"),
+                                       ("whisper_small", "train"), ("xlstm_350m", "prefill"),
+                                       ("qwen25_3b", "decode"), ("zamba2_7b", "decode")])
+def test_dryrun_step_counted_on_the_card_equals_its_meta_trace(no_tf32, arch, kind):
+    """A smoke cell's step built on a one-position mesh of this card, run
+    once under ``op_costs.OpCounter``: the same FLOPs, bytes and argument
+    bytes as the ``meta`` trace, to the unit (the ops the port dispatches
+    do not depend on the device)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, op_costs
+
+    cfg = smoke_config(arch)
+    shape = ShapeConfig("t", kind, 32, 8)
+    mb = 2 if kind == "train" else 1
+    trace = dryrun.trace_cell(cfg, shape, one_position("meta"), microbatches=mb)
+    fn, args = dryrun.build_cell(cfg, shape, one_position(no_tf32), microbatches=mb)
+    held = sum(t.numel() * t.element_size() for t in dryrun._at_first(args, (0, 0)))
+    K.reset_launch_counts()
+    with op_costs.OpCounter() as counter:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    got = counter.costs()
+    assert {t.device.type for t in op_costs._tensors(out)} == {"cuda"}
+    assert got["flops"] == trace["roofline"]["flops"] > 0
+    assert got["flops_f32"] == trace["roofline"]["flops_f32"]
+    assert held == trace["memory"]["argument_size_in_bytes"]
+    assert got["hbm_bytes"] == trace["roofline"]["hbm_bytes"]
+    assert got["convert_bytes"] == trace["roofline"]["convert_bytes"]
+    assert (K.bscsr_topk_spmv.launches, K.bscsr_topk_spmv_multiquery.launches,
+            K.bscsr_spmv.launches) == (0, 0, 0)
+
+
+def test_kernel_wrappers_record_the_same_cost_on_the_card_and_on_meta(cuda):
+    """Each wrapper once on card tensors and once on ``meta`` tensors of the
+    same shapes under two counters: one record each, equal on both devices,
+    one launch on the card and none on ``meta``."""
+    from repro_torch.launch import op_costs
+
+    csr = dyadic_csr(400, 512, seed=5)
+    packed = ops.pack_partitions(csr, 4, 256, "BF16", packets_multiple=2, stream_layout="fused")
+    kw = dict(n_rows=packed.max_slots, packets_per_step=2, fmt_name="BF16", block_size=256)
+    words = torch.from_numpy(packed.words).to(cuda)
+    xs = torch.ones((37, 512), device=cuda)
+    calls = {"bscsr_topk_spmv": lambda x, w: K.bscsr_topk_spmv(x[0], w, k=8, **kw),
+             "bscsr_topk_spmv_multiquery":
+                 lambda x, w: K.bscsr_topk_spmv_multiquery(x, w, k=8, **kw),
+             "bscsr_spmv": lambda x, w: K.bscsr_spmv(x[0], w, **kw)}
+    for name, call in calls.items():
+        records = {}
+        for dev in (cuda, torch.device("meta")):
+            x, w = xs.to(dev), words.to(dev)
+            K.reset_launch_counts()
+            with op_costs.OpCounter() as outer, op_costs.OpCounter() as inner:
+                out = call(x, w)
+            torch.cuda.synchronize()
+            assert getattr(K, name).launches == (1 if dev.type == "cuda" else 0)
+            assert outer.costs()["kernels"] == inner.costs()["kernels"]
+            assert outer.costs()["hbm_bytes"] == outer.costs()["kernels"][name]["hbm_bytes"]
+            records[dev.type] = (outer.costs()["kernels"], [
+                (tuple(t.shape), t.dtype) for t in (out if isinstance(out, tuple) else (out,))])
+        assert records["cuda"] == records["meta"]
+        assert records["cuda"][0][name]["calls"] == 1

@@ -195,8 +195,11 @@ class TestMeshes:
         assert [str(d) for d in make_serving_mesh(2, 1).devices.flat] == ["cuda:0", "cuda:1"]
         with pytest.raises(ValueError, match="may not mix CPU and CUDA"):
             make_serving_mesh(2, 1, devices=[CPU, torch.device("cuda", 0)])
-        with pytest.raises(ValueError, match="cuda or cpu"):
-            make_serving_mesh(1, 1, devices=["meta"])
+        with pytest.raises(ValueError, match="cuda, cpu or meta"):
+            make_serving_mesh(1, 1, devices=["mps"])
+        with pytest.raises(ValueError, match="may not mix meta placeholders and real"):
+            make_serving_mesh(2, 1, devices=["meta", CPU])
+        assert make_serving_mesh(2, 1, devices=["meta"] * 2).device_type == "meta"
 
     @pytest.mark.parametrize("multi_pod", [False, True])
     def test_production_and_host_meshes(self, multi_pod, monkeypatch):
