@@ -32,6 +32,7 @@ from repro_torch.core import bscsr as bscsr_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import sharded as sharded_lib
 from repro_torch.core import topk_spmv as topk_lib
+from repro_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -166,8 +167,10 @@ class SparseEmbeddingIndex:
         Routed through the batched dispatch as a Q=1 batch, as in the
         reference, so every door shares one executor plane.
         """
-        self._validate_query(x, batched=False)
-        v, r = self._dispatch_batch(np.asarray(x)[None, :], use_kernel=use_kernel)
+        with tracing.entry("index.query"):
+            with tracing.span("index.validate"):
+                self._validate_query(x, batched=False)
+            v, r = self._dispatch_batch(np.asarray(x)[None, :], use_kernel=use_kernel)
         return v[0], r[0]
 
     def query_batch(
@@ -178,8 +181,10 @@ class SparseEmbeddingIndex:
         ``use_kernel=None`` means the kernel.  (The reference defaults to its
         oracle only because its kernel runs interpreted off the TPU.)
         """
-        self._validate_query(xs, batched=True)
-        return self._dispatch_batch(xs, use_kernel=use_kernel is not False)
+        with tracing.entry("index.query_batch"):
+            with tracing.span("index.validate"):
+                self._validate_query(xs, batched=True)
+            return self._dispatch_batch(xs, use_kernel=use_kernel is not False)
 
     def _dispatch_batch(
         self, xs: np.ndarray, use_kernel: bool
@@ -189,14 +194,24 @@ class SparseEmbeddingIndex:
         The query batch is uploaded here, once per call; the executor's
         ``h2d_copies`` counts snapshot pins only, as for any other entry.
         A sharded index dispatches each shard and merges their pools.
+
+        Traced, ``index.wait`` synchronises the stream before the copies
+        back, so that ``index.d2h`` times the copies alone and the wait
+        holds the time the host was blocked on the device.
         """
-        xs = torch.as_tensor(np.ascontiguousarray(xs, dtype=np.float32),
-                             device=self.config.resolve_device())
+        with tracing.span("index.upload"):
+            xs = torch.as_tensor(np.ascontiguousarray(xs, dtype=np.float32),
+                                 device=self.config.resolve_device())
         if self.is_sharded:
             v, r = self.index.query_batched(xs, use_kernel=use_kernel)
         else:
             v, r = topk_lib.topk_spmv_batched(self.index, xs, use_kernel=use_kernel)
-        return v.cpu().numpy(), r.cpu().numpy()
+        if tracing.enabled():
+            with tracing.span("index.wait"):
+                if v.is_cuda:
+                    torch.cuda.current_stream(v.device).synchronize()
+        with tracing.span("index.d2h"):
+            return v.cpu().numpy(), r.cpu().numpy()
 
     def query_exact(self, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Exact Top-K over the *live* rows — ground truth for accuracy checks."""

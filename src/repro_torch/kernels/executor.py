@@ -40,6 +40,10 @@
   same uploads are counted, so the rule is testable there).  The query
   itself is per-call input, not snapshot state, and is not counted.  A
   steady-state dispatch adds 0 to it.
+* Traced work (``utils/tracing.py``) records ``executor.prepare`` (with
+  ``executor.pin`` and ``executor.build`` inside it when they happen),
+  ``executor.launch`` (each core's k best) and ``executor.finalize`` (the
+  merge into ``big_k``) for every top-k query path.
 * One executor serves every thread of the process (a serving frontend
   dispatches from its own thread while callers query from theirs), so its
   caches and counters change under a lock; the query functions run outside
@@ -60,6 +64,7 @@ from repro_torch.core.quantization import FORMATS
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.launch.mesh import MeshArray
+from repro_torch.utils import tracing
 from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_spmv,
     bscsr_topk_spmv,
@@ -182,7 +187,8 @@ def _pin(packed: ops.PackedPartitions, stream_layout: str, device, row_map,
         snap = _DEVICE_CACHE.get(key)
         if snap is not None:
             return snap, False
-        snap = DeviceSnapshot(packed, stream_layout, device, row_map=row_map)
+        with tracing.span("executor.pin"):
+            snap = DeviceSnapshot(packed, stream_layout, device, row_map=row_map)
         _DEVICE_CACHE[key] = snap
     weakref.finalize(packed, _DEVICE_CACHE.pop, key, None)
     return snap, True
@@ -283,7 +289,8 @@ class QueryExecutor:
             with _CACHE_LOCK:
                 live = {s.signature for s in list(_DEVICE_CACHE.values())}
             self._fns = {k: f for k, f in self._fns.items() if k[2] in live}
-            fn = self._build(path, q, snap)
+            with tracing.span("executor.build"):
+                fn = self._build(path, q, snap)
             self._fns[key] = fn
             self.fn_builds += 1
             prev = self._last_sig.get((path, q))
@@ -311,7 +318,7 @@ class QueryExecutor:
         x = self._on_device(x)
         if x.dim() != 1:
             raise ValueError(f"x must be an (M,) query, got {tuple(x.shape)}")
-        with self._lock:
+        with tracing.span("executor.prepare"), self._lock:
             fn, snap = self._prepare(packed, None, path, stream_layout, row_map,
                                      row_map_key)
             self.dispatches += 1
@@ -326,7 +333,7 @@ class QueryExecutor:
             raise ValueError(f"xs must be a non-empty (Q, M) batch, got {tuple(xs.shape)}")
         q = xs.shape[0]
         bucket = _q_bucket(q)
-        with self._lock:
+        with tracing.span("executor.prepare"), self._lock:
             builds_before = self.fn_builds
             fn, snap = self._prepare(packed, bucket, path, stream_layout, row_map,
                                      row_map_key)
@@ -392,24 +399,37 @@ class QueryExecutor:
         }
 
     def _build(self, path: str, q, snap: DeviceSnapshot):
-        """The function for this (path, Q or spmv key, signature)."""
-        big_k, k = self.big_k, self.k
-        fmt = FORMATS[snap.fmt_name]
+        """The function for this (path, Q or spmv key, signature): the
+        per-core top-k (``executor.launch``), then the merge of the c*k
+        candidates into ``big_k`` (``executor.finalize``)."""
+        big_k = self.big_k
         if path in ("accumulate", "accumulate_ref"):
-            return self._build_spmv(path, q[1], snap, fmt)
+            return self._build_spmv(path, q[1], snap, FORMATS[snap.fmt_name])
+        local = self._build_local(path, q, snap)
         finalize = (ops.finalize_candidates if q is None
                     else ops.finalize_candidates_batched)
+
+        def run(x, s: DeviceSnapshot, fin: dict):
+            with tracing.span("executor.launch"):
+                lv, lr = local(x, s)
+            with tracing.span("executor.finalize"):
+                return finalize(lv, lr, big_k=big_k, **fin)
+
+        return run
+
+    def _build_local(self, path: str, q, snap: DeviceSnapshot):
+        """``local(x, snapshot) -> (vals, slots)``: each core's k best."""
+        k = self.k
+        fmt = FORMATS[snap.fmt_name]
         if path == "reference":
 
-            def run(x, s: DeviceSnapshot, fin: dict):
+            def local(x, s: DeviceSnapshot):
                 xs = x[None] if q is None else x
                 lv, lr = ops.reference_local_topk(
                     xs, *s.streams, s.finalize["rows_per_part"], s.max_slots, k, fmt)
-                if q is None:
-                    lv, lr = lv[:, 0], lr[:, 0]
-                return finalize(lv, lr, big_k=big_k, **fin)
+                return (lv[:, 0], lr[:, 0]) if q is None else (lv, lr)
 
-            return run
+            return local
 
         t = self.packets_per_step
         kwargs = dict(k=k, n_rows=snap.max_slots, packets_per_step=t,
@@ -434,30 +454,27 @@ class QueryExecutor:
 
         if snap.groups is not None:
 
-            def run(x, s: DeviceSnapshot, fin: dict):
-                lv, lr = ops.grouped_local_topk(
+            def local(x, s: DeviceSnapshot):
+                return ops.grouped_local_topk(
                     x, s.groups, n_cores=s.num_cores, batched=q is not None,
                     tables=tables(s, x), gather_mode=self.gather_mode, **kwargs)
-                return finalize(lv, lr, big_k=big_k, **fin)
 
-            return run
+            return local
 
         kwargs["fmt_name"] = snap.fmt_name
         if q is None:
 
-            def run(x, s: DeviceSnapshot, fin: dict):
-                lv, lr = bscsr_topk_spmv(x, s.streams[0], table=tables(s, x)[0],
-                                         gather_mode=self.gather_mode, **kwargs)
-                return finalize(lv, lr, big_k=big_k, **fin)
+            def local(x, s: DeviceSnapshot):
+                return bscsr_topk_spmv(x, s.streams[0], table=tables(s, x)[0],
+                                       gather_mode=self.gather_mode, **kwargs)
 
-            return run
+            return local
 
-        def run(x, s: DeviceSnapshot, fin: dict):
-            lv, lr = bscsr_topk_spmv_multiquery(x, s.streams[0], table=tables(s, x)[0],
-                                                **kwargs)
-            return finalize(lv, lr, big_k=big_k, **fin)
+        def local(x, s: DeviceSnapshot):
+            return bscsr_topk_spmv_multiquery(x, s.streams[0], table=tables(s, x)[0],
+                                              **kwargs)
 
-        return run
+        return local
 
     def _build_spmv(self, path: str, n_out: int, snap: DeviceSnapshot, fmt):
         """An accumulate step: slot sums, the masked scatter, alpha/beta.

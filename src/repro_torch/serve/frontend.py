@@ -37,6 +37,17 @@ assert that.  ``StreamingSimilarityService(frontend=...)`` wires this
 frontend over the guardrailed dispatch path (deadlines measured from
 *enqueue* so queue wait counts against them).  The reference's seeding of
 service times from ``BENCH_topk_spmv.json`` is not ported.
+
+Tracing (``utils/tracing.py``): a request submitted where tracing is wanted
+carries a ``request_id`` into the scheduler's thread, and a pass that holds
+one is traced.  The scheduler then stores each traced request's
+``frontend.queue`` (submit to the pass that took it), its sleeps as
+``frontend.hold`` (requests queued) or ``frontend.idle`` (queue empty), and
+``frontend.pass`` (``q``, ``reason``) over ``frontend.stack``,
+``service.dispatch`` and ``frontend.respond``.  Every span reuses a clock
+read the policy makes anyway: ``enqueue_t``, the flush decision's ``now``,
+and the pair around the dispatch that times the pass for
+``observe_service``, all on ``tracing.clock_ns``.
 """
 from __future__ import annotations
 
@@ -48,6 +59,8 @@ from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.utils import tracing
 
 
 class QueueFullError(RuntimeError):
@@ -179,7 +192,9 @@ class _Request:
     x: np.ndarray
     future: Future
     tenant: str
-    enqueue_t: float
+    enqueue_t: float                  # seconds on tracing.clock_ns's clock
+    enqueue_ns: int
+    request_id: Optional[int]         # set when the request is traced
 
 
 class RequestFrontend:
@@ -231,6 +246,8 @@ class RequestFrontend:
             "target": 0, "deadline": 0, "capacity": 0, "drain": 0,
         }
         self.batch_histogram: Dict[int, int] = {}
+        self._traced_queued = 0     # traced requests in the queue
+        self._last_traced = False   # whether the last pass was traced
         self._idle = threading.Condition(self._lock)    # drain/join signal
         self._thread = threading.Thread(
             target=self._run, name="request-frontend", daemon=True
@@ -253,7 +270,9 @@ class RequestFrontend:
                 f"submit takes one (M,) query vector, got shape {x.shape}"
             )
         fut: Future = Future()
-        req = _Request(x, fut, tenant or "", time.monotonic())
+        t_ns = tracing.clock_ns()
+        rid = tracing.new_id() if tracing.wanted() else None
+        req = _Request(x, fut, tenant or "", t_ns * 1e-9, t_ns, rid)
         with self._lock:
             if self._closed:
                 raise RuntimeError("frontend is closed")
@@ -270,6 +289,8 @@ class RequestFrontend:
             q.append(req)
             self._depth += 1
             self.submitted += 1
+            if rid is not None:
+                self._traced_queued += 1
             self.model.observe_arrival(req.enqueue_t)
             self._work.notify()
         return fut
@@ -334,43 +355,77 @@ class RequestFrontend:
         return batch
 
     def _run(self) -> None:
+        sleep = None        # (span name, start) of the sleep being traced
         while True:
             with self._lock:
                 while True:
+                    now_ns = tracing.clock_ns()
+                    if sleep is not None:
+                        tracing.add(sleep[0], sleep[1], now_ns)
+                        sleep = None
                     if self._closed and self._depth == 0:
                         self._idle.notify_all()
                         return
-                    now = time.monotonic()
-                    reason, sleep_s = self._flush_decision(now)
+                    reason, sleep_s = self._flush_decision(now_ns * 1e-9)
                     if reason is not None:
                         batch = self._take_batch()
+                        traced = False
+                        if self._traced_queued:
+                            n = sum(r.request_id is not None for r in batch)
+                            self._traced_queued -= n
+                            traced = n > 0
                         break
+                    # A sleep is traced while traced requests wait or right
+                    # after a traced pass: never one that began untraced.
+                    if self._traced_queued or self._last_traced:
+                        sleep = ("frontend.hold" if self._depth else "frontend.idle", now_ns)
                     if self._depth == 0:
                         self._idle.notify_all()
                         self._work.wait()       # empty queue: timer-free idle
                     else:
                         self._work.wait(timeout=sleep_s)
-            self._dispatch_batch(batch, reason)
+            if traced:
+                with tracing.traced():
+                    self._dispatch_batch(batch, reason, now_ns, traced)
+            else:
+                self._dispatch_batch(batch, reason, now_ns, traced)
+            self._last_traced = traced
 
-    def _dispatch_batch(self, batch: List[_Request], reason: str) -> None:
+    def _dispatch_batch(self, batch: List[_Request], reason: str, start_ns: int,
+                        traced: bool) -> None:
+        """One pass.  A traced pass (``start_ns`` the flush decision's clock
+        read) stores each traced request's ``frontend.queue`` and
+        ``frontend.pass`` over ``frontend.stack``, ``service.dispatch`` and
+        ``frontend.respond``, from the clock reads the pass makes anyway."""
         if not batch:
             return
         self.flushes += 1
         self.flush_reasons[reason] = self.flush_reasons.get(reason, 0) + 1
         q = len(batch)
         self.batch_histogram[q] = self.batch_histogram.get(q, 0) + 1
+        pass_span = tracing.NOOP
+        if traced:
+            pid = tracing.new_id()
+            for r in batch:
+                if r.request_id is not None:
+                    tracing.add("frontend.queue", r.enqueue_ns, start_ns, pass_id=pid,
+                                request_id=r.request_id)
+            pass_span = tracing.open_span("frontend.pass", start_ns, pass_id=pid, q=q,
+                                          reason=reason)
         xs = np.stack([r.x for r in batch]).astype(np.float32)
         enq = [r.enqueue_t for r in batch]
-        t0 = time.monotonic()
+        t0 = tracing.clock_ns()
+        if traced:
+            tracing.add("frontend.stack", start_ns, t0)
+        dispatch_span = tracing.open_span("service.dispatch", t0)
         try:
             results = self.dispatch(xs, enq)
         except Exception as e:
-            for r in batch:
-                if not r.future.cancelled():
-                    r.future.set_exception(e)
-            return
+            results = [e] * q
         finally:
-            self.model.observe_service(q, time.monotonic() - t0)
+            t1 = tracing.clock_ns()
+            dispatch_span.close(t1)
+            self.model.observe_service(q, (t1 - t0) * 1e-9)
             self.completed += q
         for r, res in zip(batch, results):
             if r.future.cancelled():
@@ -379,6 +434,10 @@ class RequestFrontend:
                 r.future.set_exception(res)
             else:
                 r.future.set_result(res)
+        if traced:
+            t2 = tracing.clock_ns()
+            tracing.add("frontend.respond", t1, t2)
+            pass_span.close(t2)
 
     # -- lifecycle & introspection -------------------------------------------
 
@@ -412,6 +471,7 @@ class RequestFrontend:
                         r.future.cancel()
                     q.clear()
                 self._depth = 0
+                self._traced_queued = 0
             self._work.notify_all()
         self._thread.join(timeout=timeout)
 

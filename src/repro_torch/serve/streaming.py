@@ -52,6 +52,7 @@ from repro_torch.core import bscsr as bscsr_lib
 from repro_torch.core.persistence import DurableIndexStore
 from repro_torch.core.similarity import SimilaritySearchStats, SparseEmbeddingIndex
 from repro_torch.serve.frontend import FrontendConfig, RequestFrontend
+from repro_torch.utils import tracing
 from repro_torch.utils.watchdog import DeadlineExceeded, Watchdog
 
 
@@ -318,7 +319,7 @@ class StreamingSimilarityService:
         try:
             budget = 0.0
             if g.deadline_s:
-                budget = g.deadline_s - (time.monotonic() - max(enqueue_ts))
+                budget = g.deadline_s - (tracing.clock_ns() * 1e-9 - max(enqueue_ts))
                 if budget <= 0:   # every request is already overdue: no pass
                     self.deadline_exceeded += q
                     return [
@@ -335,7 +336,7 @@ class StreamingSimilarityService:
             except DeadlineExceeded as e:
                 self.deadline_exceeded += q
                 return [e for _ in range(q)]
-            done = time.monotonic()
+            done = tracing.clock_ns() * 1e-9
             out: list = []
             for i, enq in enumerate(enqueue_ts):
                 if g.deadline_s and done - enq > g.deadline_s:

@@ -32,6 +32,10 @@ the card, and ``launch/train.py --smoke`` on the card by default.  The
 training mesh: ``train(mesh=)`` on a 2 x 2 mesh of this card's positions bit
 for bit ``mesh=None``, a resume from that mesh's checkpoint on a 4 x 1 one,
 and ``pipelined_loss_fn`` on a (4, 1, 1) mesh against the sequential loss.
+
+Tracing: a traced Q = 64 pass at 1M rows keeps its device time between the
+launch and the end of ``index.wait``, and its spans meet their profiler
+twins.
 """
 import dataclasses
 import os
@@ -1587,3 +1591,61 @@ def test_kernel_wrappers_record_the_same_cost_on_the_card_and_on_meta(cuda):
                 (tuple(t.shape), t.dtype) for t in (out if isinstance(out, tuple) else (out,))])
         assert records["cuda"] == records["meta"]
         assert records["cuda"][0][name]["calls"] == 1
+
+
+def test_index_wait_holds_the_device_time_of_a_traced_pass(cuda):
+    """A traced Q = 64 pass over 1M rows of the paper's collection: the
+    device's time for the pass (CUDA events around the executor's pass on a
+    batch already on the card) lies between the start of ``executor.launch``
+    and the end of ``index.wait`` within 10% (the host's enqueue of the
+    finalize overlaps the kernel, and the wait holds the rest); the copies
+    back are short beside the wait; and a span's start on the profiler's
+    clock is within 200 us of its ``record_function`` twin's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import tracing
+
+    csr = bscsr.synthetic_embedding_csr(1_000_000, 512, 20, "gamma", seed=7)
+    index = SparseEmbeddingIndex(csr, api.TopKSpMVConfig(
+        big_k=100, k=8, num_partitions=32, block_size=256, packets_per_step=2,
+        stream_layout="fused", value_format="BF16", device="cuda"))
+    xs = np.random.default_rng(8).standard_normal((64, 512)).astype(np.float32)
+    for _ in range(3):             # pin, build, warm
+        index.query_batch(xs)
+    xd, ex = torch.from_numpy(xs).to(cuda), api.query_executor(index.config)
+    device_ns = []
+    for _ in range(7):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ex.query_batched(xd, index.index.packed)
+        b.record()
+        torch.cuda.synchronize()
+        device_ns.append(a.elapsed_time(b) * 1e6)
+    tracing.reset()
+    try:
+        with tracing.recording():
+            for _ in range(7):
+                index.query_batch(xs)
+        recs = tracing.records()
+        spans = {name: [r for r in recs if r.name == name]
+                 for name in ("executor.launch", "index.wait", "index.d2h")}
+        assert all(len(v) == 7 for v in spans.values())
+        covered = [w.end_ns - la.start_ns
+                   for la, w in zip(spans["executor.launch"], spans["index.wait"])]
+        waits = [w.end_ns - w.start_ns for w in spans["index.wait"]]
+        device = np.median(device_ns)
+        assert 0.9 * device <= np.median(covered) <= 1.1 * device, (covered, device_ns)
+        copies = [d.end_ns - d.start_ns for d in spans["index.d2h"]]
+        assert np.median(copies) < 0.1 * np.median(waits), (copies, waits)
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                index.query_batch(xs)
+        ours = [r.start_ns for r in tracing.records() if r.name == "index.query_batch"]
+        twins = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                       if e.name() == "index.query_batch")
+        assert len(ours) == len(twins) == 4
+        gaps = [abs(t - o) for t, o in zip(twins[1:], ours[1:])]
+        assert max(gaps) < 200_000, gaps
+    finally:
+        tracing.reset()
