@@ -921,12 +921,15 @@ class _SpmdDispatcher:
     def query_batched(self, xs: torch.Tensor):
         """A (Q, M) batch through the multi-query kernel on every replica
         row: padded to ``R * _q_bucket(ceil(Q / R))`` rows (zeros), the
-        padding dropped from the answer."""
+        padding dropped from the answer.  A row carries at least two
+        queries when Q does, so every row takes the walk one device takes
+        for the pass (``multiquery_walk``) and gives its bits."""
         q = int(xs.shape[0])
         if q == 0:
             raise ValueError("xs must be a non-empty (Q, M) batch")
         r = self.r_count
-        bucket = r * executor_lib._q_bucket(-(-q // r))
+        per_row = -(-q // r) if q == 1 else max(-(-q // r), 2)
+        bucket = r * executor_lib._q_bucket(per_row)
         if bucket != q:
             xs = torch.cat([xs, xs.new_zeros((bucket - q, xs.shape[1]))])
         with self._lock:

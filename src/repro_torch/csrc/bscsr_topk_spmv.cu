@@ -36,10 +36,13 @@
 //            asc), which is lax.top_k's order.  The result is independent of
 //            the order of the list, so the append may race.
 //   stage 4' (accumulate) a completed row's sum is stored at its slot.
-// Each kernel has its own walk (single_walk, mq_walk, accum_walk) with the
-// same arithmetic: the products' prefix sums go up one shuffle tree (a
+// The one-query walks (single_walk, mq_walk at one query, accum_walk) share
+// their arithmetic: the products' prefix sums go up one shuffle tree (a
 // warp's 32 lanes, then the warps' totals, then each warp's offset added),
-// so the three kernels give the same bits on the same stream.
+// so the single-query kernel and the multi-query kernel at Q = 1 give the
+// same bits on the same stream.  The multi-query walk at Q >= 2 (rows_walk)
+// sums each segment in stream order instead: the same bits on dyadic data,
+// within f32 rounding of them otherwise.
 //
 // The accumulate kernel splits each core's stream among S blocks (grid
 // C x S, S from the occupancy calculator: one wave fills the card).  A split
@@ -67,32 +70,56 @@
 // at HBM latency sustains well under 3.35 TB/s; the single-query kernel's
 // ring of steps in shared memory (below) is the candidate fix.
 //
-// The multi-query kernel (topk_spmv_mq1_kernel or topk_spmv_mq_split_kernel,
-// then topk_mq_merge_kernel) replaced a one-block walk per (core, chunk of 8
-// queries) that reached 0.5-1.7% of its bounds: 32 of 132 SMs worked at
-// Q <= 8, and each query of a chunk ran its own block scans, about 53
-// barriers a step at 8 queries.  Latency
-// per step bounds it, not bytes (Q = 1) or f32 operations (Q = 64).  It walks
-// the accumulate kernel's split table on a grid of (core, split, query
-// chunk), S from the occupancy calculator over cores x chunks (one wave),
-// and cuts every walk at e_c.  Each block starts from carry 0.0 and empty
-// scratchpads; a split after the first keeps the head piece of the row open
-// at its first step (not a candidate there) and hands it, with every
-// split's final carry, to (C, S, Q) side buffers, and its scratchpads to
-// (C, S, Q, k) ones.  Exactness: a walk admits a row when strictly above the
-// scratchpad minimum at the start of the step and ranks in lax.top_k order;
-// slots rise along the walk, no candidate scores -0.0 (stage 3 adds +0.0 or
-// a carry that is never -0.0) and NaN is never admitted, so "above the
-// step-start minimum" is "ranks before the current k-th entry", and a walk's
-// final scratchpad is the top k of the rows it completed.  The single walk's
-// is then the top k of (the fold of splits before i, split i's head row,
-// split i's own top k), which the fold kernel computes in split order: head
-// score = head piece + carry of split i-1 (the single walk's one f32
-// addition for that row), admitted when > the fold's minimum (the single
-// walk's threshold at that step), then an in-order merge of split i's
-// list.  Every S gives the bits of S = 1.  Within a step, stage 2 is one
-// scan pass for all queries of the block (mq_walk), so a step costs 3
-// barriers at any chunk width.
+// The multi-query kernel has two walks, chosen by the pass's Q, then the
+// fold (topk_mq_merge_kernel).  Both walk the accumulate kernel's split
+// table and cut every walk at e_c.  Each walker starts from carry 0.0 and
+// empty scratchpads; a split after the first keeps the head piece of the
+// row open at its first step (not a candidate there) and hands it, with
+// every split's final carry, to (C, S, Q) side buffers, and its scratchpads
+// to (C, S, Q, k) ones.  Exactness: a walk admits a row when it ranks
+// before the k-th entry in lax.top_k order; slots rise along the walk, no
+// candidate scores -0.0 (stage 3 adds +0.0 or a carry that is never -0.0)
+// and NaN is never admitted, so that is "strictly above the k-th entry",
+// and a walk's final scratchpad is the top k of the rows it completed.  The
+// single walk's is then the top k of every split's top k and every split's
+// head row (head score = head piece + carry of split i-1, the single walk's
+// one f32 addition for that row), a set the fold kernel gathers over a
+// warp's lanes in any order.  Every S gives the bits of S = 1.
+//
+// At Q = 1 (topk_spmv_mq1_kernel, mq_walk) a block of T*B threads walks a
+// split one step at a time with the block scans above, the single-query
+// kernel's bits.  At Q >= 2 (topk_spmv_rows_kernel, rows_walk) it replaced
+// per-chunk block scans (8 queries a block, 3 barriers and 9 shuffle trees
+// a step, every core's words read once per chunk) that reached 0.86% of the
+// f32 bound at Q = 64.  Now a warp walks a split on its own, nnz by nnz in
+// stream order, for every query of the block: each lane holds two queries
+// (four above 32 queries a block at k <= 8), the block holds x transposed in
+// shared memory (m + 1 rows of the block's queries and a pad, row m zeros
+// for out-of-range ids), and every nnz is one broadcast read of its decoded
+// (x row, value) pair, one 8- or 16-byte read of x and an f32 multiply and
+// add a query, with no barrier, shuffle tree or candidate list.  A row's
+// score in a step: its piece there, its products summed in stream order
+// from +0.0 (__fmul_rn, __fadd_rn: no contraction), then one
+// __fadd_rn(piece, carry) for the step's first segment (+0.0 for the
+// others); the open row's carry is the step's piece plus the carry it came
+// in with when the step holds no flag bit.  That is the per-step rule of
+// the one-query walks with the piece summed in order instead of as a
+// prefix difference, so a query's bits depend on neither the other queries
+// of the pass, Q, S nor the walkers' layout.  Each walker keeps its
+// scratchpads in registers (k rounded up to 4, 8 or 16; above 16 in its
+// slice of the (C, S, Q, k) buffer) and inserts a row with a branch-free
+// compare-and-shift.  Its packets come through a ring of D slots in shared
+// memory: its lanes copy the 16-byte-aligned span around each packet with
+// cp.async, 16 bytes a copy (one cp.async.bulk a 1 KB packet, as the
+// single-query kernel stages its 2 KB steps, cost about 400 cycles of the
+// copy unit each and bound the walk).  At small Q a warp holds several
+// walkers (each on its own split, 32 / walkers lanes each), so the lanes a
+// chunk of queries leaves idle walk other splits; below 8 warps a block it
+// holds fewer, each on more lanes.  The walk reads the decoded pairs two at
+// a time and issues a lane's 16 x reads before their adds.  At Q = 64,
+// m = 512, k = 8 (10M x 512 BF16): 16 warps of two walkers of 16 lanes,
+// S = 132, 4.4 ms on an H100; with 8 warps (no spill) 6.5 ms: the walk is
+// held by latency, and x's reads alone would take 1.7 ms.
 //
 // The single-query kernel (topk_spmv_single_kernel, then the multi-query
 // kernel's fold at one query) replaced a one-block walk per core that
@@ -449,7 +476,7 @@ struct MqSplits {
   int n;                    // S
 };
 
-// The multi-query walk's shared memory for qc queries a block: x (when it
+// The one-query multi-query walk's shared memory (qc = 1): x (when it
 // fits), every query's prefixes, the warps' flag bits (by step parity), the
 // scans' warp totals (column 0 the flags, column 1 + q query q's products),
 // the scratchpads, the carries (by step parity) and admission thresholds,
@@ -515,8 +542,8 @@ __device__ inline void insert_sorted(float* av, int* ar, int k, float c, int r) 
   ar[pos] = r;
 }
 
-// Stages 1-4 of the multi-query kernel: block (core, split, chunk) walks
-// n_steps steps of its core from `first` for queries q0 .. q0+nq-1, from
+// Stages 1-4 of the multi-query kernel at one query: block (core, split,
+// query) walks n_steps steps of its core from `first` for queries q0 .. q0+nq-1, from
 // carry row `row_start`, carry 0.0 and empty scratchpads, and stores each
 // query's scratchpad in its slice of pad_v / pad_r.  In head mode (a split
 // after the first, which starts at a flagged step) the row open at `first`
@@ -538,11 +565,11 @@ __device__ inline void insert_sorted(float* av, int* ar, int k, float c, int r) 
 // insertion ranks each one exactly against the current k-th entry, so the
 // scratchpad ends the same.  Admission reads a copy of the minimum that the
 // inserting thread stores once its insertions are done (`thr`), never the
-// list that thread is writing.  One set of three barriers a step (warp
-// totals, scanned totals, prefixes) serves every query of the chunk.
-template <int QC>
+// list that thread is writing.  Three barriers a step (warp totals,
+// scanned totals, prefixes).
 __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split, int q0,
                         int nq, long long first, int n_steps, int row_start, bool head) {
+  constexpr int QC = 1;  // queries a block: Q >= 2 takes rows_walk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tb = blockDim.x;
   const int tid = threadIdx.x;
@@ -754,7 +781,6 @@ __device__ void mq_walk(const Params& p, const MqSplits& sp, int core, int split
 
 // Block (core, split, query chunk) walks one split for its chunk; an empty
 // split (trailing) holds no row, so its scratchpads stay empty.
-template <int QC>
 __device__ void mq_split(const Params& p, const MqSplits& sp) {
   const int core = blockIdx.x, split = blockIdx.y;
   const int q0 = blockIdx.z * p.q_chunk;
@@ -768,89 +794,86 @@ __device__ void mq_split(const Params& p, const MqSplits& sp) {
     }
     return;
   }
-  mq_walk<QC>(p, sp, core, split, q0, nq, b[0], b[1] - b[0],
+  mq_walk(p, sp, core, split, q0, nq, b[0], b[1] - b[0],
               sp.head_row[core * sp.n + split], split > 0);
 }
 
 // Registers: a block of one query is held to 40, so 3 blocks of 512 threads
-// share an SM (S = 12 at c = 32 instead of 8); a wider chunk may use 64,
-// which still launches 1024 threads.
+// share an SM (S = 12 at c = 32 instead of 8).
 __global__ void __maxnreg__(40) topk_spmv_mq1_kernel(Params p, MqSplits sp) {
-  mq_split<1>(p, sp);
+  mq_split(p, sp);
 }
 
-template <int QC>
-__global__ void __launch_bounds__(1024) topk_spmv_mq_split_kernel(Params p, MqSplits sp) {
-  mq_split<QC>(p, sp);
-}
-
-template <int QC>
-auto mq_kernel() {
-  if constexpr (QC == 1) {
-    return topk_spmv_mq1_kernel;
-  } else {
-    return topk_spmv_mq_split_kernel<QC>;
+// Sorted list b (k entries, any memory) into sorted list a (k entries) in
+// place: the top k of both in lax.top_k order, merged from the back once it
+// is known how many entries each list gives.
+__device__ inline void merge_sorted(float* av, int* ar, const float* bv, const int32_t* br,
+                                    int k) {
+  int na = 0, nb = 0;
+  while (na + nb < k) {
+    if (ranks_before(total_key(bv[nb]), br[nb], total_key(av[na]), ar[na])) {
+      ++nb;
+    } else {
+      ++na;
+    }
+  }
+  for (int o = k - 1, x = na - 1, y = nb - 1; o >= 0; --o) {
+    if (x >= 0 && (y < 0 || ranks_before(total_key(bv[y]), br[y], total_key(av[x]), ar[x]))) {
+      av[o] = av[x];
+      ar[o] = ar[x];
+      --x;
+    } else {
+      av[o] = bv[y];
+      ar[o] = br[y];
+      --y;
+    }
   }
 }
 
-// The fold: one warp per (core, query) joins the splits' scratchpads in
-// order, in shared memory.  The head row of each non-empty split i > 0 scores
-// head piece + the carry of split i - 1 (the single walk's stage-3 addition
-// for it), is admitted when > the fold's minimum (the single walk's
-// threshold at that step) and inserted; then the top k of the fold and split
-// i's sorted list are merged in place from the back, once it is known how
-// many entries each list gives.
+// The fold: one block of L <= 32 lanes per (core, query) joins the splits'
+// scratchpads.  The single walk's scratchpad is the top k, in lax.top_k
+// order, of every split's scratchpad and the head row of each non-empty
+// split i > 0, scored head piece + the carry of split i - 1 (the single
+// walk's stage-3 addition for that row): a row ranks before the k-th entry
+// of the rows before it exactly when it is above it (its slot is higher),
+// and a head row's score is never -0.0 or NaN-admitted.  That set does not
+// depend on the order it is gathered in, so lane l folds splits l, l + L,
+// ... into a list of its own (in shared memory), and the lanes' lists are
+// then merged pairwise in log2(L) rounds.
 __global__ void topk_mq_merge_kernel(Params p, MqSplits sp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k = p.k, n_splits = sp.n, lane = threadIdx.x;
+  const int k = p.k, n_splits = sp.n, lane = threadIdx.x, lanes = blockDim.x;
   const int core = blockIdx.x / p.nq, q = blockIdx.x % p.nq;
-  float* fv = reinterpret_cast<float*>(smem_raw);
-  int* fr = reinterpret_cast<int*>(fv + k);
-  float* iv = reinterpret_cast<float*>(fr + k);
-  int* ir = reinterpret_cast<int*>(iv + k);
+  float* lv = reinterpret_cast<float*>(smem_raw);
+  int* lr = reinterpret_cast<int*>(lv + lanes * k);
+  float* av = lv + lane * k;
+  int* ar = lr + lane * k;
   auto at = [&](int i) { return (static_cast<long long>(core) * n_splits + i) * p.nq + q; };
-  for (int j = lane; j < k; j += 32) {
-    fv[j] = sp.pad_v[at(0) * k + j];
-    fr[j] = sp.pad_r[at(0) * k + j];
+  for (int j = 0; j < k; ++j) {
+    av[j] = kNegInf;
+    ar[j] = p.n_rows;
   }
+  // Non-empty splits are a prefix.
   const int32_t* b = sp.bounds + core * (n_splits + 1);
-  for (int i = 1; i < n_splits && b[i] < b[i + 1]; ++i) {
-    for (int j = lane; j < k; j += 32) {
-      iv[j] = sp.pad_v[at(i) * k + j];
-      ir[j] = sp.pad_r[at(i) * k + j];
-    }
-    __syncwarp();
-    if (lane == 0) {
+  for (int i = lane; i < n_splits && b[i] < b[i + 1]; i += lanes) {
+    if (i > 0) {
       const int r = sp.head_row[core * n_splits + i];
       const float c = __fadd_rn(sp.heads[at(i)], sp.carries[at(i - 1)]);
-      if (r >= 0 && c > fv[k - 1]) insert_sorted(fv, fr, k, c, r);
-      int na = 0, ni = 0;  // entries of the top k from the fold and from split i
-      while (na + ni < k) {
-        if (ranks_before(total_key(iv[ni]), ir[ni], total_key(fv[na]), fr[na])) {
-          ++ni;
-        } else {
-          ++na;
-        }
-      }
-      for (int o = k - 1, a = na - 1, n = ni - 1; o >= 0; --o) {
-        if (a >= 0 &&
-            (n < 0 || ranks_before(total_key(iv[n]), ir[n], total_key(fv[a]), fr[a]))) {
-          fv[o] = fv[a];
-          fr[o] = fr[a];
-          --a;
-        } else {
-          fv[o] = iv[n];
-          fr[o] = ir[n];
-          --n;
-        }
-      }
+      if (r >= 0 && c > av[k - 1]) insert_sorted(av, ar, k, c, r);
+    }
+    merge_sorted(av, ar, sp.pad_v + at(i) * k, sp.pad_r + at(i) * k, k);
+  }
+  __syncwarp();
+  for (int d = 1; d < lanes; d <<= 1) {
+    if ((lane & (2 * d - 1)) == 0 && lane + d < lanes) {
+      merge_sorted(av, ar, lv + (lane + d) * k, lr + (lane + d) * k, k);
     }
     __syncwarp();
   }
   const long long o = (static_cast<long long>(core) * p.nq + q) * k;
-  for (int j = lane; j < k; j += 32) {
-    p.out_v[o + j] = fv[j];
-    p.out_r[o + j] = fr[j];
+  for (int j = lane; j < k; j += lanes) {
+    p.out_v[o + j] = lv[j];
+    p.out_r[o + j] = lr[j];
   }
 }
 
@@ -1211,6 +1234,479 @@ __global__ void __maxnreg__(40) topk_spmv_single_kernel(Params p, MqSplits sp, R
   }
 }
 
+// ---------------------------------------------------------------------------
+// The multi-query walk at Q >= 2 (rows_walk): see the header.
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global into shared memory, asynchronously (cp.async through
+// the load path: a bulk copy of the tensor memory accelerator costs some 400
+// cycles of its unit a copy, which bounds a walk of 1 KB packets).
+__device__ inline void copy16(int32_t* to, const int32_t* from) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(shared_addr(to)), "l"(from)
+               : "memory");
+}
+
+__device__ inline void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Until at most `pending` of this lane's newest copy groups are in flight.
+__device__ inline void copy_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Its arguments: a struct of its own, so Params keeps its width.
+struct RowsArgs {
+  const float* x;           // (Q, M) f32
+  const int32_t* words;     // (C, P, W) fused packet words
+  const int32_t* bounds;    // (C, S+1) step bounds of each core's splits
+  const int32_t* head_row;  // (C, S) slot of the row open at each split's start
+  float* pad_v;             // (C, S, Q, k) each split's scratchpads (S = 1: the output)
+  int32_t* pad_r;           // (C, S, Q, k)
+  float* heads;             // (C, S, Q) head piece of each split after the first
+  float* carries;           // (C, S, Q) open-row carry after each split's last step
+  long long n_packets;      // P
+  int n_cores, n_splits, width, m, nq;
+  int block, per_step, col_words, fmt, k, n_rows;
+  int packet_words;         // words of a packet the walk reads, from its first (W,
+                            // less the next row's header word in a tagged stream)
+  int q_width;              // queries a block carries
+  // The launch's plan (rows_plan).
+  int lanes;                // lanes a walker
+  int q_lane;               // queries a lane: 2, or 4 above 32 queries a block at k <= 8
+  int groups;               // walkers a warp
+  int warps;                // warps a block
+  int depth;                // ring slots a walker
+  int slot_words;           // a slot: the 16-byte-aligned span around a packet
+  int x_in_smem;
+};
+
+constexpr int kRowsMaxWarps = 16;
+constexpr int kRowsMinWarps = 8;  // fewer walkers a warp before fewer warps than this
+constexpr int kRowsBatch = 16;    // x values a lane reads together: 16 / q_lane nnz
+constexpr size_t kRowsXBytes = 160 * 1024;  // x transposed above this stays in global memory
+constexpr size_t kSmemLimit = 227 * 1024;
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Floats a row of x transposed: q_lane a lane, and one unit of q_lane more
+// so that the rows of a gather (and the stores of the fill) spread over the
+// banks: an odd number of units (3 at one lane).
+__host__ __device__ inline int rows_x_stride(int lanes, int q_lane) {
+  return q_lane * (lanes + (lanes == 1 ? 2 : 1));
+}
+
+// Words of a walker's ring: its slots, padded to 4 words past a multiple of
+// 32, so the walkers of a warp read their slots in different banks.
+__host__ __device__ inline int rows_ring_words(const RowsArgs& a) {
+  const int n = a.depth * a.slot_words;
+  return n + ((36 - n % 32) % 32);
+}
+
+// The walk's shared memory: every walker's ring (first, so each slot is 16-
+// byte aligned), each warp's decoded pairs ([32][walkers]), then x
+// transposed.
+__host__ __device__ inline size_t rows_smem_bytes(const RowsArgs& a) {
+  const size_t walkers = size_t(a.warps) * a.groups;
+  size_t n = align16(sizeof(int32_t) * walkers * rows_ring_words(a));
+  n += align16(sizeof(int2) * walkers * 32);
+  if (a.x_in_smem) n += align16(sizeof(float) * size_t(a.m + 1) * rows_x_stride(a.lanes, a.q_lane));
+  return n;
+}
+
+// The layout: as many walkers a warp as the queries leave lanes for, and as
+// many warps as shared memory holds, but fewer walkers a warp (more lanes
+// each) where that keeps kRowsMinWarps warps a block to hide the latency of
+// the walk's reads.
+bool rows_plan(RowsArgs* a) {
+  if (a->q_width < 1 || a->q_width > 64 || a->packet_words < 1) return false;
+  // Four queries a lane halve the work a nnz costs a warp, where the
+  // scratchpads of four queries fit in registers.
+  a->q_lane = a->q_width > 32 && a->k <= 8 ? 4 : 2;
+  int need = 1;  // lanes the chunk's queries need
+  while (a->q_lane * need < a->q_width) need *= 2;
+  a->slot_words = (4 * a->packet_words + 12 + 15) / 16 * 4;
+  for (a->groups = 32 / need; a->groups >= 1; a->groups /= 2) {
+    // Every lane of a warp serves a walker: the decode and the copies
+    // spread over all of them, and a lane past the queries walks zeros.
+    a->lanes = 32 / a->groups;
+    a->x_in_smem =
+        sizeof(float) * size_t(a->m + 1) * rows_x_stride(a->lanes, a->q_lane) <= kRowsXBytes;
+    a->depth = a->groups == 1 ? 4 : 2;
+    for (a->warps = kRowsMaxWarps; a->warps >= 1; --a->warps) {
+      if (rows_smem_bytes(*a) <= kSmemLimit) break;
+    }
+    if (a->warps >= kRowsMinWarps || (a->groups == 1 && a->warps >= 1)) return true;
+  }
+  return false;
+}
+
+// The float of a total-order key (total_key's inverse).
+__device__ inline float key_float(int key) {
+  return __int_as_float(key < 0 ? key ^ 0x7fffffff : key);
+}
+
+// One query's scratchpad: K entries in registers as (total-order key, slot),
+// sorted in lax.top_k order, and the admission threshold (the float of the
+// last entry).  K = 0 keeps the k entries in the walker's slice of pad_v /
+// pad_r instead.  Slots rise along the walk, so a row ranks after every
+// entry of an equal key: the insertion compares keys alone, and a row that
+// ranks after the last entry leaves the scratchpad as it is.
+template <int K>
+struct Pad {
+  int key[K > 0 ? K : 1];
+  int slot[K > 0 ? K : 1];
+  float thr;
+  float* gv;    // K = 0: the slice of pad_v
+  int32_t* gr;  // K = 0: the slice of pad_r
+
+  __device__ void init(bool valid, float* v, int32_t* r, int k, int n_rows) {
+    if constexpr (K > 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        key[j] = total_key(kNegInf);
+        slot[j] = n_rows;
+      }
+    } else {
+      gv = v;
+      gr = r;
+      if (valid) {
+        for (int j = 0; j < k; ++j) {
+          gv[j] = kNegInf;
+          gr[j] = n_rows;
+        }
+      }
+    }
+    // A query past the pass's end admits nothing.
+    thr = valid ? kNegInf : __int_as_float(0x7f800000);
+  }
+
+  // Branch-free compare-and-shift: the row lands at the first entry it
+  // ranks before, every entry from there moves down one, the last drops.
+  __device__ void insert(float c, int r, int k) {
+    int kc = total_key(c);
+    if constexpr (K > 0) {
+      bool moved = false;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        moved = moved || kc > key[j];
+        const int tk = key[j], tr = slot[j];
+        key[j] = moved ? kc : tk;
+        slot[j] = moved ? r : tr;
+        kc = moved ? tk : kc;
+        r = moved ? tr : r;
+      }
+      thr = key_float(key[K - 1]);
+    } else {
+      if (kc <= total_key(gv[k - 1])) return;
+      int j = k - 1;
+      while (j > 0 && kc > total_key(gv[j - 1])) {
+        gv[j] = gv[j - 1];
+        gr[j] = gr[j - 1];
+        --j;
+      }
+      gv[j] = c;
+      gr[j] = r;
+      thr = gv[k - 1];
+    }
+  }
+
+  __device__ void store(float* v, int32_t* r, int k) const {
+    if constexpr (K > 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (j < k) {
+          v[j] = key_float(key[j]);
+          r[j] = slot[j];
+        }
+      }
+    }
+  }
+};
+
+// Block (walkers, query chunk): each walker, `lanes` lanes of a warp, walks
+// one split of the table for the block's queries, lane l holding queries
+// 2l and 2l + 1 of the chunk, from carry row head_row, carry 0.0 and empty
+// scratchpads, and stores its scratchpads, head pieces and final carries
+// in the (C, S, Q, k) and (C, S, Q) buffers for the fold.
+//
+// A walker takes its split packet by packet through its ring, and each
+// packet 32 nnz at a time: its lanes decode the 32 nnz into (x row offset,
+// value) pairs in shared memory, then every lane walks them in order, all
+// walkers of the warp at the same nnz (no divergence but at the flag bits).
+// The flag word marks where rows start: at a flag bit the row before it
+// completes (stage 3) and, above the threshold, enters the scratchpads
+// (stage 4).  A step ends every T packets: the open row's carry takes the
+// step's piece.  The walkers of a warp keep in step (a finished one idles),
+// so the warp's syncs see every lane.
+template <int K, bool XS, int QL>
+__device__ void rows_walk(const RowsArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lanes = a.lanes, depth = a.depth;
+  const int grp = lane / lanes, at = lane - grp * lanes;  // lanes * groups = 32
+  const int walker = warp * a.groups + grp;
+  const int per_block = a.warps * a.groups;
+  unsigned char* base = smem_raw;
+  const int ring_words = rows_ring_words(a);
+  int32_t* ring = reinterpret_cast<int32_t*>(base) + size_t(walker) * ring_words;
+  base += align16(sizeof(int32_t) * size_t(per_block) * ring_words);
+  // Pairs t and t + 1 (t even) of the walker side by side, the warp's
+  // walkers side by side: pairs[(t >> 1) * 2 * groups + (t & 1)].
+  int2* pairs = reinterpret_cast<int2*>(base) + warp * 32 * a.groups + 2 * grp;
+  base += align16(sizeof(int2) * per_block * 32);
+  float* xs = reinterpret_cast<float*>(base);
+  const int stride = rows_x_stride(lanes, QL);
+
+  const int q0 = blockIdx.y * a.q_width;
+  const int nqc = min(a.q_width, a.nq - q0);
+  if (XS) {
+    // x (Q, M) into [m + 1][stride], consecutive threads along a query row
+    // (coalesced reads); row m and the queries past the chunk are zeros.
+    const int rows = a.m + 1;
+    for (int i = tid; i < rows * stride; i += blockDim.x) {
+      const int q = i / rows, c = i - q * rows;
+      xs[c * stride + q] =
+          (c < a.m && q < nqc) ? __ldg(a.x + static_cast<long long>(q0 + q) * a.m + c) : 0.0f;
+    }
+  }
+
+  const int w = blockIdx.x * per_block + walker;
+  const bool live = w < a.n_cores * a.n_splits;
+  const int core = live ? w / a.n_splits : 0;
+  const int split = live ? w - core * a.n_splits : 0;
+  long long first = 0;  // the split's first packet
+  int n_pk = 0, row = -1;
+  if (live) {
+    const int32_t* b = a.bounds + core * (a.n_splits + 1) + split;
+    first = static_cast<long long>(b[0]) * a.per_step;
+    n_pk = (b[1] - b[0]) * a.per_step;
+    row = a.head_row[core * a.n_splits + split];
+  }
+  const int32_t* core_words = a.words + static_cast<long long>(core) * a.n_packets * a.width;
+  const int32_t* pk_words = core_words + first * a.width;
+  __syncthreads();
+  // Packet p of the split into a ring slot: the walker's lanes copy the
+  // 16-byte-aligned span around it, 16 bytes a copy; each lane's copies of a
+  // packet are one group, and every lane commits one group a packet (empty
+  // past the split's end), so D - 1 groups stay pending behind packet i.
+  auto stage = [&](int p, int32_t* to) {
+    if (live && p < n_pk) {
+      const uintptr_t from = reinterpret_cast<uintptr_t>(pk_words + static_cast<long long>(p) * a.width);
+      const int32_t* lo = reinterpret_cast<const int32_t*>(from & ~uintptr_t(15));
+      const int n16 = static_cast<int>(((from + 4u * a.packet_words + 15u) & ~uintptr_t(15)) -
+                                       (from & ~uintptr_t(15))) >> 4;
+      for (int c = at; c < n16; c += lanes) copy16(to + 4 * c, lo + 4 * c);
+    }
+    copy_commit();
+  };
+  for (int d = 0; d < depth; ++d) stage(d, ring + d * a.slot_words);
+
+  // The core's format (core_fmt's rule) and the decode's offsets.
+  int fmt = a.fmt;
+  if (live && fmt == kTag2) fmt = __ldg(core_words - 1) == 2 ? 2 : 1;
+  const int wf = a.block >> 5;
+  const bool wide = a.col_words == a.block;
+  const int val_at = wf + a.col_words;
+  auto decode_pair = [&](const int32_t* pk, int j) {
+    const unsigned cw = static_cast<unsigned>(pk[wf + (wide ? j : (j >> 1))]);
+    const int col = wide ? static_cast<int>(cw)
+                         : static_cast<int>(static_cast<int16_t>((cw >> ((j & 1) * 16)) & 0xffffu));
+    const unsigned vw =
+        static_cast<unsigned>(pk[val_at + (fmt == 0 ? j : (fmt == 3 ? (j >> 2) : (j >> 1)))]);
+    float v;
+    switch (fmt) {
+      case 0: v = __uint_as_float(vw); break;
+      case 1: v = __uint_as_float(((vw >> ((j & 1) * 16)) & 0xffffu) << 16); break;
+      case 2: v = __fmul_rn(static_cast<float>(static_cast<int16_t>((vw >> ((j & 1) * 16)) & 0xffffu)),
+                            3.0517578125e-05f); break;  // 2**-15
+      default: v = __fmul_rn(static_cast<float>(static_cast<int8_t>((vw >> ((j & 3) * 8)) & 0xffu)),
+                             0.0078125f); break;       // 2**-7
+    }
+    // The byte offset of the id's row of x transposed (row m, zeros, for an
+    // id out of range); with x in global memory, the id or -1.
+    const int off = XS ? static_cast<int>(min(static_cast<unsigned>(col), static_cast<unsigned>(a.m))) *
+                             stride * static_cast<int>(sizeof(float))
+                       : (static_cast<unsigned>(col) < static_cast<unsigned>(a.m) ? col : -1);
+    return make_int2(off, __float_as_int(v));
+  };
+
+  // The lane's QL queries.
+  const char* x_lane = reinterpret_cast<const char*>(xs + QL * at);
+  const long long out = (static_cast<long long>(core) * a.n_splits + split) * a.nq + q0 + QL * at;
+  bool valid[QL];
+  const float* xq[QL];
+  Pad<K> pad[QL];
+  float acc[QL], carry[QL];
+#pragma unroll
+  for (int j = 0; j < QL; ++j) {
+    valid[j] = QL * at + j < nqc;
+    xq[j] = a.x + static_cast<long long>(min(q0 + QL * at + j, a.nq - 1)) * a.m;
+    pad[j].init(live && valid[j], a.pad_v + (out + j) * a.k, a.pad_r + (out + j) * a.k, a.k,
+                a.n_rows);
+    acc[j] = carry[j] = 0.0f;
+  }
+  bool opening = true;       // no flag bit yet in this step: the row it came in with is open
+  bool at_head = split > 0;  // the split's first step, whose first row the fold completes
+  const int groups = a.groups;
+
+  const int n_iter =
+      static_cast<int>(__reduce_max_sync(0xffffffffu, static_cast<unsigned>(n_pk)));
+  int slot = 0;
+  for (int i = 0; i < n_iter; ++i) {
+    const bool act = i < n_pk;
+    const int32_t* pk = nullptr;
+    copy_wait(depth - 1);  // this lane's copies of packet i have landed
+    __syncwarp();          // and every lane's
+    if (act) {
+      const int32_t* from = pk_words + static_cast<long long>(i) * a.width;
+      pk = ring + slot * a.slot_words + ((reinterpret_cast<uintptr_t>(from) >> 2) & 3u);
+    }
+    for (int ch = 0; ch < wf; ++ch) {
+      if (act) {
+#pragma unroll 4
+        for (int t = at; t < 32; t += lanes) {
+          pairs[(t >> 1) * 2 * groups + (t & 1)] = decode_pair(pk, ch * 32 + t);
+        }
+      }
+      __syncwarp();
+      if (act) {
+        // The 32 nnz in order, every walker of the warp at the same nnz, in
+        // batches whose x reads are issued together, with no branch between
+        // them.  At a flag bit the row before the nnz completes (stage 3)
+        // and, above the threshold, enters the scratchpads (stage 4).
+        const unsigned flags = static_cast<unsigned>(pk[ch]);
+        constexpr int kBatch = kRowsBatch / QL;
+#pragma unroll 1
+        for (int h = 0; h < 32; h += kBatch) {
+          float v[kBatch], xv[kBatch][QL];
+          auto gather = [&](int u, int off, int value) {
+            v[u] = __int_as_float(value);
+            if constexpr (XS && QL == 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(x_lane + off);
+              xv[u][0] = q4.x;
+              xv[u][1] = q4.y;
+              xv[u][2] = q4.z;
+              xv[u][3] = q4.w;
+            } else if constexpr (XS) {
+              const float2 q2 = *reinterpret_cast<const float2*>(x_lane + off);
+              xv[u][0] = q2.x;
+              xv[u][1] = q2.y;
+            } else {
+#pragma unroll
+              for (int j = 0; j < QL; ++j) xv[u][j] = off >= 0 ? __ldg(xq[j] + off) : 0.0f;
+            }
+          };
+#pragma unroll
+          for (int u = 0; u < kBatch; u += 2) {
+            const int4 two = *reinterpret_cast<const int4*>(pairs + ((h + u) >> 1) * 2 * groups);
+            gather(u, two.x, two.y);
+            gather(u + 1, two.z, two.w);
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if ((flags >> (h + u)) & 1u) {
+              if (at_head && opening) {
+#pragma unroll
+                for (int j = 0; j < QL; ++j) {
+                  if (valid[j]) a.heads[out + j] = acc[j];
+                }
+              } else if (row >= 0) {
+#pragma unroll
+                for (int j = 0; j < QL; ++j) {
+                  const float c = __fadd_rn(acc[j], opening ? carry[j] : 0.0f);
+                  if (c > pad[j].thr) pad[j].insert(c, row, a.k);
+                }
+              }
+              ++row;
+              opening = false;
+#pragma unroll
+              for (int j = 0; j < QL; ++j) acc[j] = 0.0f;
+            }
+#pragma unroll
+            for (int j = 0; j < QL; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(v[u], xv[u][j]));
+          }
+        }
+      }
+      __syncwarp();
+    }
+    // Every lane of the walker has read the slot (the sync above): refill it.
+    stage(i + depth, ring + slot * a.slot_words);
+    if (++slot == depth) slot = 0;
+    if (act) {
+      if ((i + 1) % a.per_step == 0) {
+        // The step ends: the open row carries its piece (plus the carry it
+        // came in with when the step held no flag bit).
+#pragma unroll
+        for (int j = 0; j < QL; ++j) {
+          carry[j] = __fadd_rn(acc[j], opening ? carry[j] : 0.0f);
+          acc[j] = 0.0f;
+        }
+        opening = true;
+        at_head = false;
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < QL; ++j) {
+      if (valid[j]) {
+        a.carries[out + j] = carry[j];
+        pad[j].store(a.pad_v + (out + j) * a.k, a.pad_r + (out + j) * a.k, a.k);
+      }
+    }
+  }
+}
+
+template <int K, bool XS, int QL>
+__global__ void __launch_bounds__(kRowsMaxWarps * 32) topk_spmv_rows_kernel(RowsArgs a) {
+  rows_walk<K, XS, QL>(a);
+}
+
+// Scratchpad entries a walker keeps in registers for k (0: in pad_v / pad_r).
+int rows_k(int k) { return k <= 4 ? 4 : k <= 8 ? 8 : k <= 16 ? 16 : 0; }
+
+template <int K, bool XS, int QL = 2>
+int rows_kernel_do(const RowsArgs& a, bool launch, dim3 grid, cudaStream_t stream,
+                   int* blocks) {
+  const auto kernel = topk_spmv_rows_kernel<K, XS, QL>;
+  const size_t bytes = rows_smem_bytes(a);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!launch) {
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, a.warps * 32, bytes));
+  }
+  kernel<<<grid, a.warps * 32, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rows kernel for a's k and x placement: its launch on `grid`, or (not
+// `launch`) the blocks an SM holds at once, into *blocks.
+int rows_kernel(const RowsArgs& a, bool launch, dim3 grid, cudaStream_t stream, int* blocks) {
+  const bool xs = a.x_in_smem != 0;
+  if (a.q_lane == 4) {  // k <= 8 (rows_plan)
+    return a.k <= 4 ? (xs ? rows_kernel_do<4, true, 4>(a, launch, grid, stream, blocks)
+                          : rows_kernel_do<4, false, 4>(a, launch, grid, stream, blocks))
+                    : (xs ? rows_kernel_do<8, true, 4>(a, launch, grid, stream, blocks)
+                          : rows_kernel_do<8, false, 4>(a, launch, grid, stream, blocks));
+  }
+  switch (rows_k(a.k)) {
+    case 4: return xs ? rows_kernel_do<4, true>(a, launch, grid, stream, blocks)
+                      : rows_kernel_do<4, false>(a, launch, grid, stream, blocks);
+    case 8: return xs ? rows_kernel_do<8, true>(a, launch, grid, stream, blocks)
+                      : rows_kernel_do<8, false>(a, launch, grid, stream, blocks);
+    case 16: return xs ? rows_kernel_do<16, true>(a, launch, grid, stream, blocks)
+                       : rows_kernel_do<16, false>(a, launch, grid, stream, blocks);
+    default: return xs ? rows_kernel_do<0, true>(a, launch, grid, stream, blocks)
+                       : rows_kernel_do<0, false>(a, launch, grid, stream, blocks);
+  }
+}
+
 // Dynamic shared memory of a launch whose layout takes bytes_of(x_in_smem)
 // bytes; x stays in global memory when keeping it in shared memory would
 // pass 160 KB.  0 when even that does not fit.
@@ -1248,11 +1744,9 @@ size_t single_prepare(int tb, int k, int m, const Ring& ring, int* x_in_smem) {
                  [&](int in) { return single_smem_bytes(tb, k, m, in, ring); }, x_in_smem);
 }
 
-// The multi-query kernel's shared memory and its attribute, for QC queries
-// a block.
-template <int QC>
+// The one-query multi-query kernel's shared memory and its attribute.
 size_t mq_prepare(int tb, int k, int m, int* x_in_smem) {
-  return prepare(mq_kernel<QC>(), [&](int in) { return mq_smem_bytes(tb, QC, k, m, in); },
+  return prepare(topk_spmv_mq1_kernel, [&](int in) { return mq_smem_bytes(tb, 1, k, m, in); },
                  x_in_smem);
 }
 
@@ -1270,25 +1764,17 @@ bool bad_ring(const Params& p, const Ring& ring) {
   return ring.depth < 2 || ring.step_words < 1 || ring.step_words > p.per_step * p.width;
 }
 
-template <int QC>
-int launch_mq(Params p, const MqSplits& sp, cudaStream_t stream) {
-  const int tb = p.block * p.per_step;
-  const size_t bytes = mq_prepare<QC>(tb, p.k, p.m, &p.x_in_smem);
-  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(p.n_cores, sp.n, (p.nq + p.q_chunk - 1) / p.q_chunk);
-  const auto kernel = mq_kernel<QC>();
-  kernel<<<grid, tb, bytes, stream>>>(p, sp);
+// The fold of S > 1 splits' scratchpads (no launch at S = 1) over n_cores x
+// nq blocks of as many lanes (at most 32) as keep their lists within 48 KB
+// of shared memory.
+int launch_merge(const Params& p, const MqSplits& sp, cudaStream_t stream) {
   if (sp.n > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    topk_mq_merge_kernel<<<p.n_cores * p.nq, 32, 16 * size_t(p.k), stream>>>(p, sp);
+    const int lanes = max(1, min(32, 48 * 1024 / (8 * p.k)));
+    topk_mq_merge_kernel<<<p.n_cores * p.nq, lanes, 8 * size_t(lanes) * p.k, stream>>>(p, sp);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The template width of a chunk of q_chunk queries (0: more than 8).
-int qc_of(int q_chunk) {
-  return q_chunk <= 1 ? 1 : q_chunk <= 2 ? 2 : q_chunk <= 4 ? 4 : q_chunk <= 8 ? 8 : 0;
 }
 
 Params topk_params(const float* x, const int32_t* words, float* out_v, int32_t* out_r,
@@ -1323,36 +1809,67 @@ extern "C" int bscsr_topk_spmv_launch(
   if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   topk_spmv_single_kernel<<<dim3(n_cores, splits), tb, bytes, s>>>(p, sp, ring);
-  if (splits > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_mq_merge_kernel<<<n_cores, 32, 16 * size_t(k), s>>>(p, sp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge(p, sp, s);
 }
 
-// Multi-query mode: out (C, Q, k); bounds (C, S+1) and head_row (C, S) int32
-// from the split table; pad_v / pad_r (C, S, Q, k) scratch (for S = 1 the
-// output itself); heads and carries (C, S, Q) f32 scratch.  Launches the
-// split walk and, for S > 1, the fold.
+// Multi-query mode at one query a block (topk_spmv_mq1_kernel): out (C, Q,
+// k); bounds (C, S+1) and head_row (C, S) int32 from the split table; pad_v
+// / pad_r (C, S, Q, k) scratch (for S = 1 the output itself); heads and
+// carries (C, S, Q) f32 scratch.  Launches the split walk and, for S > 1,
+// the fold.
 extern "C" int bscsr_topk_spmv_multiquery_launch(
     const float* x, const int32_t* words, float* out_v, int32_t* out_r,
     const int32_t* bounds, const int32_t* head_row, float* pad_v, int32_t* pad_r,
     float* heads, float* carries, int n_cores, int splits, long long n_packets, int width,
-    int m, int nq, int q_chunk, int block, int per_step, int col_words, int fmt, int k,
-    int n_rows, void* stream) {
-  const Params p = topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, nq,
-                               q_chunk, block, per_step, col_words, fmt, k, n_rows);
+    int m, int nq, int block, int per_step, int col_words, int fmt, int k, int n_rows,
+    void* stream) {
+  Params p = topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, nq, 1, block,
+                         per_step, col_words, fmt, k, n_rows);
   const MqSplits sp{bounds, head_row, pad_v, pad_r, heads, carries, splits};
   if (bad_geometry(p) || splits < 1 || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tb = block * per_step;
+  const size_t bytes = mq_prepare(tb, k, m, &p.x_in_smem);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (qc_of(q_chunk)) {
-    case 1: return launch_mq<1>(p, sp, s);
-    case 2: return launch_mq<2>(p, sp, s);
-    case 4: return launch_mq<4>(p, sp, s);
-    case 8: return launch_mq<8>(p, sp, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  topk_spmv_mq1_kernel<<<dim3(n_cores, splits, nq), tb, bytes, s>>>(p, sp);
+  return launch_merge(p, sp, s);
+}
+
+// The rows walk's arguments and plan for a pass, or false when its
+// geometry is refused or no layout fits.
+bool rows_args(RowsArgs* a, const Params& p, const MqSplits& sp, int packet_words,
+               int q_width) {
+  *a = RowsArgs{p.x, p.words, sp.bounds, sp.head_row, sp.pad_v, sp.pad_r, sp.heads,
+                sp.carries, p.n_packets, p.n_cores, sp.n, p.width, p.m, p.nq,
+                p.block, p.per_step, p.col_words, p.fmt, p.k, p.n_rows, packet_words,
+                q_width, 0, 0, 0, 0, 0, 0, 0};
+  return !bad_geometry(p) && sp.n >= 1 && p.nq >= 1 && packet_words <= p.width &&
+         rows_plan(a);
+}
+
+// Multi-query mode at Q >= 2 (topk_spmv_rows_kernel): as above, with
+// q_width queries a block and packets of packet_words words (W, less the
+// next row's header word in a tagged stream).  Launches the walk on a grid
+// of (walkers / walkers a block, query chunks) and, for S > 1, the fold.
+extern "C" int bscsr_topk_spmv_rows_launch(
+    const float* x, const int32_t* words, float* out_v, int32_t* out_r,
+    const int32_t* bounds, const int32_t* head_row, float* pad_v, int32_t* pad_r,
+    float* heads, float* carries, int n_cores, int splits, long long n_packets, int width,
+    int packet_words, int m, int nq, int q_width, int block, int per_step, int col_words,
+    int fmt, int k, int n_rows, void* stream) {
+  const Params p = topk_params(x, words, out_v, out_r, n_cores, n_packets, width, m, nq, 1,
+                               block, per_step, col_words, fmt, k, n_rows);
+  const MqSplits sp{bounds, head_row, pad_v, pad_r, heads, carries, splits};
+  RowsArgs a;
+  if (!rows_args(&a, p, sp, packet_words, q_width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int per_block = a.warps * a.groups;
+  const dim3 grid((n_cores * splits + per_block - 1) / per_block, (nq + q_width - 1) / q_width);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = rows_kernel(a, true, grid, s, nullptr);
+  if (err != 0) return err;
+  return launch_merge(p, sp, s);
 }
 
 // Accumulate mode: out (C, n_rows) f32, zero-filled by the caller; bounds
@@ -1407,26 +1924,35 @@ extern "C" int bscsr_topk_spmv_resident_blocks(int block, int per_step, int m, i
       blocks, topk_spmv_single_kernel, tb, bytes));
 }
 
-// Multi-query blocks of T*B threads, q_chunk queries each, that one SM holds
-// at once, for an x of width m and k entries a scratchpad.
-template <int QC>
-int mq_resident(int tb, int m, int k, int* blocks) {
+// One-query multi-query blocks of T*B threads that one SM holds at once,
+// for an x of width m and k entries a scratchpad.
+extern "C" int bscsr_topk_spmv_mq_resident_blocks(int block, int per_step, int m, int k,
+                                                  int* blocks) {
+  const int tb = block * per_step;
   int x_in_smem = 0;
-  const size_t bytes = mq_prepare<QC>(tb, k, m, &x_in_smem);
+  if (tb % 32 != 0 || tb > 1024 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = mq_prepare(tb, k, m, &x_in_smem);
   if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, mq_kernel<QC>(), tb, bytes));
+      blocks, topk_spmv_mq1_kernel, tb, bytes));
 }
 
-extern "C" int bscsr_topk_spmv_mq_resident_blocks(int block, int per_step, int m,
-                                                  int q_chunk, int k, int* blocks) {
+// The rows walk's blocks that one SM holds at once and walkers a block, for
+// q_width queries a block, an x of width m, k entries a scratchpad and
+// packets of packet_words words.
+extern "C" int bscsr_topk_spmv_rows_resident(int block, int per_step, int packet_words, int m,
+                                             int q_width, int k, int* blocks, int* walkers) {
+  RowsArgs a{};
+  a.block = block;
+  a.per_step = per_step;
+  a.packet_words = packet_words;
+  a.m = m;
+  a.q_width = q_width;
+  a.k = k;
   const int tb = block * per_step;
-  if (tb % 32 != 0 || tb > 1024 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (qc_of(q_chunk)) {
-    case 1: return mq_resident<1>(tb, m, k, blocks);
-    case 2: return mq_resident<2>(tb, m, k, blocks);
-    case 4: return mq_resident<4>(tb, m, k, blocks);
-    case 8: return mq_resident<8>(tb, m, k, blocks);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (tb % 32 != 0 || tb > 1024 || k < 1 || !rows_plan(&a)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  *walkers = a.warps * a.groups;
+  return rows_kernel(a, false, dim3(1), nullptr, blocks);
 }

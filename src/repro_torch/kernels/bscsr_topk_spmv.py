@@ -15,10 +15,11 @@ stream among S CTAs at steps that hold a flag bit (``spmv_split_table``)
 and stop at the core's last flagged step, though the stage-3 row carry
 crosses packet boundaries.  The accumulate kernel joins the splits with an
 exact carry fix-up; the two top-k kernels give each split its own
-scratchpads and fold them in split order (one fold kernel serves both),
-with each split's head row scored as head piece + the previous split's
-carry.  Every S gives the single walk's bits.  The single-query kernel
-stages its steps through a ring in shared memory with bulk copies.
+scratchpads and fold them (one fold kernel serves both: the top k of
+every split's scratchpad and head row, gathered over a warp's lanes), with
+each split's head row scored as head piece + the previous split's carry.
+Every S gives the single walk's bits.  The single-query kernel stages its
+steps through a ring in shared memory with bulk copies.
 
 A mixed-precision snapshot streams one tagged word array per storage-width
 class (``fmt_name`` TAG4, TAG2 or TAG1): each packet row leads with one
@@ -51,7 +52,11 @@ queries with a Python loop over steps.
 
 Stages 1-3 are shared by all three (``_plain_steps`` here; in the CUDA
 source ``single_walk``, ``mq_walk`` and ``accum_walk``, with the same
-arithmetic).
+arithmetic).  The multi-query kernel's walk at Q >= 2 (``rows_walk``) sums
+each segment's products in stream order instead of as a prefix
+difference: the same bits on dyadic data, and
+:func:`bscsr_topk_spmv_multiquery_emulated` (``_plain_steps`` with
+``sums="rows"``) gives its bits on any data.
 
 Stage 4 ranks as ``lax.top_k`` does: float total order (-0.0 below +0.0),
 lower position first on ties, which puts scratchpad entries before
@@ -220,7 +225,7 @@ def _decode_fused_tile(tile: torch.Tensor, block: int, fmt, col_words: int):
 
 def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
                  fmt, block: int, col_words: int, start=None, stop=None,
-                 row=None):
+                 row=None, sums: str = "prefix"):
     """Stages 1-3 of the Pallas tile walk for a (Q, M) batch, step by step.
 
     Each core walks steps ``[start, stop)`` ((C,) tensors; the whole stream
@@ -230,6 +235,11 @@ def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
     TB+1) int32 slot ids, the (C, TB+1) mask of segments that complete in
     this step, and the (C, Q) carry after it.  A core past its ``stop``
     completes nothing and keeps its carry.
+
+    ``sums`` is the association of a segment's sum in a step: "prefix", the
+    difference of the step's inclusive prefix sums (the Pallas kernels and
+    the card's one-query walks); "rows", its products added in stream order
+    from +0.0 (the card's multi-query walk at Q >= 2).
     """
     dev = words.device
     n_cores = words.shape[0]
@@ -264,12 +274,18 @@ def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
         s_last = seg[:, -1].long()
         is_last = torch.cat([f[:, 1:], ones], dim=-1) == 1
         slot = torch.where(is_last, seg, tb + 1).long()
-        ps = torch.cumsum(prods, dim=-1)
+        if sums == "rows":
+            ps = _segment_runs(prods, f)
+        else:
+            ps = torch.cumsum(prods, dim=-1)
         ends = torch.zeros((n_cores, nq, tb + 2), dtype=torch.float32, device=dev)
         ends.scatter_(-1, slot[:, None, :].expand(-1, nq, -1), ps)
         ends = ends[..., : tb + 1]
-        prev = torch.cat([ends.new_zeros((n_cores, nq, 1)), ends[..., :-1]], dim=-1)
-        seg_sums = ends - prev                                      # (C, Q, TB+1)
+        if sums == "rows":
+            seg_sums = ends                                         # (C, Q, TB+1)
+        else:
+            prev = torch.cat([ends.new_zeros((n_cores, nq, 1)), ends[..., :-1]], dim=-1)
+            seg_sums = ends - prev
         # ---- stage 3: cross-step carry of the open row ----
         part = carry_sum
         cand_v = seg_sums + torch.where(seg_ids == 0, part[..., None], 0.0)
@@ -283,14 +299,27 @@ def _plain_steps(x: torch.Tensor, words: torch.Tensor, *, packets_per_step: int,
         yield cand_v, cand_r, complete, carry_sum
 
 
+def _segment_runs(prods: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """(C, Q, TB) products, (C, TB) flag bits -> each nnz's running sum of
+    its segment: the products in stream order from +0.0, restarting at every
+    flag bit (no reassociation: one f32 addition per nnz)."""
+    runs = torch.empty_like(prods)
+    acc = prods.new_zeros(prods.shape[:-1])
+    starts = (f == 1)[:, None, :]
+    for j in range(prods.shape[-1]):
+        acc = torch.where(starts[..., j], 0.0, acc) + prods[..., j]
+        runs[..., j] = acc
+    return runs
+
+
 def _walk_plain(x: torch.Tensor, words: torch.Tensor, *, k: int, n_rows: int,
-                packets_per_step: int, fmt, block: int,
-                col_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                packets_per_step: int, fmt, block: int, col_words: int,
+                sums: str = "prefix") -> Tuple[torch.Tensor, torch.Tensor]:
     """The Pallas top-k tile walk for a (Q, M) query batch -> (C, Q, k) each."""
     acc_v, acc_r = _empty_scratchpad(words.shape[0], x.shape[0], k, n_rows, words.device)
     for cand_v, cand_r, complete, _ in _plain_steps(
             x, words, packets_per_step=packets_per_step, fmt=fmt, block=block,
-            col_words=col_words):
+            col_words=col_words, sums=sums):
         acc_v, acc_r = _admit(acc_v, acc_r, cand_v, cand_r, complete, k)
     return acc_v, acc_r
 
@@ -394,10 +423,19 @@ def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
     do, and folds the splits in order (``_walk_plain_split``).  The result
     equals the single walk bit for bit.
     """
+    return _multiquery_plain(x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+                             fmt_name=fmt_name, block_size=block_size, inner_loop=inner_loop,
+                             splits=splits, table=table, sums="prefix")
+
+
+def _multiquery_plain(x, words, *, k, n_rows, packets_per_step, fmt_name, block_size,
+                      inner_loop, splits, table, sums):
+    """The plain multi-query walk with segment sums by ``sums``
+    (:func:`_plain_steps`): the single walk, or the split walk and fold."""
     fmt, col_words = _resolve(fmt_name, words, block_size, packets_per_step, k,
                               "take", inner_loop)
     walk = dict(k=k, n_rows=n_rows, packets_per_step=packets_per_step, fmt=fmt,
-                block=block_size, col_words=col_words)
+                block=block_size, col_words=col_words, sums=sums)
     if table is None and splits is None:
         return _walk_plain(x, words, **walk)
     if table is None:
@@ -405,6 +443,28 @@ def bscsr_topk_spmv_multiquery_plain(x, words, *, k, n_rows, packets_per_step=2,
                                  block_size=block_size, splits=splits,
                                  header=_header_words(fmt))
     return _walk_plain_split(x.float(), words, table, **walk)
+
+
+def bscsr_topk_spmv_multiquery_emulated(x, words, *, k, n_rows, packets_per_step=2,
+                                        fmt_name="F32", block_size=256, splits=None,
+                                        table=None):
+    """The card's multi-query walk at Q >= 2 (``rows_walk``), step by step on
+    any device -> (C, Q, k); no dispatch path calls it.
+
+    It differs from :func:`bscsr_topk_spmv_multiquery_plain` in one place:
+    a segment's sum in a step is its products added in stream order from
+    +0.0, where plain takes a difference of prefix sums.  Stage 3 is the
+    same (one addition of the carry to the step's first segment; the open
+    row's carry is the step's piece, plus the carry it came in with when the
+    step holds no flag bit), and so are the admission and the fold of
+    splits.  So a query's bits depend on neither the other queries, Q, S nor
+    how the card lays out its walkers (every walker walks one split of the
+    table), and on dyadic data they are plain's.  With ``splits`` or a
+    ``table`` it walks and folds the splits as the card does.
+    """
+    return _multiquery_plain(x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
+                             fmt_name=fmt_name, block_size=block_size, inner_loop="linear",
+                             splits=splits, table=table, sums="rows")
 
 
 def _popcount32(w: torch.Tensor) -> torch.Tensor:
@@ -580,10 +640,16 @@ def _library() -> ctypes.CDLL:
                                            i, i, i, i, i, i, p]
     lib.bscsr_topk_spmv_launch.restype = i
     # x, words, out_v, out_r, bounds, head_row, pad_v, pad_r, heads, carries, C,
-    # S, P, W, M, Q, q_chunk, B, T, col_words, fmt, k, n_rows, stream
+    # S, P, W, M, Q, B, T, col_words, fmt, k, n_rows, stream
     lib.bscsr_topk_spmv_multiquery_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
-                                                      ll, i, i, i, i, i, i, i, i, i, i, p]
+                                                      ll, i, i, i, i, i, i, i, i, i, p]
     lib.bscsr_topk_spmv_multiquery_launch.restype = i
+    # x, words, out_v, out_r, bounds, head_row, pad_v, pad_r, heads, carries, C,
+    # S, P, W, packet words, M, Q, queries a block, B, T, col_words, fmt, k,
+    # n_rows, stream
+    lib.bscsr_topk_spmv_rows_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, ll, i, i,
+                                                i, i, i, i, i, i, i, i, i, p]
+    lib.bscsr_topk_spmv_rows_launch.restype = i
     # x, words, out, bounds, head_row, heads, carries, C, S, P, W, M, B, T,
     # col_words, fmt, n_rows, stream
     lib.bscsr_spmv_launch.argtypes = [p, p, p, p, p, p, p, i, i, ll, i, i, i, i, i, i, i,
@@ -595,9 +661,13 @@ def _library() -> ctypes.CDLL:
     # B, T, M, k, ring depth, step words, out: resident single-query blocks per SM
     lib.bscsr_topk_spmv_resident_blocks.argtypes = [i, i, i, i, i, i, p]
     lib.bscsr_topk_spmv_resident_blocks.restype = i
-    # B, T, M, q_chunk, k, out: resident multi-query blocks per SM
-    lib.bscsr_topk_spmv_mq_resident_blocks.argtypes = [i, i, i, i, i, p]
+    # B, T, M, k, out: resident one-query multi-query blocks per SM
+    lib.bscsr_topk_spmv_mq_resident_blocks.argtypes = [i, i, i, i, p]
     lib.bscsr_topk_spmv_mq_resident_blocks.restype = i
+    # B, T, packet words, M, queries a block, k, out blocks, out walkers: the
+    # rows walk's resident blocks per SM and walkers a block
+    lib.bscsr_topk_spmv_rows_resident.argtypes = [i, i, i, i, i, i, p, p]
+    lib.bscsr_topk_spmv_rows_resident.restype = i
     return lib
 
 
@@ -738,16 +808,48 @@ bscsr_topk_spmv.launches = 0
 # and T = 2, so three blocks an SM keep some 44 KB in flight.
 SINGLE_RING_DEPTH = 8
 
-# Queries one CTA carries through the stream pass.  Each thread keeps one
-# product per query of its chunk in registers, and one set of barriers a step
-# serves them all.
-MQ_QUERIES_PER_CTA = 8
+# The most queries a block of the multi-query walk at Q >= 2 carries: two
+# for each of a warp's 32 lanes.
+MQ_QUERIES_PER_CTA = 64
+
+# x transposed ([m + 1] rows of the block's queries) stays in global memory
+# when it would take more shared memory than this (the CUDA source's
+# kRowsXBytes).
+_ROWS_X_BYTES = 160 * 1024
 
 
-def query_chunks(nq: int) -> Tuple[int, int]:
-    """(queries per CTA, chunks) of a Q-query pass of the multi-query kernel."""
-    q_chunk = min(nq, MQ_QUERIES_PER_CTA)
-    return q_chunk, -(-nq // q_chunk)
+def _rows_query_width(m) -> int:
+    """The widest query chunk whose x transposed fits in shared memory at
+    width ``m`` (``m + 1`` rows of the chunk's queries and a pad of one
+    lane's, as the kernel's ``rows_x_stride`` lays them out: four queries a
+    lane above 32, else two); ``MQ_QUERIES_PER_CTA`` when none fits (x read
+    from global memory) or ``m`` is not known."""
+    if m is None:
+        return MQ_QUERIES_PER_CTA
+    width = MQ_QUERIES_PER_CTA
+    while width >= 2:
+        stride = width + (4 if width > 32 or width == 2 else 2)
+        if 4 * (m + 1) * stride <= _ROWS_X_BYTES:
+            return width
+        width //= 2
+    return MQ_QUERIES_PER_CTA
+
+
+def query_chunks(nq: int, m=None) -> Tuple[int, int]:
+    """(queries a block carries, query chunks) of a Q-query pass of the
+    multi-query kernel: one query at Q = 1; at Q >= 2 chunks as wide as x
+    transposed at width ``m`` allows (:func:`_rows_query_width`), balanced."""
+    if nq <= 1:
+        return 1, 1
+    n_chunks = -(-nq // _rows_query_width(m))
+    return -(-nq // n_chunks), n_chunks
+
+
+def multiquery_walk(nq: int) -> str:
+    """The card's walk for a pass of ``nq`` queries: ``"chunks1"``
+    (``topk_spmv_mq1_kernel``, the single-query kernel's bits) at one query,
+    ``"rows"`` (``topk_spmv_rows_kernel``) at two or more."""
+    return "chunks1" if nq == 1 else "rows"
 
 
 def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
@@ -755,23 +857,28 @@ def bscsr_topk_spmv_multiquery(x, words, *, k, n_rows, packets_per_step=2,
                                splits=None, table=None):
     """Per-core top-k of a (Q, M) query batch in one stream pass -> (C, Q, k).
 
-    The kernel walks each core's stream with S blocks per chunk of queries,
-    one per split of ``table`` (:func:`spmv_split_table`; built here when not
-    given, with ``splits`` or, when that is None, :func:`topk_splits`
-    blocks), each with its own scratchpad, and a second small kernel folds
-    the splits in order.  Every S gives the single walk's bits.  One launch
-    is counted per call, the fold included.  CPU tensors run the plain
-    version, at ``PLAIN_SPLITS`` when neither ``splits`` nor a table is
-    given.
+    The kernel walks each core's stream with S walkers, one per split of
+    ``table`` (:func:`spmv_split_table`; built here when not given, with
+    ``splits`` or, when that is None, :func:`topk_splits` walkers), each with
+    its own scratchpads, and a second small kernel folds the splits in
+    order.  Every S gives the S = 1 bits.  At one query a block of T*B
+    threads walks a split (the single-query kernel's bits); at Q >= 2 a warp
+    walks it for up to ``MQ_QUERIES_PER_CTA`` queries, summing each row's
+    products in stream order (:func:`bscsr_topk_spmv_multiquery_emulated`
+    gives its bits).  One launch is counted per call, the fold included,
+    and one in ``launches_by_walk`` under :func:`multiquery_walk`'s name.
+    CPU tensors run the plain version, at ``PLAIN_SPLITS`` when neither
+    ``splits`` nor a table is given.
     """
     if x.dim() != 2 or x.shape[0] == 0:
         raise ValueError(f"x must be a non-empty (Q, M) batch, got {tuple(x.shape)}")
     nq = x.shape[0]
-    q_chunk, n_chunks = query_chunks(nq)
+    q_chunk, n_chunks = query_chunks(nq, x.shape[1])
     if table is None and splits is None:
         splits = topk_splits(words.device, words.shape[0], n_chunks,
                              packets_per_step=packets_per_step, block_size=block_size,
-                             m=x.shape[1], q_chunk=q_chunk, k=k)
+                             m=x.shape[1], q_chunk=q_chunk, k=k, width=words.shape[2],
+                             fmt_name=fmt_name)
     if words.device.type == "cpu" and x.device.type == "cpu":
         return bscsr_topk_spmv_multiquery_plain(
             x, words, k=k, n_rows=n_rows, packets_per_step=packets_per_step,
@@ -814,22 +921,28 @@ def _multiquery_device(x, words, *, k, n_rows, packets_per_step, fmt_name, block
         pad_r = torch.empty((n_cores, n_splits, nq, k), dtype=torch.int32, device=dev)
     heads = torch.empty((n_cores, n_splits, nq), dtype=torch.float32, device=dev)
     carries = torch.empty_like(heads)
+    walk = multiquery_walk(nq)
+    ptrs = (x.data_ptr(), _kernel_words(words, fmt), out_v.data_ptr(), out_r.data_ptr(),
+            bounds.data_ptr(), head_row.data_ptr(), pad_v.data_ptr(), pad_r.data_ptr(),
+            heads.data_ptr(), carries.data_ptr(), n_cores, n_splits, n_packets, width)
+    tail = (block_size, packets_per_step, col_words, _FMT_IDS[fmt_name], k, n_rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().bscsr_topk_spmv_multiquery_launch(
-            x.data_ptr(), _kernel_words(words, fmt), out_v.data_ptr(), out_r.data_ptr(),
-            bounds.data_ptr(), head_row.data_ptr(), pad_v.data_ptr(), pad_r.data_ptr(),
-            heads.data_ptr(), carries.data_ptr(), n_cores, n_splits, n_packets, width,
-            x.shape[1], nq, q_chunk, block_size, packets_per_step, col_words,
-            _FMT_IDS[fmt_name], k, n_rows, stream,
-        )
+        if walk == "chunks1":
+            err = _library().bscsr_topk_spmv_multiquery_launch(
+                *ptrs, x.shape[1], nq, *tail, stream)
+        else:
+            err = _library().bscsr_topk_spmv_rows_launch(
+                *ptrs, _step_words(1, width, fmt), x.shape[1], nq, q_chunk, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"bscsr_topk_spmv_multiquery_launch failed: CUDA error {err}")
+        raise RuntimeError(f"bscsr_topk_spmv_multiquery ({walk} walk) failed: CUDA error {err}")
     bscsr_topk_spmv_multiquery.launches += 1
+    bscsr_topk_spmv_multiquery.launches_by_walk[walk] += 1
     return out_v, out_r
 
 
 bscsr_topk_spmv_multiquery.launches = 0
+bscsr_topk_spmv_multiquery.launches_by_walk = {"rows": 0, "chunks1": 0}
 
 
 def _check_table(table, words: torch.Tensor, splits) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -892,17 +1005,47 @@ def spmv_splits(device, n_cores: int, *, packets_per_step: int, block_size: int,
 
 
 def topk_splits(device, n_cores: int, n_chunks: int, *, packets_per_step: int,
-                block_size: int, m: int, q_chunk: int, k: int) -> int:
-    """S, the blocks that walk each of ``n_cores`` streams for each of
-    ``n_chunks`` query chunks in the multi-query kernel on ``device``.
+                block_size: int, m: int, q_chunk: int, k: int, width=None,
+                fmt_name: str = "F32") -> int:
+    """S, the walkers on each of ``n_cores`` streams for each of ``n_chunks``
+    query chunks of ``q_chunk`` queries (:func:`query_chunks`) in the
+    multi-query kernel on ``device``.
 
     On the card: the kernel's blocks one SM holds at once (the occupancy
-    calculator, for this T*B, x width, chunk and k) times the SM count, over
-    cores x chunks, so one wave of blocks fills the card.  On the CPU:
+    calculator, for this T*B, x width, chunk, k and packet of ``width``
+    words, the widest untagged packet when not given) times the SM count,
+    over the chunks, times the walkers a block (one at one query), over the
+    cores, so one wave of blocks fills the card.  On the CPU:
     ``PLAIN_SPLITS``.
     """
-    return _one_wave(device, n_cores * n_chunks, "bscsr_topk_spmv_mq_resident_blocks",
-                     block_size, packets_per_step, m, q_chunk, k)
+    if q_chunk <= 1:
+        return _one_wave(device, n_cores * n_chunks, "bscsr_topk_spmv_mq_resident_blocks",
+                         block_size, packets_per_step, m, k)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return PLAIN_SPLITS
+    if device.type == "meta":
+        return 1
+    if width is None:
+        width = block_size // FLAG_WORD_BITS + 2 * block_size
+    packet_words = _step_words(1, width, STREAM_FORMATS[fmt_name])
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, walkers = _rows_resident(dev, block_size, packets_per_step, packet_words, m,
+                                     q_chunk, k)
+    return max(1, blocks * sms // n_chunks * walkers // n_cores)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_resident(device_index: int, *args: int) -> Tuple[int, int]:
+    """(blocks an SM holds at once, walkers a block) of the rows walk."""
+    blocks, walkers = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _library().bscsr_topk_spmv_rows_resident(
+            *args, ctypes.addressof(blocks), ctypes.addressof(walkers))
+    if err != 0:
+        raise RuntimeError(f"bscsr_topk_spmv_rows_resident failed: CUDA error {err}")
+    return blocks.value, walkers.value
 
 
 def single_splits(device, n_cores: int, *, packets_per_step: int, block_size: int, m: int,
@@ -1000,4 +1143,5 @@ def reset_launch_counts() -> None:
     """Set every wrapper's ``launches`` count to 0."""
     bscsr_topk_spmv.launches = 0
     bscsr_topk_spmv_multiquery.launches = 0
+    bscsr_topk_spmv_multiquery.launches_by_walk = {"rows": 0, "chunks1": 0}
     bscsr_spmv.launches = 0

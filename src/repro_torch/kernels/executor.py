@@ -42,8 +42,10 @@
   steady-state dispatch adds 0 to it.
 * Traced work (``utils/tracing.py``) records ``executor.prepare`` (with
   ``executor.pin`` and ``executor.build`` inside it when they happen),
-  ``executor.launch`` (each core's k best) and ``executor.finalize`` (the
-  merge into ``big_k``) for every top-k query path.
+  ``executor.launch`` (each core's k best; its ``walk`` attribute names the
+  kernel walk: ``"single"``, ``"chunks1"`` or ``"rows"`` as
+  ``multiquery_walk`` says, or ``"reference"``) and ``executor.finalize``
+  (the merge into ``big_k``) for every top-k query path.
 * One executor serves every thread of the process (a serving frontend
   dispatches from its own thread while callers query from theirs), so its
   caches and counters change under a lock; the query functions run outside
@@ -69,6 +71,7 @@ from repro_torch.kernels.bscsr_topk_spmv import (
     bscsr_spmv,
     bscsr_topk_spmv,
     bscsr_topk_spmv_multiquery,
+    multiquery_walk,
     query_chunks,
     single_splits,
     spmv_split_table,
@@ -410,7 +413,9 @@ class QueryExecutor:
                     else ops.finalize_candidates_batched)
 
         def run(x, s: DeviceSnapshot, fin: dict):
-            with tracing.span("executor.launch"):
+            walk = ("reference" if path == "reference" else "single" if x.dim() == 1
+                    else multiquery_walk(x.shape[0]))
+            with tracing.span("executor.launch", walk=walk):
                 lv, lr = local(x, s)
             with tracing.span("executor.finalize"):
                 return finalize(lv, lr, big_k=big_k, **fin)
@@ -446,11 +451,12 @@ class QueryExecutor:
                     words.device, words.shape[0], packets_per_step=t, block_size=s.block_size,
                     m=x.shape[0], k=k, width=words.shape[2], fmt_name=name), i)
                     for i, (words, name) in enumerate(zip(s.streams, names))]
-            q_chunk, n_chunks = query_chunks(x.shape[0])
+            q_chunk, n_chunks = query_chunks(x.shape[0], x.shape[1])
             return [s.split_table(t, topk_splits(words.device, words.shape[0], n_chunks,
                                                  packets_per_step=t, block_size=s.block_size,
-                                                 m=x.shape[1], q_chunk=q_chunk, k=k), i)
-                    for i, words in enumerate(s.streams)]
+                                                 m=x.shape[1], q_chunk=q_chunk, k=k,
+                                                 width=words.shape[2], fmt_name=name), i)
+                    for i, (words, name) in enumerate(zip(s.streams, names))]
 
         if snap.groups is not None:
 
@@ -545,9 +551,10 @@ def local_topk(x: torch.Tensor, words: torch.Tensor, table_cache: dict, pos, *, 
     kw = dict(k=k, n_rows=n_rows, packets_per_step=t, fmt_name=fmt_name,
               block_size=block_size, inner_loop=inner_loop)
     if x.dim() == 2:
-        q_chunk, n_chunks = query_chunks(x.shape[0])
+        q_chunk, n_chunks = query_chunks(x.shape[0], x.shape[1])
         splits = topk_splits(words.device, cores, n_chunks, packets_per_step=t,
-                             block_size=block_size, m=x.shape[1], q_chunk=q_chunk, k=k)
+                             block_size=block_size, m=x.shape[1], q_chunk=q_chunk, k=k,
+                             width=words.shape[2], fmt_name=fmt_name)
         table = position_split_table(table_cache, pos, words, splits, packets_per_step=t,
                                      block_size=block_size)
         return bscsr_topk_spmv_multiquery(x, words, table=table, **kw)

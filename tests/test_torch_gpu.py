@@ -10,6 +10,11 @@ reason, where ``torch.cuda.is_available()`` is false.  Dyadic fixtures
 (values on a 2**-7 grid, queries on a 2**-3 grid) are exact in f32 in any
 summation order, so kernel and plain version must agree bit for bit.
 
+The multi-query kernel's walk at Q >= 2 sums each row's products in
+stream order, so on random data it is held bit for bit to its CPU emulation
+(``bscsr_topk_spmv_multiquery_emulated``) at every S, chunking and x
+placement, and at Q = 1 it keeps the single-query kernel's bits.
+
 The tagged width classes of mixed-precision snapshots (TAG4, TAG2 with
 BF16 and Q15 cores in one launch, TAG1) run through all three kernels
 against their plain versions and against the same snapshot's f32 twins
@@ -33,8 +38,8 @@ training mesh: ``train(mesh=)`` on a 2 x 2 mesh of this card's positions bit
 for bit ``mesh=None``, a resume from that mesh's checkpoint on a 4 x 1 one,
 and ``pipelined_loss_fn`` on a (4, 1, 1) mesh against the sequential loss.
 
-Tracing: a traced Q = 64 pass at 1M rows keeps its device time between the
-launch and the end of ``index.wait``, and its spans meet their profiler
+Tracing: a traced Q = 64 pass at 10M rows keeps its device time between
+the launch and the end of ``index.wait``, and its spans meet their profiler
 twins.
 """
 import dataclasses
@@ -880,6 +885,110 @@ def test_tagged_mq_kernel_at_ragged_q(cuda, q):
 
 
 # ---------------------------------------------------------------------------
+# The multi-query walk at Q >= 2 ("rows"): held bit for bit to its CPU
+# emulation on random data, at every S, chunking and x placement
+# ---------------------------------------------------------------------------
+
+def emulated(xs, w, **kw):
+    """The rows walk's bits, computed on the CPU."""
+    return K.bscsr_topk_spmv_multiquery_emulated(xs.cpu(), w.cpu(), **kw)
+
+
+@pytest.mark.parametrize("k", [2, 8, 12])
+@pytest.mark.parametrize("q", [2, 3, 31, 64, 65, 100])
+def test_rows_walk_matches_its_emulation_bitwise(cuda, q, k):
+    """Random data, every format: the card's S, one split and 64 give the
+    emulation's bits (one chunk up to Q = 64, two or more beyond)."""
+    csr = long_row_csr(200, 512, 64, seed=q + k, dyadic=False)
+    xs = mq_queries(q, 512, seed=q, dyadic=False)
+    for fmt in FORMATS:
+        packed = ops.pack_partitions(csr, 4, 64, fmt, packets_multiple=2,
+                                     stream_layout="fused")
+        w = torch.from_numpy(packed.words)
+        kw = dict(k=k, n_rows=packed.max_slots, packets_per_step=2, fmt_name=fmt,
+                  block_size=64)
+        want = emulated(xs, w, **kw)
+        for splits in (None, 1, 64):
+            got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits, **kw)
+            torch.cuda.synchronize()
+            assert_same_bits(got, want, f"{fmt} Q={q} k={k} S={splits}")
+
+
+@pytest.mark.parametrize("block,t,n_cols", [(32, 1, 2000), (256, 2, 2000), (64, 2, 40_000)])
+def test_rows_walk_on_tagged_classes_and_wide_x(cuda, block, t, n_cols):
+    """Each tagged class (TAG2 with BF16 and Q15 cores in one launch) at
+    Q = 2, 9 and 64, and x in global memory at m = 40,000 (int32 ids):
+    the emulation's bits at the card's S and at S = 3."""
+    csr = long_row_csr(600, n_cols, block, seed=block + t + 50, dyadic=False)
+    packed, groups = mixed_pack(csr, block, t)
+    for q in (2, 9, 64):
+        xs = mq_queries(q, n_cols, seed=q + t, dyadic=False)
+        for name, g in groups.items():
+            w = torch.from_numpy(g.words)
+            kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=t, fmt_name=name,
+                      block_size=block)
+            want = emulated(xs, w, **kw)
+            for splits in (None, 3):
+                got = K.bscsr_topk_spmv_multiquery(xs.to(cuda), w.to(cuda), splits=splits,
+                                                   **kw)
+                assert_same_bits(got, want, f"{name} Q={q} S={splits}")
+
+
+def test_rows_walk_bits_do_not_depend_on_q_or_the_walkers(cuda):
+    """A query's bits at Q = 2, 8, 37 and 100, in any chunk and at any S."""
+    csr = long_row_csr(300, 2000, 256, seed=61, dyadic=False)
+    packed = ops.pack_partitions(csr, 4, 256, "BF16", packets_multiple=2, stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name="BF16",
+              block_size=256)
+    xs = mq_queries(100, 2000, seed=62, dyadic=False).to(cuda)
+    full = K.bscsr_topk_spmv_multiquery(xs, w, splits=1, **kw)
+    for q in (2, 8, 37):
+        for splits in (None, 1, 5, 64):
+            got = K.bscsr_topk_spmv_multiquery(xs[:q].contiguous(), w, splits=splits, **kw)
+            assert_same_bits(got, (full[0][:, :q], full[1][:, :q]), f"Q={q} S={splits}")
+    tail = K.bscsr_topk_spmv_multiquery(xs[60:62].contiguous(), w, **kw)
+    assert_same_bits(tail, (full[0][:, 60:62], full[1][:, 60:62]), "queries 60, 61")
+
+
+def test_launches_by_walk(cuda):
+    """Q = 1 launches the one-query walk, Q >= 2 the rows walk, on every
+    route: the wrapper, ops.topk_spmv_batched and the executor."""
+    csr = long_row_csr(100, 256, 32, seed=63, dyadic=True)
+    packed = ops.pack_partitions(csr, 2, 32, "BF16", packets_multiple=2,
+                                 stream_layout="fused")
+    w = torch.from_numpy(packed.words).to(cuda)
+    kw = dict(k=8, n_rows=packed.max_slots, packets_per_step=2, fmt_name="BF16",
+              block_size=32)
+    K.reset_launch_counts()
+    for q in (1, 2, 3, 64, 1):
+        K.bscsr_topk_spmv_multiquery(mq_queries(q, 256, seed=q, dyadic=True).to(cuda), w, **kw)
+    ops.topk_spmv_batched(mq_queries(5, 256, seed=5, dyadic=True), packed, 16, k=8,
+                          packets_per_step=2, device=cuda)
+    torch.cuda.synchronize()
+    assert K.bscsr_topk_spmv_multiquery.launches_by_walk == {"rows": 4, "chunks1": 2}
+    assert K.bscsr_topk_spmv_multiquery.launches == 6
+    K.reset_launch_counts()
+    assert K.bscsr_topk_spmv_multiquery.launches_by_walk == {"rows": 0, "chunks1": 0}
+
+
+@pytest.mark.parametrize("s,r", [(4, 2), (3, 1)])
+def test_mesh_at_q_2_and_3_equals_one_device(cuda, s, r):
+    """At Q = 2 and 3 every replica row walks at least two queries, so it
+    takes the single device's walk and gives its bits."""
+    csr = bscsr.synthetic_embedding_csr(20_000, 128, 12, "gamma", seed=5)
+    cfg = api.TopKSpMVConfig(big_k=20, k=8, value_format="BF16", num_partitions=24,
+                             device="cuda")
+    one = SparseEmbeddingIndex(csr, cfg)
+    msh = SparseEmbeddingIndex(csr, cfg, mesh=card_mesh(cuda, s, r))
+    xs = np.random.default_rng(11).standard_normal((3, 128)).astype(np.float32)
+    for q in (2, 3):
+        K.reset_launch_counts()
+        assert_pair_bits(msh.query_batch(xs[:q]), one.query_batch(xs[:q]), f"Q={q}")
+        assert K.bscsr_topk_spmv_multiquery.launches_by_walk["chunks1"] == 0
+
+
+# ---------------------------------------------------------------------------
 # The serving plane on the card, at test size
 # ---------------------------------------------------------------------------
 
@@ -1594,18 +1703,20 @@ def test_kernel_wrappers_record_the_same_cost_on_the_card_and_on_meta(cuda):
 
 
 def test_index_wait_holds_the_device_time_of_a_traced_pass(cuda):
-    """A traced Q = 64 pass over 1M rows of the paper's collection: the
-    device's time for the pass (CUDA events around the executor's pass on a
-    batch already on the card) lies between the start of ``executor.launch``
-    and the end of ``index.wait`` within 10% (the host's enqueue of the
-    finalize overlaps the kernel, and the wait holds the rest); the copies
-    back are short beside the wait; and a span's start on the profiler's
-    clock is within 200 us of its ``record_function`` twin's."""
+    """A traced Q = 64 pass over the paper's 10M rows: the device's time for
+    the pass (CUDA events around the executor's pass on a batch already on
+    the card) lies between the start of ``executor.launch`` and the end of
+    ``index.wait`` within 10% (the host's enqueue of the finalize overlaps
+    the kernel, and the wait holds the rest); the copies back are short
+    beside the wait; and a span's start on the profiler's clock is within
+    200 us of its ``record_function`` twin's.  The pass must outlast the
+    host's enqueue (about 1.5 ms) for the wait to hold anything: at 1M rows
+    the kernel takes about 0.5 ms on an H100, at 10M about 5 ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.utils import tracing
 
-    csr = bscsr.synthetic_embedding_csr(1_000_000, 512, 20, "gamma", seed=7)
+    csr = bscsr.synthetic_embedding_csr(10_000_000, 512, 20, "gamma", seed=7)
     index = SparseEmbeddingIndex(csr, api.TopKSpMVConfig(
         big_k=100, k=8, num_partitions=32, block_size=256, packets_per_step=2,
         stream_layout="fused", value_format="BF16", device="cuda"))

@@ -560,6 +560,129 @@ class TestTopkSplit:
         assert (v == tkern.NEG_INF).all() and (r == 4).all() and v.shape == (2, 2, 3)
 
 
+def rows(words, xs, splits=None, table=None, **kw):
+    """The card's multi-query walk at Q >= 2, emulated on the CPU."""
+    v, r = tkern.bscsr_topk_spmv_multiquery_emulated(
+        torch.from_numpy(xs), torch.from_numpy(words), splits=splits, table=table, **kw)
+    return v.numpy(), r.numpy()
+
+
+class TestRowsWalk:
+    """The emulation of the card's walk at Q >= 2, which sums a row's
+    products in stream order: plain's bits on dyadic data, within 1e-5 of
+    them otherwise, and a query's bits independent of S, of the walkers'
+    layout (each walks one split of the table) and of the other queries."""
+
+    @pytest.mark.parametrize("fmt", FORMATS)
+    @pytest.mark.parametrize("n_cols", [200, 40_000])           # int16 and int32 ids
+    @pytest.mark.parametrize("block,t", [(32, 1), (32, 2), (256, 1), (256, 2)])
+    def test_dyadic_fixtures_give_plain_bits(self, fmt, n_cols, block, t):
+        csr = dyadic_csr(n_rows=150, n_cols=n_cols, seed=block + t, max_len=40,
+                         empty_every=7)
+        words, slots = fused_words(csr, 3, block, fmt, t)
+        value_words = block * tkern.STREAM_FORMATS[fmt].bytes_per_value // 4
+        assert words.shape[2] - block // 32 - value_words == (
+            block if n_cols > 32767 else block // 2)
+        xs = dyadic_queries(5, n_cols, seed=t)
+        kw = dict(k=8, n_rows=slots, packets_per_step=t, fmt_name=fmt, block_size=block)
+        single = mq_single(words, xs, **kw)
+        assert (single[0] > tkern.NEG_INF).any()
+        assert_bitwise(rows(words, xs, **kw), single)
+        assert_bitwise(rows(words, xs, 5, **kw), single)
+
+    @pytest.mark.parametrize("fmt", FORMATS)
+    def test_random_data_within_tolerance(self, fmt):
+        csr = split_csr("long", 64, 2000, seed=41, dyadic=False)
+        words, tp = split_words(csr, 3, 64, fmt, 2)
+        xs = random_queries(6, 2000, seed=42)
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=2, fmt_name=fmt, block_size=64)
+        got, want = rows(words, xs, **kw), mq_single(words, xs, **kw)
+        assert_close_rows(got, want)
+        assert not np.array_equal(got[0].view(np.int32), want[0].view(np.int32))
+
+    @pytest.mark.parametrize("splits", [1, 2, 5, 64, 32, 66])
+    def test_every_walker_layout_gives_the_same_bits(self, splits):
+        """S = 1, 2, 5, 64, and the S of 8 warps x 4 and of 16 warps x 4 + 2
+        walkers: each walker walks one split, so only the table matters."""
+        csr = split_csr("long", 32, 2000, seed=43, dyadic=False)
+        words, tp = split_words(csr, 3, 32, "BF16", 2)
+        xs = random_queries(4, 2000, seed=44)
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=2, fmt_name="BF16",
+                  block_size=32)
+        assert_bitwise(rows(words, xs, splits, **kw), rows(words, xs, **kw))
+
+    def test_a_querys_bits_do_not_depend_on_q(self):
+        csr = split_csr("long", 32, 2000, seed=45, dyadic=False)
+        words, tp = split_words(csr, 3, 32, "Q15", 2)
+        xs = random_queries(37, 2000, seed=46)
+        kw = dict(k=8, n_rows=tp.max_slots, packets_per_step=2, fmt_name="Q15",
+                  block_size=32)
+        full = rows(words, xs, 5, **kw)
+        eight = rows(words, np.ascontiguousarray(xs[:8]), **kw)
+        assert_bitwise((full[0][:, :8], full[1][:, :8]), eight)
+        two = rows(words, np.ascontiguousarray(xs[30:32]), 2, **kw)
+        assert_bitwise((full[0][:, 30:32], full[1][:, 30:32]), two)
+
+    def test_signed_zero_scores_at_k12(self):
+        words, slots, xs = TestDyadicBitIdentical.signed_zero_fixture()
+        kw = dict(k=12, n_rows=slots, packets_per_step=1, fmt_name="Q7", block_size=32)
+        single = mq_single(words, xs, **kw)
+        assert (single[0] == 0).any()
+        for splits in (None, 2, 5, 64):
+            got = rows(words, xs, splits, **kw)
+            assert_bitwise(got, single)
+            assert not np.signbit(got[0][got[0] == 0]).any()
+
+    @pytest.mark.parametrize("t", [1, 2])
+    def test_a_row_of_150_nnz_across_steps(self, t):
+        rng = np.random.default_rng(47)
+        lens = np.array([3, 150, 2, 0, 5, 1, 4])
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        idx = np.concatenate([np.sort(rng.choice(200, n, replace=False))
+                              for n in lens if n]).astype(np.int32)
+        data = rng.standard_normal(int(lens.sum())).astype(np.float32)
+        csr = jbscsr.CSRMatrix(indptr, idx, data, (7, 200))
+        words, slots = fused_words(csr, 3, 32, "F32", t)
+        xs = random_queries(3, 200, seed=48)
+        kw = dict(k=8, n_rows=slots, packets_per_step=t, fmt_name="F32", block_size=32)
+        got = rows(words, xs, **kw)
+        for splits in (2, 5, 64):
+            assert_bitwise(rows(words, xs, splits, **kw), got)
+        # The long row (slot 1 of core 0) against its products summed in
+        # stream order within each step, the steps' pieces then chained.
+        v = data[3:153].astype(np.float32)
+        prods = (v * xs[:, idx[3:153]]).astype(np.float32)
+        step = 32 * t
+        first = step - 3                         # nnz of the row in the first step
+        cuts = [0, first] + list(range(first + step, 150, step)) + [150]
+        score = np.zeros(3, np.float32)
+        for i, (a, b) in enumerate(zip(cuts, cuts[1:])):
+            piece = np.zeros(3, np.float32)
+            for j in range(a, b):
+                piece = (piece + prods[:, j]).astype(np.float32)
+            score = piece if i == 0 else (piece + score).astype(np.float32)
+        want = (score + np.float32(0.0)).astype(np.float32)
+        hit = got[1][0] == 1
+        assert hit.sum() == 3                    # every query kept the long row
+        np.testing.assert_array_equal(got[0][0][hit].view(np.int32),
+                                      want[hit.any(-1)].view(np.int32))
+
+    def test_chunks_walks_and_splits_on_the_cpu(self):
+        assert tkern.query_chunks(1, 512) == (1, 1)
+        assert tkern.query_chunks(2, 512) == (2, 1)
+        assert tkern.query_chunks(64, 512) == (64, 1)
+        assert tkern.query_chunks(65, 512) == (33, 2)
+        assert tkern.query_chunks(100, 2048) == (15, 7)          # 16 a block at m = 2048
+        assert tkern.query_chunks(100, 40_000) == (50, 2)        # x from global memory
+        assert tkern.multiquery_walk(1) == "chunks1"
+        assert tkern.multiquery_walk(2) == tkern.multiquery_walk(64) == "rows"
+        for q_chunk in (1, 8, 64):
+            assert tkern.topk_splits("cpu", 32, 1, packets_per_step=2, block_size=256,
+                                     m=512, q_chunk=q_chunk, k=8) == tkern.PLAIN_SPLITS
+        assert tkern.topk_splits("meta", 32, 1, packets_per_step=2, block_size=256, m=512,
+                                 q_chunk=64, k=8) == 1
+
+
 def single(words, x, splits=None, table=None, **kw):
     """The single-query wrapper on the CPU: the plain split walk."""
     v, r = tkern.bscsr_topk_spmv(torch.from_numpy(x), torch.from_numpy(words), splits=splits,

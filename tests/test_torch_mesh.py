@@ -369,6 +369,25 @@ class TestDispatcher:
         hold("compact")
 
 
+    @pytest.mark.parametrize("q,bucket", [(1, 4), (2, 8), (3, 8), (9, 16)])
+    def test_a_replica_row_walks_two_queries_when_the_pass_does(self, q, bucket):
+        """The card's multi-query walk follows Q (one query, or two and
+        more), so a pass of Q >= 2 gives every replica row at least two
+        queries: on R = 4 the rows walk ``bucket / 4`` queries each, and the
+        answers stay the single device's."""
+        csr = port_csr(jbscsr.synthetic_embedding_csr(320, N_COLS, 10, "gamma", 7))
+        cfg = tcfg(big_k=16, k=8, num_partitions=8, block_size=64)
+        single = ttopk.MutableTopKSpMVIndex(csr, cfg)
+        sharded = ShardedTopKSpMVIndex(csr, cfg, mesh=cpu_mesh(2, 4))
+        disp = sharded._spmd
+        seen = []
+        build = disp._fn
+        disp._fn = lambda key, *rest: (seen.append(key), build(key, *rest))[1]
+        xs = np.random.default_rng(8).standard_normal((q, N_COLS)).astype(np.float32)
+        assert_bits(sharded.query_batched(xs), ttopk.topk_spmv_batched(single, xs), f"Q={q}")
+        assert seen == [bucket]
+
+
 # ---------------------------------------------------------------------------
 # Against the reference's mesh dispatch
 # ---------------------------------------------------------------------------
